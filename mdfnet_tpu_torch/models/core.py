@@ -1,0 +1,98 @@
+"""CoreNet — the 4-scale coarse-to-fine plane-sweep cascade, eval forward
+(port of ``mdfnet_tpu/models/core.py``, reference net/core.py:4-78).
+
+Channels-last: imgs (B, V, H, W, 3); features (B*V, h, w, C); cost volumes
+(B, D, h, w, G); probability volumes (B, D, h, w). The submodules carry the
+reference ``state_dict`` names (``Backbone``, ``Homoaggre``, ``Regular``,
+``Refine``), so reference ``.pth`` files and JAX-exported weights load with
+``load_state_dict(strict=True)``.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from mdfnet_tpu_torch import geometry
+from mdfnet_tpu_torch.models.aggregate import VectorAggregate
+from mdfnet_tpu_torch.models.backbone import FPN4Scales
+from mdfnet_tpu_torch.models.refine import RefineNet2
+from mdfnet_tpu_torch.models.regularize import (RegularNet3Scales,
+                                                RegularNet4Scales)
+from mdfnet_tpu_torch.ops.fitting import refined_hypotheses, uniform_hypotheses
+from mdfnet_tpu_torch.ops.regress import (confidence_regression,
+                                          depth_regression)
+from mdfnet_tpu_torch.ops.sample import resize_nearest_2x
+
+
+class CoreNet(nn.Module):
+    """FPN features -> per stage (hypotheses, warp + aggregate, 3D U-Net,
+    soft-argmax) -> PixelShuffle refinement; eval only.
+
+    The topology comes from ``ModelConfig`` (through
+    ``registry.build_model``). ``dtype`` is the conv compute dtype; geometry,
+    softmax, fitting and regression run in f32.
+    """
+
+    def __init__(self, *, chs: Sequence[int], ndepths: Sequence[int],
+                 curve_classes: Sequence[str | None],
+                 prob_threshs: Sequence[float], ngroups: Sequence[int],
+                 dtype: torch.dtype):
+        super().__init__()
+        self.ndepths = tuple(ndepths)
+        self.curve_classes = tuple(curve_classes)
+        self.prob_threshs = tuple(prob_threshs)
+        self.dtype = dtype
+        nstages = len(self.ndepths)
+        self.Backbone = FPN4Scales(tuple(chs))
+        self.Homoaggre = nn.ModuleList(VectorAggregate(ngroups[s])
+                                       for s in range(nstages))
+        self.Regular = nn.ModuleList(
+            [RegularNet3Scales(ngroups[0], 16)]
+            + [RegularNet4Scales(ngroups[s], 8) for s in range(1, nstages)])
+        self.Refine = RefineNet2()
+
+    @torch.no_grad()
+    def forward(self, imgs: torch.Tensor, extrinsics: torch.Tensor,
+                intrinsics: torch.Tensor, depth_range: torch.Tensor,
+                plain: bool = False) -> dict:
+        """
+        Args:
+            imgs: (B, V, H, W, 3) images, view 0 = reference.
+            extrinsics: (B, V, 4, 4); intrinsics: (B, V, 3, 3).
+            depth_range: (B, 2) [min, max].
+            plain: run every kernel's plain PyTorch version (also on CUDA).
+        Returns:
+            {"depth": (B, H, W), "confidence": (B, H, W), "coverage_ok": ()
+            bool, always True — the port has no warp window contract}.
+        """
+        b, v = imgs.shape[:2]
+        nstages = len(self.ndepths)
+        stacked = imgs.reshape((b * v,) + imgs.shape[2:]).to(self.dtype)
+        fs = self.Backbone(stacked, plain=plain)    # coarsest first
+        intrinsics, extrinsics = intrinsics.float(), extrinsics.float()
+
+        depth = hypos = prob = None
+        for stage in range(nstages):
+            ref_proj, src_projs = geometry.projection_matrices(
+                intrinsics, extrinsics, stage, num_stages=nstages + 1)
+            if self.curve_classes[stage] is None:
+                hypos = uniform_hypotheses(depth_range, self.ndepths[stage])
+            else:
+                hypos = refined_hypotheses(
+                    depth, depth_range, prob, hypos,
+                    ndepths=self.ndepths[stage],
+                    curve_class=self.curve_classes[stage],
+                    prob_thresh=self.prob_threshs[stage])
+            feats = fs[stage].reshape((b, v) + fs[stage].shape[1:])
+            cost = self.Homoaggre[stage](feats, ref_proj, src_projs, hypos,
+                                         plain=plain)
+            prob = self.Regular[stage](cost.to(self.dtype), plain=plain)
+            depth = depth_regression(prob, hypos)
+
+        depth = self.Refine(depth, depth_range, dtype=self.dtype, plain=plain)
+        confidence = resize_nearest_2x(confidence_regression(prob))
+        return {"depth": depth, "confidence": confidence,
+                "coverage_ok": torch.ones((), dtype=torch.bool,
+                                          device=depth.device)}

@@ -1,0 +1,166 @@
+"""Building blocks in the reference ``state_dict`` schema (port of
+``mdfnet_tpu/models/layers.py``).
+
+Weights keep torch's layouts: conv ``(O, I, *k)``, ConvTranspose3d
+``(I, O, *k)``; BatchNorm keeps ``weight, bias, running_mean, running_var,
+num_batches_tracked``. Activations are channels-last (NHWC / NDHWC). The
+modules are eval-only: BatchNorm is folded into the conv kernels' epilogue.
+Every ``forward`` takes ``plain``: True runs the kernels' plain PyTorch
+versions (also on the card), False launches the CUDA kernels for CUDA
+tensors (CPU tensors always take the plain versions).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from mdfnet_tpu_torch.ops.cuda.conv_kernel import (
+    conv2d_bn_act, conv3d_bn_act, trconv3d_bn_act)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm over the channel (last) axis, torch semantics
+    (eps 1e-5, running statistics), with torch's parameter/buffer names."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long))
+
+    def fold(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(scale, offset) with bn(x) == x * scale + offset, in f32."""
+        scale = self.weight.float() * torch.rsqrt(self.running_var.float()
+                                                  + self.eps)
+        return scale, self.bias.float() - self.running_mean.float() * scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale, offset = self.fold()
+        return (x.float() * scale + offset).to(x.dtype)
+
+
+class ConvND(nn.Module):
+    """Conv weight (and optional bias) in torch layout (O, I, *k); runs as a
+    plain conv (scale 1, offset = bias) through the conv kernels."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
+                 ndim: int = 2, bias: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(
+            (out_ch, in_ch) + (kernel_size,) * ndim))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    def epilogue(self) -> tuple[torch.Tensor, torch.Tensor]:
+        co = self.weight.shape[0]
+        ones = torch.ones(co, device=self.weight.device)
+        offset = (self.bias.float() if self.bias is not None
+                  else torch.zeros(co, device=self.weight.device))
+        return ones, offset
+
+    def forward(self, x: torch.Tensor, *,
+                residual: torch.Tensor | None = None, out_dtype=None,
+                plain: bool = False) -> torch.Tensor:
+        conv = conv3d_bn_act if self.weight.dim() == 5 else conv2d_bn_act
+        scale, offset = self.epilogue()
+        return conv(x, self.weight.to(x.dtype), scale, offset, relu=False,
+                    residual=residual, out_dtype=out_dtype, plain=plain)
+
+
+class ConvBNReLU(nn.Module):
+    """Conv (no bias) + BN + ReLU, 2D or 3D (reference net/unit/base.py:7-69);
+    padding (k-1)//2. Keys ``conv.weight``, ``bn.*``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 1, ndim: int = 2):
+        super().__init__()
+        self.stride = stride
+        self.conv = ConvND(in_ch, out_ch, kernel_size, ndim)
+        self.bn = BatchNorm(out_ch)
+
+    def folded(self, dtype) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(weight in ``dtype``, scale, offset) for a fused kernel."""
+        return (self.conv.weight.to(dtype),) + self.bn.fold()
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        conv = conv3d_bn_act if self.conv.weight.dim() == 5 else conv2d_bn_act
+        return conv(x, *self.folded(x.dtype), stride=self.stride, relu=True,
+                    plain=plain)
+
+
+class ConvTranspose3dWeight(nn.Module):
+    """ConvTranspose3d(k3, s2, p1, output_padding 1, no bias) weight holder,
+    torch layout (I, O, 3, 3, 3)."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_ch, out_ch, 3, 3, 3))
+
+
+def trconv_bn_relu(x: torch.Tensor, conv: ConvTranspose3dWeight,
+                   bn: BatchNorm, *, residual=None,
+                   plain: bool = False) -> torch.Tensor:
+    """ConvTranspose3d + BN + ReLU (+ skip add after the ReLU) — the 3D
+    U-Nets' upsampling block (reference net/unit/regular.py:33-43)."""
+    return trconv3d_bn_act(x, conv.weight.to(x.dtype), *bn.fold(), relu=True,
+                           residual=residual, plain=plain)
+
+
+class TrConvBNReLU3D(nn.Sequential):
+    """Standalone upsampling block: keys ``0.weight`` (ConvTranspose3d),
+    ``1.*`` (BN); ``2`` is the reference's parameter-free ReLU."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(ConvTranspose3dWeight(in_ch, out_ch),
+                         BatchNorm(out_ch), nn.ReLU())
+
+    def forward(self, x: torch.Tensor, *, residual=None,
+                plain: bool = False) -> torch.Tensor:
+        return trconv_bn_relu(x, self[0], self[1], residual=residual,
+                              plain=plain)
+
+
+class Res(nn.Module):
+    """Residual block x + 0.1 * conv(relu(conv(x))) (reference
+    net/unit/base.py:71-82); keys ``conv.0.weight``, ``conv.2.weight``.
+    Runs inside RefineNet2's conv chain."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = nn.Sequential(ConvND(ch, ch, 3), nn.ReLU(),
+                                  ConvND(ch, ch, 3))
+
+
+def pixel_shuffle_2x(x: torch.Tensor) -> torch.Tensor:
+    """PixelShuffle(2) on NHWC: (B, H, W, 4C) -> (B, 2H, 2W, C); the input
+    channel index is c*4 + dy*2 + dx, as torch's on NCHW."""
+    b, h, w, c4 = x.shape
+    c = c4 // 4
+    x = x.reshape(b, h, w, c, 2, 2).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(b, 2 * h, 2 * w, c)
+
+
+def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """torch's default initialisation from ``generator``: conv weights and
+    biases ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)) with fan_in = weight.size(1)
+    * prod(kernel) (for a transposed conv that is the out channels, as in
+    torch); BatchNorm weight 1, bias 0, running statistics (0, 1)."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.fill_(0.0)
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+            elif isinstance(m, (ConvND, ConvTranspose3dWeight)):
+                w = m.weight
+                bound = 1.0 / math.sqrt(w.shape[1] * math.prod(w.shape[2:]))
+                w.uniform_(-bound, bound, generator=generator)
+                bias = getattr(m, "bias", None)
+                if bias is not None:
+                    bias.uniform_(-bound, bound, generator=generator)
