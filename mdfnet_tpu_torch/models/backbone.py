@@ -10,6 +10,11 @@ pair plus the first stride-2 conv is one chain, as in the TPU trunk
 (``backbone.py:208-219``); the other stride-2 convs and the 1x1 convs run on
 the 2D conv kernel (K4), with each lateral's upsampled addend fused into its
 epilogue as a residual.
+
+Train (JAX ``backbone.py:80-126``) runs every conv, the 1x1 laterals and
+outputs included, as a differentiable conv (``conv2d_train``, K4 forward and
+stride-1 input gradient) on a view-major stack of the views, with per-view
+BatchNorm statistics (``vgroups``).
 """
 from __future__ import annotations
 
@@ -55,8 +60,13 @@ class FPN4Scales(nn.Module):
         self.out3 = ConvND(c3, c2, 1)
         self.out4 = ConvND(c3, c3, 1)
 
-    def forward(self, x: torch.Tensor, plain: bool = False):
-        """x (N, H, W, 3) in the compute dtype -> (y4, y3, y2)."""
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                train: bool = False, vgroups: int = 1):
+        """x (N, H, W, 3) in the compute dtype -> (y4, y3, y2). ``train``: x
+        stacks ``vgroups`` views view-major, each with its own BatchNorm
+        statistics."""
+        if train:
+            return self._train_forward(x, plain, vgroups)
         v = _chain(x, [self.conv01[0], self.conv01[1], self.conv12[0]],
                    final_stride=2, plain=plain)
         x2 = _chain(v, self.conv12[1:], plain=plain)
@@ -70,4 +80,20 @@ class FPN4Scales(nn.Module):
         y3 = self.out3(x3, plain=plain)
         x2 = self.lat2(x2, residual=_up2(x3), plain=plain)   # up2(x3) + lat2
         y2 = self.out2(x2, plain=plain)
+        return y4, y3, y2
+
+    def _train_forward(self, x, plain, vgroups):
+        def run(block, v):
+            for layer in block:
+                v = layer(v, plain=plain, train=True, vgroups=vgroups)
+            return v
+
+        x2 = run(self.conv12, run(self.conv01, x))
+        x3 = run(self.conv23, x2)
+        x4 = run(self.conv34, x3)
+        y4 = self.out4.train_forward(x4, plain=plain)
+        x3 = _up2(x4) + self.lat3.train_forward(x3, plain=plain)
+        y3 = self.out3.train_forward(x3, plain=plain)
+        x2 = _up2(x3) + self.lat2.train_forward(x2, plain=plain)
+        y2 = self.out2.train_forward(x2, plain=plain)
         return y4, y3, y2

@@ -1,5 +1,6 @@
-"""CoreNet — the 4-scale coarse-to-fine plane-sweep cascade, eval forward
-(port of ``mdfnet_tpu/models/core.py``, reference net/core.py:4-78).
+"""CoreNet — the 4-scale coarse-to-fine plane-sweep cascade (port of
+``mdfnet_tpu/models/core.py``, reference net/core.py:4-78): the eval forward
+and, with ``train=True``, the training forward.
 
 Channels-last: imgs (B, V, H, W, 3); features (B*V, h, w, C); cost volumes
 (B, D, h, w, G); probability volumes (B, D, h, w). The submodules carry the
@@ -28,7 +29,7 @@ from mdfnet_tpu_torch.ops.sample import resize_nearest_2x
 
 class CoreNet(nn.Module):
     """FPN features -> per stage (hypotheses, warp + aggregate, 3D U-Net,
-    soft-argmax) -> PixelShuffle refinement; eval only.
+    soft-argmax) -> PixelShuffle refinement.
 
     The topology comes from ``ModelConfig`` (through
     ``registry.build_model``). ``dtype`` is the conv compute dtype; geometry,
@@ -53,20 +54,70 @@ class CoreNet(nn.Module):
             + [RegularNet4Scales(ngroups[s], 8) for s in range(1, nstages)])
         self.Refine = RefineNet2()
 
-    @torch.no_grad()
     def forward(self, imgs: torch.Tensor, extrinsics: torch.Tensor,
                 intrinsics: torch.Tensor, depth_range: torch.Tensor,
-                plain: bool = False) -> dict:
+                plain: bool = False, train: bool = False) -> dict:
         """
         Args:
             imgs: (B, V, H, W, 3) images, view 0 = reference.
             extrinsics: (B, V, 4, 4); intrinsics: (B, V, 3, 3).
             depth_range: (B, 2) [min, max].
             plain: run every kernel's plain PyTorch version (also on CUDA).
+            train: the training forward (batch-statistics BatchNorm, which
+                updates the running statistics; differentiable).
         Returns:
-            {"depth": (B, H, W), "confidence": (B, H, W), "coverage_ok": ()
-            bool, always True — the port has no warp window contract}.
+            train: {"depth": [d_1/8, d_1/4, d_1/2, d_full]}, each (B, h, w)
+            f32;
+            eval: {"depth": (B, H, W), "confidence": (B, H, W),
+            "coverage_ok": () bool, always True — the port has no warp
+            window contract}.
         """
+        if train:
+            return self._train_forward(imgs, extrinsics, intrinsics,
+                                       depth_range, plain)
+        with torch.no_grad():
+            return self._eval_forward(imgs, extrinsics, intrinsics,
+                                      depth_range, plain)
+
+    def _hypotheses(self, stage, depth_range, depth, prob, hypos):
+        if self.curve_classes[stage] is None:
+            return uniform_hypotheses(depth_range, self.ndepths[stage])
+        return refined_hypotheses(depth, depth_range, prob, hypos,
+                                  ndepths=self.ndepths[stage],
+                                  curve_class=self.curve_classes[stage],
+                                  prob_thresh=self.prob_threshs[stage])
+
+    def _train_forward(self, imgs, extrinsics, intrinsics, depth_range,
+                       plain):
+        """JAX ``core.py:134-281`` with ``train=True``: one view-major
+        backbone pass with per-view BatchNorm statistics; the hypotheses
+        (fitting under no_grad) and the geometry carry no gradient."""
+        b, v = imgs.shape[:2]
+        nstages = len(self.ndepths)
+        vstack = imgs.transpose(0, 1).reshape((v * b,) + imgs.shape[2:])
+        fs = self.Backbone(vstack.to(self.dtype), plain=plain, train=True,
+                           vgroups=v)
+        intrinsics, extrinsics = intrinsics.float(), extrinsics.float()
+        depths, depth, hypos, prob = [], None, None, None
+        for stage in range(nstages):
+            ref_proj, src_projs = geometry.projection_matrices(
+                intrinsics, extrinsics, stage, num_stages=nstages + 1)
+            # refined_hypotheses runs under no_grad
+            hypos = self._hypotheses(stage, depth_range, depth, prob, hypos)
+            feats = fs[stage].reshape((v, b) + fs[stage].shape[1:])
+            cost = self.Homoaggre[stage](feats.transpose(0, 1), ref_proj,
+                                         src_projs, hypos, plain=plain,
+                                         train=True)
+            prob = self.Regular[stage](cost.to(self.dtype), plain=plain,
+                                       train=True)
+            depth = depth_regression(prob, hypos)
+            depths.append(depth)
+        depths.append(self.Refine(depth, depth_range, dtype=self.dtype,
+                                  plain=plain, train=True))
+        return {"depth": depths}
+
+    def _eval_forward(self, imgs, extrinsics, intrinsics, depth_range,
+                      plain):
         b, v = imgs.shape[:2]
         nstages = len(self.ndepths)
         stacked = imgs.reshape((b * v,) + imgs.shape[2:]).to(self.dtype)
@@ -77,14 +128,7 @@ class CoreNet(nn.Module):
         for stage in range(nstages):
             ref_proj, src_projs = geometry.projection_matrices(
                 intrinsics, extrinsics, stage, num_stages=nstages + 1)
-            if self.curve_classes[stage] is None:
-                hypos = uniform_hypotheses(depth_range, self.ndepths[stage])
-            else:
-                hypos = refined_hypotheses(
-                    depth, depth_range, prob, hypos,
-                    ndepths=self.ndepths[stage],
-                    curve_class=self.curve_classes[stage],
-                    prob_thresh=self.prob_threshs[stage])
+            hypos = self._hypotheses(stage, depth_range, depth, prob, hypos)
             feats = fs[stage].reshape((b, v) + fs[stage].shape[1:])
             cost = self.Homoaggre[stage](feats, ref_proj, src_projs, hypos,
                                          plain=plain)

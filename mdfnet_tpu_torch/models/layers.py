@@ -3,11 +3,14 @@
 
 Weights keep torch's layouts: conv ``(O, I, *k)``, ConvTranspose3d
 ``(I, O, *k)``; BatchNorm keeps ``weight, bias, running_mean, running_var,
-num_batches_tracked``. Activations are channels-last (NHWC / NDHWC). The
-modules are eval-only: BatchNorm is folded into the conv kernels' epilogue.
-Every ``forward`` takes ``plain``: True runs the kernels' plain PyTorch
-versions (also on the card), False launches the CUDA kernels for CUDA
-tensors (CPU tensors always take the plain versions).
+num_batches_tracked``. Activations are channels-last (NHWC / NDHWC).
+
+Eval folds BatchNorm into the conv kernels' epilogue. Train (``train=True``)
+runs the conv alone through the differentiable kernels of
+``ops/cuda/conv_vjp.py`` (K8), then batch-statistics BatchNorm in f32, then
+the ReLU. Every ``forward`` takes ``plain``: True runs the kernels' plain
+PyTorch versions (also on the card), False launches the CUDA kernels for
+CUDA tensors (CPU tensors always take the plain versions).
 """
 from __future__ import annotations
 
@@ -18,15 +21,23 @@ from torch import nn
 
 from mdfnet_tpu_torch.ops.cuda.conv_kernel import (
     conv2d_bn_act, conv3d_bn_act, trconv3d_bn_act)
+from mdfnet_tpu_torch.ops.cuda.conv_vjp import (conv2d_train, conv3d_train,
+                                                trconv3d_train)
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the channel (last) axis, torch semantics
-    (eps 1e-5, running statistics), with torch's parameter/buffer names."""
+    """BatchNorm over the channel (last) axis with torch semantics and
+    torch's parameter/buffer names (eps 1e-5, momentum 0.1).
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    Eval normalises with the running statistics. Train normalises with the
+    batch's biased variance, in f32, and moves the running statistics
+    towards the batch mean and the UNBIASED variance; ``num_batches_tracked``
+    counts the updates."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -40,9 +51,34 @@ class BatchNorm(nn.Module):
                                                   + self.eps)
         return scale, self.bias.float() - self.running_mean.float() * scale
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale, offset = self.fold()
-        return (x.float() * scale + offset).to(x.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                vgroups: int = 1) -> torch.Tensor:
+        """``vgroups`` > 1 (train): x stacks that many independent calls
+        along its leading axis, view-major (the train backbone's views);
+        each gets its own statistics, exactly as that many sequential calls
+        would, and the running statistics take the closed form of those
+        calls' EMA updates: ra <- (1-m)^V ra + m sum_v (1-m)^(V-1-v) s_v."""
+        if not train:
+            scale, offset = self.fold()
+            return (x.float() * scale + offset).to(x.dtype)
+        ch = x.shape[-1]
+        xs = x.float().reshape((vgroups, -1) + x.shape[1:])
+        axes = tuple(range(1, xs.dim() - 1))
+        var, mean = torch.var_mean(xs, dim=axes, correction=0,
+                                   keepdim=True)                  # (V,1..,C)
+        with torch.no_grad():
+            m, n = self.momentum, x.numel() // (ch * vgroups)
+            w = m * (1.0 - m) ** torch.arange(vgroups - 1, -1, -1,
+                                              dtype=torch.float32,
+                                              device=x.device)
+            unbiased = var.reshape(vgroups, ch) * (n / max(n - 1, 1))
+            self.running_mean.mul_((1.0 - m) ** vgroups).add_(
+                w @ mean.reshape(vgroups, ch))
+            self.running_var.mul_((1.0 - m) ** vgroups).add_(w @ unbiased)
+            self.num_batches_tracked.add_(vgroups)
+        y = ((xs - mean) * torch.rsqrt(var + self.eps) * self.weight.float()
+             + self.bias.float())
+        return y.reshape(x.shape).to(x.dtype)
 
 
 class ConvND(nn.Module):
@@ -71,6 +107,13 @@ class ConvND(nn.Module):
         return conv(x, self.weight.to(x.dtype), scale, offset, relu=False,
                     residual=residual, out_dtype=out_dtype, plain=plain)
 
+    def train_forward(self, x: torch.Tensor,
+                      plain: bool = False) -> torch.Tensor:
+        """Differentiable stride-1 conv (+ bias) in x's dtype."""
+        conv = conv3d_train if self.weight.dim() == 5 else conv2d_train
+        y = conv(x, self.weight.to(x.dtype), plain=plain)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
+
 
 class ConvBNReLU(nn.Module):
     """Conv (no bias) + BN + ReLU, 2D or 3D (reference net/unit/base.py:7-69);
@@ -87,8 +130,14 @@ class ConvBNReLU(nn.Module):
         """(weight in ``dtype``, scale, offset) for a fused kernel."""
         return (self.conv.weight.to(dtype),) + self.bn.fold()
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        conv = conv3d_bn_act if self.conv.weight.dim() == 5 else conv2d_bn_act
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                train: bool = False, vgroups: int = 1) -> torch.Tensor:
+        w = self.conv.weight
+        if train:
+            conv = conv3d_train if w.dim() == 5 else conv2d_train
+            y = conv(x, w.to(x.dtype), self.stride, plain=plain)
+            return torch.relu(self.bn(y, train=True, vgroups=vgroups))
+        conv = conv3d_bn_act if w.dim() == 5 else conv2d_bn_act
         return conv(x, *self.folded(x.dtype), stride=self.stride, relu=True,
                     plain=plain)
 
@@ -103,10 +152,16 @@ class ConvTranspose3dWeight(nn.Module):
 
 
 def trconv_bn_relu(x: torch.Tensor, conv: ConvTranspose3dWeight,
-                   bn: BatchNorm, *, residual=None,
-                   plain: bool = False) -> torch.Tensor:
+                   bn: BatchNorm, *, residual=None, plain: bool = False,
+                   train: bool = False) -> torch.Tensor:
     """ConvTranspose3d + BN + ReLU (+ skip add after the ReLU) — the 3D
-    U-Nets' upsampling block (reference net/unit/regular.py:33-43)."""
+    U-Nets' upsampling block (reference net/unit/regular.py:33-43). In
+    train, the output is cropped on D to the skip before the add, as the
+    JAX train path does (``regularize.py:251``)."""
+    if train:
+        y = trconv3d_train(x, conv.weight.to(x.dtype), plain=plain)
+        y = torch.relu(bn(y, train=True))
+        return y[:, :residual.shape[1]] + residual
     return trconv3d_bn_act(x, conv.weight.to(x.dtype), *bn.fold(), relu=True,
                            residual=residual, plain=plain)
 
@@ -120,9 +175,9 @@ class TrConvBNReLU3D(nn.Sequential):
                          BatchNorm(out_ch), nn.ReLU())
 
     def forward(self, x: torch.Tensor, *, residual=None,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, train: bool = False) -> torch.Tensor:
         return trconv_bn_relu(x, self[0], self[1], residual=residual,
-                              plain=plain)
+                              plain=plain, train=train)
 
 
 class Res(nn.Module):

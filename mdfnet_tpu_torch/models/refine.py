@@ -6,6 +6,12 @@ The depth is normalised to [0, 1] by the scene range; the half-res stack
 Res blocks' 0.1 scale and the skip adds in the epilogue, as in the TPU path
 (``refine.py:111-145``); PixelShuffle(2) follows, then the C->1 conv (K4, f32
 out) and the de-normalisation.
+
+Train (JAX ``refine.py:174-210``) runs one differentiable conv per layer
+(``conv2d_train``): conv0, the Res blocks ``v + 0.1 * conv(relu(conv(v)))``,
+conv1 plus the skip, conv2_0, PixelShuffle, then the C->1 conv. The input
+depth is detached, as in the reference, so no gradient flows back through
+it into the cascade.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from torch import nn
 
 from mdfnet_tpu_torch.models.layers import ConvND, Res, pixel_shuffle_2x
 from mdfnet_tpu_torch.ops.cuda.conv_kernel import conv2d_chain
+from mdfnet_tpu_torch.ops.cuda.conv_vjp import conv2d_train
 
 
 class RefineNet2(nn.Module):
@@ -29,13 +36,18 @@ class RefineNet2(nn.Module):
                                    ConvND(c, 1, 3))
 
     def forward(self, depth: torch.Tensor, depth_range: torch.Tensor,
-                dtype=torch.float32, plain: bool = False) -> torch.Tensor:
+                dtype=torch.float32, plain: bool = False,
+                train: bool = False) -> torch.Tensor:
         """depth (B, H/2, W/2) f32, depth_range (B, 2) -> (B, H, W) f32.
         ``dtype``: compute dtype of the convs."""
         b = depth.shape[0]
         dmin = depth_range[:, 0].float().reshape(b, 1, 1)
         dmax = depth_range[:, 1].float().reshape(b, 1, 1)
-        x = ((depth.float() - dmin) / (dmax - dmin))[..., None].to(dtype)
+        x = ((depth.detach().float() - dmin)
+             / (dmax - dmin))[..., None].to(dtype)
+        if train:
+            out = self._train_convs(x, plain)
+            return dmin + out * (dmax - dmin)
 
         c = self.conv1.weight.shape[0]
         ones = torch.ones(c, device=depth.device)
@@ -57,3 +69,14 @@ class RefineNet2(nn.Module):
         x = pixel_shuffle_2x(x).contiguous()
         out = self.conv2[2](x, out_dtype=torch.float32, plain=plain)[..., 0]
         return dmin + out * (dmax - dmin)
+
+    def _train_convs(self, x, plain):
+        def conv(m, v):
+            return conv2d_train(v, m.weight.to(v.dtype), plain=plain)
+
+        v = skip = conv(self.conv0, x)
+        for res in self.ress:
+            v = v + 0.1 * conv(res.conv[2], torch.relu(conv(res.conv[0], v)))
+        v = skip + conv(self.conv1, v)
+        v = pixel_shuffle_2x(conv(self.conv2[0], v))
+        return conv(self.conv2[2], v)[..., 0].float()

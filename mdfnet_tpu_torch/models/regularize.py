@@ -6,6 +6,12 @@ stages 1-2 the 4-scale nets. Every conv runs on the 3D conv kernel (K2), every
 upsampling block on the transposed-conv kernel (K3) with its skip add fused
 into the epilogue, and the final bias-free 3x3x3 conv to one channel
 (ProbConv) on K2 with Co = 1 and an f32 output. The softmax over D is f32.
+
+Train (JAX ``_dhcw_train_path``, ``regularize.py:225-255`` and :361) runs the
+same graph on the differentiable convs of ``ops/cuda/conv_vjp.py`` (K8) with
+batch-statistics BatchNorm; each upsampling block's output is cropped on D
+to its skip before the add, and ProbConv is one conv to Co = 1 in the
+compute dtype, then cast to f32.
 """
 from __future__ import annotations
 
@@ -28,7 +34,10 @@ class ProbConv(ConvND):
     def __init__(self, in_ch: int):
         super().__init__(in_ch, 1, 3, ndim=3)
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                train: bool = False) -> torch.Tensor:
+        if train:
+            return self.train_forward(x, plain=plain)[..., 0].float()
         return super().forward(x, out_dtype=torch.float32, plain=plain)[..., 0]
 
 
@@ -48,20 +57,22 @@ class RegularNet3Scales(nn.Module):
         self.conv10 = TrConvBNReLU3D(c1, c0)
         self.prob = ProbConv(c0)
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                train: bool = False) -> torch.Tensor:
         """x (B, D, H, W, G) in the compute dtype -> (B, D, H, W) f32 probs."""
-        v = self.conv01[0](x, plain=plain)
-        skip0 = self.conv01[1](v, plain=plain)
-        v = self.conv12[0](skip0, plain=plain)
-        v = self.conv12[1](v, plain=plain)
-        skip1 = self.conv12[2](v, plain=plain)
-        v = self.conv232[0](skip1, plain=plain)
-        v = self.conv232[1](v, plain=plain)
-        v = self.conv232[2](v, plain=plain)
+        kw = dict(plain=plain, train=train)
+        v = self.conv01[0](x, **kw)
+        skip0 = self.conv01[1](v, **kw)
+        v = self.conv12[0](skip0, **kw)
+        v = self.conv12[1](v, **kw)
+        skip1 = self.conv12[2](v, **kw)
+        v = self.conv232[0](skip1, **kw)
+        v = self.conv232[1](v, **kw)
+        v = self.conv232[2](v, **kw)
         v = trconv_bn_relu(v, self.conv232[3], self.conv232[4],
-                           residual=skip1, plain=plain)
-        v = self.conv10(v, residual=skip0, plain=plain)
-        return torch.softmax(self.prob(v, plain=plain), dim=1)
+                           residual=skip1, **kw)
+        v = self.conv10(v, residual=skip0, **kw)
+        return torch.softmax(self.prob(v, **kw), dim=1)
 
 
 class RegularNet4Scales(nn.Module):
@@ -80,17 +91,19 @@ class RegularNet4Scales(nn.Module):
         self.trconv21 = TrConvBNReLU3D(c1, c0)
         self.prob = ProbConv(c0)
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                train: bool = False) -> torch.Tensor:
         """x (B, D, H, W, G) in the compute dtype -> (B, D, H, W) f32 probs."""
-        x1 = self.conv01(x, plain=plain)
-        v = self.conv12[0](x1, plain=plain)
-        x2 = self.conv12[1](v, plain=plain)
-        v = self.conv23[0](x2, plain=plain)
-        x3 = self.conv23[1](v, plain=plain)
-        v = self.conv343[0](x3, plain=plain)
-        v = self.conv343[1](v, plain=plain)
+        kw = dict(plain=plain, train=train)
+        x1 = self.conv01(x, **kw)
+        v = self.conv12[0](x1, **kw)
+        x2 = self.conv12[1](v, **kw)
+        v = self.conv23[0](x2, **kw)
+        x3 = self.conv23[1](v, **kw)
+        v = self.conv343[0](x3, **kw)
+        v = self.conv343[1](v, **kw)
         v = trconv_bn_relu(v, self.conv343[2], self.conv343[3], residual=x3,
-                           plain=plain)
-        v = self.trconv32(v, residual=x2, plain=plain)
-        v = self.trconv21(v, residual=x1, plain=plain)
-        return torch.softmax(self.prob(v, plain=plain), dim=1)
+                           **kw)
+        v = self.trconv32(v, residual=x2, **kw)
+        v = self.trconv21(v, residual=x1, **kw)
+        return torch.softmax(self.prob(v, **kw), dim=1)

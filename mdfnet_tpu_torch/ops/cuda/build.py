@@ -1,11 +1,12 @@
 """Build and bind the hand-written Hopper kernels.
 
-Every source under ``csrc/`` compiles with ``nvcc`` into ONE shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds),
-which is loaded with ``ctypes``. The library lands in ``build/kernels/`` at
-the repository root, named by a hash of the sources and flags: an edited
-source rebuilds, an unchanged one is reused. ``ptxas -v`` (registers, shared
-memory, spills per kernel) is kept beside it as ``<name>.log``.
+Every source under ``csrc/`` compiles with its own ``nvcc`` (all started
+together) and the objects link into ONE shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), which is loaded
+with ``ctypes``. The library lands in ``build/kernels/`` at the repository
+root, named by a hash of the sources and flags: an edited source rebuilds,
+an unchanged one is reused. ``ptxas -v`` (registers, shared memory, spills
+per kernel) is kept beside it as ``<name>.log``.
 
 Nothing is built or loaded at import time; the first kernel launch calls
 :func:`load_library`. To force a rebuild, delete ``build/kernels/``.
@@ -23,8 +24,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points (csrc/*.cu): pointers and the stream are c_void_p
@@ -32,6 +34,9 @@ SIGNATURES = {
     "mdf_rowsweep_aggregate": [_P] * 6 + [_I] * 8 + [_F, _F, _I, _P],
     "mdf_conv_bn_act": [_P] * 6 + [_I] * 16 + [_P],
     "mdf_trconv_bn_act": [_P] * 6 + [_I] * 10 + [_P],
+    "mdf_sample_2d": [_P] * 4 + [_I] * 7 + [_P],
+    "mdf_splat_keys": [_P] * 3 + [_I] * 5 + [_P],
+    "mdf_splat_reduce": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 
@@ -59,16 +64,26 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [os.path.join(tmp, src.stem + ".o") for src in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for obj, src in zip(objs, srcs)]
+        logs = [p.communicate() for p in procs]    # waits for every nvcc
+        failed = [(p, log) for p, log in zip(procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                log[1] for _, log in failed))
+        lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        out.with_suffix(".log").write_text("".join(log[1] for log in logs))
+        os.replace(lib, out)  # atomic: a loader never sees half a file
     return out
 
 

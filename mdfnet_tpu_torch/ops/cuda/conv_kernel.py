@@ -26,9 +26,13 @@ import torch.nn.functional as F
 from mdfnet_tpu_torch.ops.cuda import build, exact_cuda_math
 
 # kernel launches since the last reset (the main-path check reads them); the
-# chain counts each of its layer launches
+# chain counts each of its layer launches. The ``*_dgrad`` counters are the
+# launches that compute an input gradient for the training convolutions
+# (ops/cuda/conv_vjp.py, which passes ``counter=``): K2 or K3 for
+# conv3d_train, K2 at stride 2 for trconv3d_train, K4 for conv2d_train.
 LAUNCHES = {"conv3d_bn_act": 0, "trconv3d_bn_act": 0, "conv2d_bn_act": 0,
-            "conv2d_chain": 0}
+            "conv2d_chain": 0, "conv3d_dgrad": 0, "trconv3d_dgrad": 0,
+            "conv2d_dgrad": 0}
 
 _COB = 8                    # output channels per thread (csrc/conv_bn_act.cu)
 _MAX_SMEM = 227 * 1024      # shared memory one block may use on the H100
@@ -138,15 +142,17 @@ def _conv2d_launch(counter, x, weight, scale, offset, *, stride, relu,
 def conv2d_bn_act(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
                   offset: torch.Tensor, *, stride: int = 1, relu: bool = True,
                   residual: torch.Tensor | None = None, out_dtype=None,
-                  plain: bool = False) -> torch.Tensor:
+                  plain: bool = False,
+                  counter: str = "conv2d_bn_act") -> torch.Tensor:
     """2D conv (K4). x (N, H, W, Ci); weight (Co, Ci, k, k), k in {1, 3, 5};
     stride 1 or 2, padding (k-1)//2. Returns (N, ceil(H/s), ceil(W/s), Co)
-    in ``out_dtype`` (default x.dtype)."""
+    in ``out_dtype`` (default x.dtype). A launch counts under
+    ``LAUNCHES[counter]``."""
     out_dtype = out_dtype or x.dtype
     if plain or not x.is_cuda:
         return _conv_plain(x, weight, scale, offset, stride=stride, relu=relu,
                            residual=residual, out_dtype=out_dtype)
-    return _conv2d_launch("conv2d_bn_act", x, weight, scale, offset,
+    return _conv2d_launch(counter, x, weight, scale, offset,
                           stride=stride, relu=relu, residual=residual,
                           out_dtype=out_dtype)
 
@@ -154,7 +160,8 @@ def conv2d_bn_act(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
 def conv3d_bn_act(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
                   offset: torch.Tensor, *, stride: int = 1, relu: bool = True,
                   residual: torch.Tensor | None = None, out_dtype=None,
-                  plain: bool = False) -> torch.Tensor:
+                  plain: bool = False,
+                  counter: str = "conv3d_bn_act") -> torch.Tensor:
     """3x3x3 conv, pad 1, stride 1 or 2 (K2). x (N, D, H, W, Ci); weight
     (Co, Ci, 3, 3, 3). Returns (N, ceil(D/s), ceil(H/s), ceil(W/s), Co)."""
     out_dtype = out_dtype or x.dtype
@@ -163,7 +170,7 @@ def conv3d_bn_act(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
                            residual=residual, out_dtype=out_dtype)
     if tuple(weight.shape[2:]) != (3, 3, 3) or stride not in (1, 2):
         raise ValueError("conv3d kernel: 3x3x3 weights, stride 1 or 2 only")
-    return _launch("conv3d_bn_act", x, weight.permute(2, 3, 4, 1, 0), scale,
+    return _launch(counter, x, weight.permute(2, 3, 4, 1, 0), scale,
                    offset, residual, out_dtype, kd=3, k=3, stride=stride,
                    relu=relu)
 
@@ -171,7 +178,8 @@ def conv3d_bn_act(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
 def trconv3d_bn_act(x: torch.Tensor, weight: torch.Tensor,
                     scale: torch.Tensor, offset: torch.Tensor, *,
                     relu: bool = True, residual: torch.Tensor | None = None,
-                    out_dtype=None, plain: bool = False) -> torch.Tensor:
+                    out_dtype=None, plain: bool = False,
+                    counter: str = "trconv3d_bn_act") -> torch.Tensor:
     """ConvTranspose3d(k3, stride 2, pad 1, output_padding 1) (K3).
     x (N, D, H, W, Ci); weight (Ci, Co, 3, 3, 3), torch's layout. Returns
     (N, 2D, 2H, 2W, Co)."""
@@ -182,7 +190,7 @@ def trconv3d_bn_act(x: torch.Tensor, weight: torch.Tensor,
                            transposed=True)
     if tuple(weight.shape[2:]) != (3, 3, 3):
         raise ValueError("trconv3d kernel: 3x3x3 weights only")
-    return _launch("trconv3d_bn_act", x, weight.permute(2, 3, 4, 0, 1), scale,
+    return _launch(counter, x, weight.permute(2, 3, 4, 0, 1), scale,
                    offset, residual, out_dtype, kd=3, k=3, stride=2,
                    relu=relu, transposed=True)
 

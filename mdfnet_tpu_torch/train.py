@@ -1,0 +1,148 @@
+"""Training loop + CLI of the port (twin of ``mdfnet_tpu/train.py``).
+
+    python -m mdfnet_tpu_torch.train -d dtu [--root DIR] [--scans 2,6]
+        [--lightings N] [--epochs N] [--batch-size N] [--nviews N]
+        [--ckpt-dir DIR] [-p CKPT.pth] [--fast]
+
+Per epoch: the polynomial LR, the mean loss appended to
+``<ckpt-dir>/epoch_loss.txt`` and a checkpoint ``<ckpt-dir>/<dataset>_<epoch>.pth``
+(``train_lib.save_checkpoint``). ``-p`` resumes from a port checkpoint
+(weights, BatchNorm statistics and Adam's moments) or warm-starts from a
+reference ``.pth`` (weights only). The DTU train set sits under
+``<root>/dtu640x512``.
+
+On a CUDA device every kernel of the step is a hand-written CUDA kernel;
+``--fast`` runs the convs in bf16 (the JAX CLI's ``--fast``), otherwise in
+f32 on the same kernels. On the CPU the step runs the plain versions.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import math
+import os
+import time
+
+import torch
+
+from mdfnet_tpu.config import DataConfig, ModelConfig, TrainConfig
+from mdfnet_tpu_torch.data import BatchLoader, DTUTrainDataset
+from mdfnet_tpu_torch.models.registry import build_model
+from mdfnet_tpu_torch.train_lib import (batch_to_device, make_optimizer,
+                                        poly_lr, resume, save_checkpoint,
+                                        set_lr, train_step)
+
+log = logging.getLogger("mdfnet_tpu_torch.train")
+
+
+def train(dataset, model_config: ModelConfig, train_config: TrainConfig,
+          dataset_name: str = "dtu", pre_model: str | None = None,
+          device: str | torch.device = "cpu") -> None:
+    os.makedirs(train_config.checkpoint_dir, exist_ok=True)
+    model = build_model(model_config, seed=train_config.seed,
+                        device=device).requires_grad_(True)
+    optimizer = make_optimizer(model, train_config.lr)
+    start_epoch = train_config.start_epoch
+    if pre_model:
+        start_epoch = resume(pre_model, model, optimizer)
+        log.info("resumed from %s at epoch %d", pre_model, start_epoch)
+
+    for epoch in range(start_epoch, train_config.max_epochs + 1):
+        set_lr(optimizer, poly_lr(epoch, train_config.lr,
+                                  train_config.max_epochs,
+                                  train_config.lr_decay_factor))
+        if hasattr(dataset, "set_epoch"):
+            dataset.set_epoch(epoch)   # per-(epoch, item) view sampling
+        # a shuffle seeded by the epoch: a resumed run sees the same order
+        loader = BatchLoader(dataset, train_config.batch_size, shuffle=True,
+                             drop_last=True, num_workers=2,
+                             seed=train_config.seed + epoch)
+        epoch_loss, n_batches = 0.0, 0
+        for i, batch in enumerate(loader):
+            t0 = time.perf_counter()
+            loss = float(train_step(model, optimizer,
+                                    batch_to_device(batch, device)))
+            if not math.isfinite(loss):
+                # fail fast on divergence: the last good checkpoint is the
+                # previous epoch's
+                raise FloatingPointError(
+                    f"non-finite loss {loss} at epoch {epoch} batch {i}; "
+                    f"resume from the last checkpoint with -p")
+            epoch_loss += loss
+            n_batches += 1
+            if i % train_config.log_every == 0:
+                log.info("epoch %d batch %d/%d loss %.5f (%.3fs)", epoch,
+                         i + 1, len(loader), loss, time.perf_counter() - t0)
+
+        mean_loss = epoch_loss / max(n_batches, 1)
+        log.info("epoch %d mean loss %.5f", epoch, mean_loss)
+        with open(os.path.join(train_config.checkpoint_dir,
+                               "epoch_loss.txt"), "a") as f:
+            f.write(f"{mean_loss}\n")
+        save_checkpoint(os.path.join(train_config.checkpoint_dir,
+                                     f"{dataset_name}_{epoch}.pth"),
+                        model, optimizer, epoch)
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s-%(levelname)s: %(message)s")
+    parser = argparse.ArgumentParser(description="mdfnet_tpu_torch training")
+    parser.add_argument("-p", "--pre_model", default=None,
+                        help="checkpoint to resume (port or reference .pth)")
+    parser.add_argument("-d", "--dataset", default="dtu",
+                        choices=["dtu", "blendedmvs"])
+    parser.add_argument("--root", default=None, help="dataset root override")
+    parser.add_argument("--scans", default=None,
+                        help="comma-separated scan ids (default: full split)")
+    parser.add_argument("--lightings", type=int, default=None,
+                        help="number of DTU lighting conditions (default: 7)")
+    parser.add_argument("--epochs", type=int, default=None,
+                        help="max epochs (default: reference's 30)")
+    parser.add_argument("--batch-size", type=int, default=None)
+    parser.add_argument("--nviews", type=int, default=None)
+    parser.add_argument("--ckpt-dir", default=None,
+                        help="checkpoint directory (default: pth)")
+    parser.add_argument("--fast", action="store_true",
+                        help="bf16 conv compute (f32 BN statistics, loss, "
+                             "master weights and Adam)")
+    args = parser.parse_args(argv)
+
+    data_cfg = DataConfig(root_dir=args.root) if args.root else DataConfig()
+    model_cfg = ModelConfig(compute_dtype="bfloat16" if args.fast
+                            else "float32")
+    overrides = {}
+    if args.epochs is not None:
+        overrides["max_epochs"] = args.epochs
+    if args.nviews is not None:
+        overrides["nviews"] = args.nviews
+    if args.ckpt_dir is not None:
+        overrides["checkpoint_dir"] = args.ckpt_dir
+    default_batch = 4 if args.dataset == "dtu" else 6
+    overrides["batch_size"] = args.batch_size or default_batch
+    train_cfg = TrainConfig(**overrides)
+
+    if args.dataset == "dtu":
+        scans = (tuple(int(s) for s in args.scans.split(","))
+                 if args.scans else data_cfg.dtu_train_scans)
+        lightings = (tuple(range(args.lightings)) if args.lightings
+                     else data_cfg.dtu_lightings)
+        dataset = DTUTrainDataset(
+            os.path.join(data_cfg.root_dir, data_cfg.dtu_train_subdir),
+            scans=scans, lightings=lightings, nviews=train_cfg.nviews,
+            robust_sampling=train_cfg.robust_views)
+    else:
+        from mdfnet_tpu.data.datasets import BlendedMVSTrainDataset
+        dataset = BlendedMVSTrainDataset(
+            os.path.join(data_cfg.root_dir, data_cfg.blendedmvs_subdir),
+            nviews=train_cfg.nviews, robust_sampling=train_cfg.robust_views)
+
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    log.info("training on %s, %s convs", torch.cuda.get_device_name(0)
+             if device.type == "cuda" else "cpu", model_cfg.compute_dtype)
+    train(dataset, model_cfg, train_cfg, dataset_name=args.dataset,
+          pre_model=args.pre_model, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -83,6 +83,7 @@ def test_port_imports_no_jax():
             "from mdfnet_tpu_torch.models.registry import build_model\n"
             "import mdfnet_tpu_torch.cli.eval, mdfnet_tpu_torch.evaluate\n"
             "import mdfnet_tpu_torch.data, chip_smoke\n"
+            "import mdfnet_tpu_torch.train, mdfnet_tpu_torch.train_lib\n"
             "build_model()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax')]\n"
@@ -92,18 +93,37 @@ def test_port_imports_no_jax():
                    cwd=root)
 
 
-def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py reaches the JAX package's host helpers only through the
-    port (``mdfnet_tpu_torch.data``), never by importing ``mdfnet_tpu``."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(root, "chip_smoke.py")) as f:
+def _imported_packages(path: str) -> set:
+    """Top-level package names that a Python file imports (``ast``)."""
+    with open(path) as f:
         tree = ast.parse(f.read())
     tops = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             tops |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom):
+        elif isinstance(node, ast.ImportFrom) and node.module:
             tops.add(node.module.split(".")[0])
+    return tops
+
+
+def test_no_port_module_imports_jax():
+    """No module of the port, imported or not by the check above, names
+    ``jax``, ``jaxlib`` or ``flax`` in an import."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pkg = os.path.join(root, "mdfnet_tpu_torch")
+    files = [os.path.join(d, f) for d, _, names in os.walk(pkg)
+             for f in names if f.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        bad = _imported_packages(path) & {"jax", "jaxlib", "flax"}
+        assert not bad, (os.path.relpath(path, root), bad)
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py reaches the JAX package's host helpers only through the
+    port (``mdfnet_tpu_torch.data``), never by importing ``mdfnet_tpu``."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tops = _imported_packages(os.path.join(root, "chip_smoke.py"))
     assert "mdfnet_tpu_torch" in tops
     assert not tops & {"mdfnet_tpu", "jax", "jaxlib", "flax"}, tops
 
