@@ -6,37 +6,53 @@ Phases (each prints one line; any failure raises and exits non-zero):
   1. device  — needs CUDA; prints the card's name and power limit;
   2. build   — compiles the hand-written kernels (ops/cuda/csrc) with nvcc;
   3. kernels — each kernel vs its plain PyTorch version at the DTU stage
-     shapes, bf16 and f32, with times from CUDA events;
+     shapes, bf16 and f32, with times from CUDA events, its bound (the
+     least time the card could take for the same work) and, where one
+     PyTorch call computes the same function, that call's time;
   4. forward — the CoreNet eval forward at 1600x1184, 5 views, B=1, bf16
      convs, seeded random weights with a sharpened posterior: every kernel's
      launch counter must move, and the output must agree with the plain f32
      forward on the card: depth (median <= 0.4%, p95 <= 3% of the depth
      range, the bounds of tools/check_fused_oracle.py), confidence, and each
      stage's cost and probability volumes (FORWARD_BOUNDS);
-  5. serve   — ``python -m mdfnet_tpu_torch.cli.eval`` on a synthetic DTU
+  5. pair    — the conv3d pair kernel (K10, on no model path) on the
+     stage-0 U-Net's three stride-1 pairs, fed that forward's own volumes,
+     against the two conv3d launches each pair replaces;
+  6. serve   — ``python -m mdfnet_tpu_torch.cli.eval`` on a synthetic DTU
      eval tree (1600x1200 cropped to 1184, 3 reference views);
-  6. train kernels — the training step's kernels at the DTU train shapes
-     (640x512, 5 views, batch 4): the sample (K6) and splat (K7) kernels vs
-     their plain versions at stages 0 and 2, the splat run twice with
-     bit-identical output, and each differentiable conv's (K8) output,
-     input gradient and weight gradient vs plain autograd on the plain conv;
-  7. train gate — one train step at that configuration on the kernels in
+  7. train kernels — the training step's kernels at the DTU train shapes
+     (640x512, 5 views, batch 4): the sample (K6) and splat (K7) kernels and
+     the fused train aggregate's stats kernel and K1 with a per-view affine
+     (K9) vs their plain versions at stages 0 and 2, the splat and the stats
+     kernel each run twice with bit-identical output, and each
+     differentiable conv's (K8) output, input gradient and weight gradient
+     vs plain autograd on the plain conv;
+  8. train gate — one train step at that configuration on the kernels in
      bf16 against the plain versions in f32 (loss, each stage's cost and
      probability volume, the gradients' cosines: STEP_BOUNDS_BF16), and on
      the kernels in f32 against the plain versions in f32 (loss and every
      parameter's gradient: STEP_BOUNDS_F32); every launch counter of the
      bf16 step must move;
-  8. learn   — 20 Adam steps on one batch: finite losses, the last below 0.9
+  9. learn   — 20 Adam steps on one batch: finite losses, the last below 0.9
      x the first; ms/step, device time and idle share (torch.profiler),
      peak memory, and one step's time by layer (CUDA events);
-  9. train CLI — ``python -m mdfnet_tpu_torch.train --fast`` for one epoch on
+  10. train CLI — ``python -m mdfnet_tpu_torch.train --fast`` for one epoch on
      a synthetic DTU train tree; its checkpoint loads strictly into the eval
-     model, which then runs.
+     model, which then runs;
+  11. fused gate — one step of ``ModelConfig(warp_impl="fused")`` (the fused
+     train aggregate, K9) under the bf16 and f32 gates above, and the fused
+     f32 step against the unfused f32 step on the card (FUSED_BOUNDS), which
+     an injected fault (the BN backward without its mean term) must exceed;
+     the stats kernel, K1 with the affine, K6 and K7 must all launch;
+  12. fused learn — 10 Adam steps of the fused model: finite, falling
+     losses; ms/step, peak memory, and the aggregates' forward and backward
+     time beside the unfused path's.
 
 The line before the last is one JSON object with every kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
 """
 import json
+import math
 import os
 import re
 import shutil
@@ -76,6 +92,10 @@ HEIGHT, WIDTH, NVIEWS, SERVE_HEIGHT = 1184, 1600, 5, 1200
 NDEPTHS, NGROUPS = (48, 24, 8), (32, 16, 8)
 DEV = "cuda"
 _SRC = "mdfnet_tpu_torch/ops/cuda/csrc/"
+# the least time an H100 SXM could take (its published peak rates): bytes
+# over 3.35 TB/s of HBM3, or operations over 67 TFLOP/s, the f32 rate of the
+# CUDA cores, on which every port kernel computes today (bf16 in, f32 FMA)
+PEAK_BYTES_PER_S, PEAK_OPS_PER_S = 3.35e12, 67e12
 KERNELS = {   # wrapper name -> its CUDA source and the TPU kernel it replaces
     "rowsweep_aggregate": dict(
         source=_SRC + "rowsweep_aggregate.cu",
@@ -93,6 +113,10 @@ KERNELS = {   # wrapper name -> its CUDA source and the TPU kernel it replaces
         source=_SRC + "conv_bn_act.cu",
         replaces="mdfnet_tpu/ops/pallas/conv2d_kernel.py:654"),
 }
+# on no model path (as in the JAX package); its launches are the pair phase's
+PAIR_KERNEL = {"conv3d_pair_bn_act": dict(
+    source=_SRC + "conv3d_pair.cu",
+    replaces="mdfnet_tpu/ops/pallas/conv3d_kernel.py:472")}
 # the training step's kernels; a K8 entry's launches are its Function's
 # input-gradient launches (the conv kernels on mirrored weights)
 TRAIN_KERNELS = {
@@ -112,6 +136,16 @@ TRAIN_KERNELS = {
     "conv2d_train": dict(
         source=_SRC + "conv_bn_act.cu",
         replaces="mdfnet_tpu/ops/pallas/conv2d_vjp.py:45", counter="conv2d_dgrad"),
+}
+# the fused train aggregate's kernels (K9); their launches are the fused
+# step's (warp_impl="fused")
+FUSED_KERNELS = {
+    "rowsweep_stats": dict(
+        source=_SRC + "rowsweep_stats.cu",
+        replaces="mdfnet_tpu/ops/pallas/aggregate_kernel.py:604"),
+    "rowsweep_aggregate_with_wsum": dict(
+        source=_SRC + "rowsweep_aggregate.cu",
+        replaces="mdfnet_tpu/ops/pallas/aggregate_kernel.py:427"),
 }
 # the reference's training configuration: DTU train 640x512, 5 views, batch 4
 TRAIN_HEIGHT, TRAIN_WIDTH, TRAIN_BATCH = 512, 640, 4
@@ -137,6 +171,16 @@ MIN_MEDIAN_COS_BF16 = 0.996
 STEP_BOUNDS_F32 = {"loss": 1e-5, "grad rel err": 0.12,
                    "median grad rel err": 2e-3}
 MIN_COS_F32 = 0.9997
+# The fused f32 step (K9) against the unfused f32 step, both on the kernels:
+# the same math in another order (f64 statistics, a closed-form backward),
+# so f32 noise only. Each bound is ~3x what an H100 gives (PERF.md section
+# 2). The worst parameter is a DepthWeight BN bias, whose gradient cancels
+# across views (sum_v w_v dL/dw_v = 0 at every voxel): 0.475 relative there,
+# against a median of 4.3e-4. The injected fault (the BN backward without
+# its mean term) gives 19.5 and a cosine of 0.29.
+FUSED_BOUNDS = {"loss": 1e-6, "grad rel err": 1.5,
+                "median grad rel err": 1.3e-3}
+MIN_COS_FUSED = 0.99985
 
 
 def require(ok: bool, msg: str) -> None:
@@ -158,6 +202,47 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take for work that moves ``nbytes``
+    (each input read once, each output written once) and does ``ops``."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def size(*tensors) -> int:
+    """Bytes of the tensors."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def conv_ops(out_voxels: int, taps: int, ci: int, co: int) -> int:
+    """A convolution's multiply-adds as two operations each."""
+    return 2 * out_voxels * taps * ci * co
+
+
+# Operations of the fused aggregate's chain, counting a multiply, an add, a
+# compare or an exp as one: per (pixel, plane) q's G sigmoids (3 each); per
+# (pixel, plane, source) the projection and taps (30) and per channel the
+# bilinear blend (9), p's sigmoid (3), the similarity (5) and k0's dot (2),
+# and in K1 also the weight (bn, relu, sigmoid) and the accumulation (2 per
+# channel), then G divisions. The stats kernel adds s and s^2 instead.
+def aggregate_ops(points: int, n_src: int, g: int, stats: bool) -> int:
+    per_source = 32 + 19 * g if stats else 38 + 21 * g
+    return points * (3 * g + n_src * per_source + (0 if stats else g))
+
+
+def cl(x):
+    """Channels-last (NHWC / NDHWC) data as the NCHW / NCDHW view cuDNN takes
+    in its channels-last memory format."""
+    return x.movedim(-1, 1)
+
+
+def cl_weight(w):
+    return w.contiguous(memory_format=torch.channels_last_3d if w.dim() == 5
+                        else torch.channels_last)
+
+
 def dtu_scene():
     """The synthetic DTU-size scene: a textured tilted plane seen by 5
     cameras at 1600x1184 (DTU-like focal, ~1.8 x width)."""
@@ -167,12 +252,16 @@ def dtu_scene():
 
 
 def kernel_cases(gen, scene):
-    """(kernel name, dtype, callable(plain) -> tensor) at DTU stage shapes;
-    the first case of each kernel is its timed, main-path shape."""
+    """(kernel name, dtype, callable(plain) -> tensor, meta) at DTU stage
+    shapes; the first case of each kernel is its timed, main-path shape,
+    whose meta gives the bytes its inputs hold, its operations and the
+    PyTorch call timed beside it (None where there is none)."""
+    import torch.nn.functional as F
     from mdfnet_tpu_torch import geometry
     from mdfnet_tpu_torch.ops.cuda.aggregate_kernel import rowsweep_aggregate
     from mdfnet_tpu_torch.ops.cuda.conv_kernel import (
-        conv2d_bn_act, conv2d_chain, conv3d_bn_act, trconv3d_bn_act)
+        conv2d_bn_act, conv2d_chain, conv3d_bn_act, conv3d_pair_bn_act,
+        trconv3d_bn_act)
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(DEV)
@@ -197,59 +286,89 @@ def kernel_cases(gen, scene):
             ref = rnd(1, h, w, g).to(dt)
             k0 = rnd(g, scale=0.3)
             sc = [torch.tensor(v).to(DEV) for v in (0.9, 0.1, 1.2, -0.2)]
+            hyp = hyp.expand(1, d, *hyp.shape[2:]).contiguous().to(DEV)
+            meta = dict(in_bytes=size(src, ref, hyp), library=None,
+                        ops=aggregate_ops(d * h * w, NVIEWS - 1, g, False))
             cases.append(("rowsweep_aggregate", dt, lambda p, a=(
-                src, ref, src_projs, ref_proj, hyp.to(DEV), k0, *sc):
-                rowsweep_aggregate(*a, plain=p)))
+                src, ref, src_projs, ref_proj, hyp, k0, *sc):
+                rowsweep_aggregate(*a, plain=p), meta))
 
         def epi(co):
             return rnd(co, scale=0.2).abs() + 0.5, rnd(co, scale=0.1)
 
         # K2 — stage-0 U-Net conv01_0 (stride 1) and conv12_0 (stride 2),
-        # stage-2 ProbConv (Co = 1)
+        # stage-2 ProbConv (Co = 1); the yardstick is cuDNN's conv alone
         for shape, co, s in (((1, NDEPTHS[0], h8, w8, NGROUPS[0]), 16, 1),
                              ((1, NDEPTHS[0], h8, w8, 16), 32, 2),
                              ((1, NDEPTHS[2], h2, w2, 8), 1, 1)):
             x = rnd(*shape).to(dt)
             wt = rnd(co, shape[-1], 3, 3, 3, scale=0.1).to(dt)
+            out_vox = shape[0] * -(-shape[1] // s) * -(-shape[2] // s) \
+                * -(-shape[3] // s)
+            meta = dict(in_bytes=size(x, wt),
+                        ops=conv_ops(out_vox, 27, shape[-1], co),
+                        library=lambda x=x, wt=cl_weight(wt), s=s: F.conv3d(
+                            cl(x), wt, stride=s, padding=1))
             cases.append(("conv3d_bn_act", dt, lambda p, x=x, wt=wt, co=co,
                           s=s, e=epi(co): conv3d_bn_act(
-                              x, wt, *e, stride=s, relu=co > 1, plain=p)))
+                              x, wt, *e, stride=s, relu=co > 1, plain=p),
+                          meta))
         # K3 — stage-0 conv10 with its skip add; stage-1 conv343_2
         for shape, co in (((1, NDEPTHS[0] // 2, h8 // 2, w8 // 2, 32), 16),
                           ((1, NDEPTHS[1] // 8, h4 // 8, w4 // 8, 64), 32)):
             x = rnd(*shape).to(dt)
             wt = rnd(shape[-1], co, 3, 3, 3, scale=0.1).to(dt)
             res = rnd(1, 2 * shape[1], 2 * shape[2], 2 * shape[3], co).to(dt)
+            meta = dict(in_bytes=size(x, wt, res),
+                        ops=conv_ops(x.numel() // shape[-1], 27, shape[-1],
+                                     co),
+                        library=lambda x=x, wt=cl_weight(wt):
+                        F.conv_transpose3d(cl(x), wt, stride=2, padding=1,
+                                           output_padding=1))
             cases.append(("trconv3d_bn_act", dt, lambda p, x=x, wt=wt, r=res,
                           e=epi(co): trconv3d_bn_act(x, wt, *e, residual=r,
-                                                     plain=p)))
+                                                     plain=p), meta))
         # K4 — backbone conv23_0 (5x5 stride 2), lat2 (1x1 + residual),
         # refine's C->1 tail (f32 out)
         x = rnd(NVIEWS, h2, w2, 16).to(dt)
         w5 = rnd(32, 16, 5, 5, scale=0.05).to(dt)
+        meta = dict(in_bytes=size(x, w5),
+                    ops=conv_ops(NVIEWS * (h2 // 2) * (w2 // 2), 25, 16, 32),
+                    library=lambda x=x, wt=cl_weight(w5): F.conv2d(
+                        cl(x), wt, stride=2, padding=2))
         cases.append(("conv2d_bn_act", dt, lambda p, x=x, wt=w5, e=epi(32):
-                      conv2d_bn_act(x, wt, *e, stride=2, plain=p)))
+                      conv2d_bn_act(x, wt, *e, stride=2, plain=p), meta))
         w1 = rnd(64, 16, 1, 1, scale=0.2).to(dt)
         r1 = rnd(NVIEWS, h2, w2, 64).to(dt)
         cases.append(("conv2d_bn_act", dt, lambda p, x=x, wt=w1, r=r1,
                       e=epi(64): conv2d_bn_act(x, wt, *e, relu=False,
-                                               residual=r, plain=p)))
+                                               residual=r, plain=p), None))
         xt = rnd(1, HEIGHT, WIDTH, 8).to(dt)
         wt1 = rnd(1, 8, 3, 3, scale=0.2).to(dt)
         cases.append(("conv2d_bn_act", dt, lambda p, x=xt, wt=wt1, e=epi(1):
                       conv2d_bn_act(x, wt, *e, relu=False,
-                                    out_dtype=torch.float32, plain=p)))
+                                    out_dtype=torch.float32, plain=p), None))
         # K5 — the full-res backbone trunk (3->8, 8->8, 8->16 5x5 stride 2)
-        # and refine's half-res stack (Res skips, 0.1 scale)
+        # and refine's half-res stack (Res skips, 0.1 scale); the yardstick
+        # is the same three cuDNN convs in a row
         xi = rnd(NVIEWS, HEIGHT, WIDTH, 3).to(dt)
         ws = [rnd(8, 3, 3, 3, scale=0.3).to(dt),
               rnd(8, 8, 3, 3, scale=0.2).to(dt),
               rnd(16, 8, 5, 5, scale=0.1).to(dt)]
         es = [epi(8), epi(8), epi(16)]
+        full = NVIEWS * HEIGHT * WIDTH
+
+        def trunk(x=xi, ws=[cl_weight(v) for v in ws]):
+            v = F.conv2d(cl(x), ws[0], padding=1)
+            v = F.conv2d(v, ws[1], padding=1)
+            return F.conv2d(v, ws[2], stride=2, padding=2)
+        meta = dict(in_bytes=size(xi, *ws), library=trunk,
+                    ops=conv_ops(full, 9, 3, 8) + conv_ops(full, 9, 8, 8)
+                    + conv_ops(full // 4, 25, 8, 16))
         cases.append(("conv2d_chain", dt, lambda p, x=xi, ws=ws, es=es:
                       conv2d_chain(x, ws, [e[0] for e in es],
                                    [e[1] for e in es], final_stride=2,
-                                   plain=p)))
+                                   plain=p), meta))
         xr = rnd(1, h2, w2, 1).to(dt)
         wr = ([rnd(8, 1, 3, 3, scale=0.3)]
               + [rnd(8, 8, 3, 3, scale=0.2) for _ in range(7)]
@@ -263,14 +382,51 @@ def kernel_cases(gen, scene):
                           relu_flags=(False,) + (True, False) * 3
                           + (False, False),
                           residuals=(None, None, 0, None, 2, None, 4, 0,
-                                     None), plain=p)))
+                                     None), plain=p), None))
+    # K10 — the stage-0 U-Net's stride-1 pairs at DTU eval: conv01
+    # (32->16->16), conv12_1/2 (32->32->32), conv232_1/2 (64->64->64); the
+    # yardstick is the same two cuDNN convs in a row. Its own generator
+    # keeps the earlier cases' inputs as they were.
+    gen10 = torch.Generator().manual_seed(10)
+
+    def rnd10(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen10) * scale).to(DEV)
+
+    def epi10(co):
+        return rnd10(co, scale=0.2).abs() + 0.5, rnd10(co, scale=0.1)
+    for dt in (torch.bfloat16, torch.float32):
+        for shape, ci, cm in (((1, NDEPTHS[0], h8, w8), NGROUPS[0], 16),
+                              ((1, NDEPTHS[0] // 2, h8 // 2, w8 // 2), 32, 32),
+                              ((1, NDEPTHS[0] // 4, h8 // 4, w8 // 4), 64,
+                               64)):
+            x = rnd10(*shape, ci, scale=0.5).to(dt)
+            wa = rnd10(cm, ci, 3, 3, 3, scale=0.1).to(dt)
+            wb = rnd10(cm, cm, 3, 3, 3, scale=0.1).to(dt)
+            e1, e2 = epi10(cm), epi10(cm)
+
+            def pair_lib(x=x, wa=cl_weight(wa), wb=cl_weight(wb)):
+                return F.conv3d(F.conv3d(cl(x), wa, padding=1), wb,
+                                padding=1)
+
+            def beside(x=x, wa=wa, wb=wb, e1=e1, e2=e2):
+                return conv3d_bn_act(conv3d_bn_act(x, wa, *e1), wb, *e2)
+            vox = x.numel() // ci
+            meta = dict(in_bytes=size(x, wa, wb), library=pair_lib,
+                        beside=beside,
+                        ops=conv_ops(vox, 27, ci, cm) + conv_ops(vox, 27, cm,
+                                                                 cm))
+            cases.append(("conv3d_pair_bn_act", dt, lambda p, x=x, wa=wa,
+                          wb=wb, e1=e1, e2=e2: conv3d_pair_bn_act(
+                              x, wa, *e1, wb, *e2, plain=p), meta))
     return cases
 
 
 def check_kernels(scene):
+    """Each kernel vs its plain version; for its main-path case (bf16) its
+    time, the plain version's, the bound and the library call's time."""
     gen = torch.Generator().manual_seed(0)
     report = {}
-    for name, dt, fn in kernel_cases(gen, scene):
+    for name, dt, fn, meta in kernel_cases(gen, scene):
         got = fn(False)
         ref = fn(True)
         torch.cuda.synchronize()
@@ -283,15 +439,23 @@ def check_kernels(scene):
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         line = (f"kernel {name} {str(dt)[6:]} {tuple(got.shape)}: max_abs_err "
                 f"{err:.3e} rel {rel:.3e} (tol {REL_TOL[dt]:.0e})")
-        if dt == torch.bfloat16 and "ms" not in entry:
+        if dt == torch.bfloat16 and meta is not None and "ms" not in entry:
             entry["ms"] = cuda_ms(lambda: fn(False))
             entry["plain_ms"] = cuda_ms(lambda: fn(True), iters=3)
-            line += f"; {entry['ms']:.3f} ms vs plain {entry['plain_ms']:.3f} ms"
+            entry.update(bound(meta["in_bytes"] + size(got), meta["ops"]))
+            entry["library_ms"] = (cuda_ms(meta["library"])
+                                   if meta["library"] else None)
+            line += (f"; {entry['ms']:.3f} ms vs plain "
+                     f"{entry['plain_ms']:.3f} ms, bound "
+                     f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}), "
+                     f"library {entry['library_ms']} ms")
+        if dt == torch.bfloat16 and meta and "beside" in meta:
+            line += (f"; {cuda_ms(lambda: fn(False)):.3f} ms vs two K2 "
+                     f"launches {cuda_ms(meta['beside']):.3f} ms")
         print(line, flush=True)
         require(rel <= REL_TOL[dt] and np.isfinite(err),
                 f"{name} disagrees with its plain version")
-    return [dict(name=n, route="cuda", **KERNELS[n], **report[n])
-            for n in KERNELS]
+    return report
 
 
 def sharpen(model, seed: int = 1) -> None:
@@ -406,7 +570,48 @@ def forward_phase(build_s, scene):
                 f"bf16 kernel forward: {k} {v:.2e} > {FORWARD_BOUNDS[k]:.1e}")
     del vols, ref_vols
     profile_phase(model, args, ms_map)
-    return model, launches
+    return model, args, launches
+
+
+def pair_phase(model, args) -> int:
+    """K10 on the stage-0 U-Net's three stride-1 pairs, fed the eval
+    forward's own volumes: each pair against the two conv3d (K2) launches
+    that it replaces in that forward. Returns K10's launches here."""
+    from mdfnet_tpu_torch.ops.cuda import conv_kernel
+    reg = model.Regular[0]
+    pairs = [(reg.conv01[0], reg.conv01[1]), (reg.conv12[1], reg.conv12[2]),
+             (reg.conv232[1], reg.conv232[2])]
+    seen, hooks = {}, []
+    for i, (first, second) in enumerate(pairs):
+        hooks += [first.register_forward_pre_hook(
+                      lambda _m, a, i=i: seen.__setitem__(("in", i), a[0])),
+                  second.register_forward_hook(
+                      lambda _m, _a, o, i=i: seen.__setitem__(("out", i), o))]
+    try:
+        model(*args)
+    finally:
+        for h in hooks:
+            h.remove()
+    conv_kernel.LAUNCHES["conv3d_pair_bn_act"] = 0
+    outs = []
+    for i, (first, second) in enumerate(pairs):
+        x = seen["in", i]
+        outs.append(conv_kernel.conv3d_pair_bn_act(
+            x, *first.folded(x.dtype), *second.folded(x.dtype)))
+    torch.cuda.synchronize()
+    launches = conv_kernel.LAUNCHES["conv3d_pair_bn_act"]
+    errs = []
+    for i, got in enumerate(outs):
+        ref = seen["out", i].float()
+        errs.append((got.float() - ref).abs().max().item()
+                    / max(ref.abs().max().item(), 1e-6))
+    print(f"pair: the stage-0 U-Net's stride-1 pairs "
+          f"{[tuple(seen['in', i].shape) for i in range(3)]} on K10 vs two "
+          f"K2 launches each: rel err {[f'{e:.2e}' for e in errs]} (tol "
+          f"{REL_TOL[torch.bfloat16]:.0e}); launches {launches}", flush=True)
+    require(launches == 3 and all(e <= REL_TOL[torch.bfloat16] for e in errs),
+            "pair phase: K10 disagrees with the two K2 launches")
+    return launches
 
 
 def _layer_names(model) -> list[str]:
@@ -550,13 +755,18 @@ def _rel_err(got, ref) -> tuple[float, float]:
 
 
 def train_kernel_cases(gen, batch):
-    """(name, dtype, run(plain) -> result, time(plain) -> ms) at the DTU
-    train shapes; the first case of each name is its timed, main-path shape
-    (bf16). K8 results are (output, d_input, d_weight): the kernel Function
-    against plain autograd on the plain conv."""
+    """(name, dtype, run(plain) -> result, time(plain) -> ms, meta) at the
+    DTU train shapes; the first case of each name is its timed, main-path
+    shape (bf16), whose meta gives the bytes its timed work moves, its
+    operations and the PyTorch call timed beside it (None where there is
+    none). K8 results are (output, d_input, d_weight): the kernel Function
+    against plain autograd on the plain conv; its time, bound and yardstick
+    are the input gradient's."""
     import torch.nn.functional as F
     from mdfnet_tpu_torch import geometry
     from mdfnet_tpu_torch.ops.cuda import exact_cuda_math
+    from mdfnet_tpu_torch.ops.cuda.aggregate_kernel import (
+        rowsweep_aggregate_with_wsum, rowsweep_stats)
     from mdfnet_tpu_torch.ops.cuda.conv_vjp import (conv2d_train,
                                                     conv3d_train,
                                                     trconv3d_train)
@@ -568,7 +778,7 @@ def train_kernel_cases(gen, batch):
         return (torch.randn(*shape, generator=gen) * scale).to(DEV)
 
     b, s = TRAIN_BATCH, NVIEWS - 1
-    cases = []
+    cases, geo = [], {}
     # K6 / K7 — stage 0 (48 uniform planes, 1/8 res, G = 32) and stage 2
     # (8 per-pixel planes, 1/2 res, G = 8), all 4 sources of 4 items
     for stage, d, g in ((0, NDEPTHS[0], NGROUPS[0]), (2, NDEPTHS[2], NGROUPS[2])):
@@ -583,16 +793,37 @@ def train_kernel_cases(gen, batch):
             hyp = 560.0 + torch.arange(d).reshape(1, d, 1, 1) * 4.0 \
                 + torch.rand(b, 1, h, w, generator=gen) * 40.0
         x, y = sweep_sample_coords(src_projs, ref_proj, hyp.to(DEV), h, w)
+        geo[stage] = (src_projs, ref_proj, hyp.to(DEV), d, h, w, g)
+        # grid_sample's normalised grid for the same samples (align_corners
+        # False): x_pixel = ((gx + 1) W - 1) / 2
+        grid = torch.stack([(2.0 * x + 1.0) / w - 1.0,
+                            (2.0 * y + 1.0) / h - 1.0], -1)
+        grid = grid.reshape(b * s, d, h * w, 2)
         for dt in (torch.bfloat16, torch.float32):
             img = rnd(b * s, h, w, g).to(dt)
             gr = rnd(b * s, d, h, w, g).to(dt)
             sample = (lambda p, img=img, x=x, y=y: sample_2d(img, x, y, plain=p))
             splat = (lambda p, gr=gr, x=x, y=y, h=h, w=w:
                      splat_2d(gr, x, y, h, w, plain=p))
+            n_samples = x.numel()
+            gd = grid.to(dt)
+            img_nchw = cl(img)
+            g_nchw = gr.reshape(b * s, d, h * w, g).permute(0, 3, 1, 2)
+            sample_meta = dict(
+                nbytes=size(img, x, y, gr), ops=n_samples * (10 + 9 * g),
+                library=lambda img=img_nchw, gd=gd: F.grid_sample(
+                    img, gd, mode="bilinear", padding_mode="zeros",
+                    align_corners=False))
+            splat_meta = dict(
+                nbytes=size(gr, x, y) + b * s * h * w * g * 4,
+                ops=n_samples * (10 + 8 * g),
+                library=lambda gn=g_nchw, img=img_nchw, gd=gd:
+                torch.ops.aten.grid_sampler_2d_backward(
+                    gn, img, gd, 0, 0, False, [True, False]))
             cases += [("sample_2d", dt, sample,
-                       lambda p, f=sample: cuda_ms(lambda: f(p))),
+                       lambda p, f=sample: cuda_ms(lambda: f(p)), sample_meta),
                       ("splat_2d", dt, splat,
-                       lambda p, f=splat: cuda_ms(lambda: f(p)))]
+                       lambda p, f=splat: cuda_ms(lambda: f(p)), splat_meta)]
 
     def plain_conv(kind, stride):
         def run(x, w):
@@ -613,9 +844,11 @@ def train_kernel_cases(gen, batch):
         "conv2d_train": lambda st: lambda x, w: conv2d_train(x, w, st)}
     h8, w8 = TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8
     n = b * NVIEWS
+    timed = set()
     # K8 — stage-0 U-Net conv01_0 (s1), conv12_0 (s2), conv232_3 (the
     # transposed conv), ProbConv (Co = 1); full-res backbone conv01_1 (3x3
-    # s1) and conv12_0 (5x5 s2: its input gradient is a library call); lat2
+    # s1) and conv12_0 (5x5 s2: its input gradient is a library call); lat2.
+    # The yardstick is cuDNN's input gradient of the same convolution.
     for kind, xshape, wshape, stride in (
             ("conv3d_train", (b, NDEPTHS[0], h8, w8, 32), (16, 32, 3, 3, 3), 1),
             ("conv3d_train", (b, NDEPTHS[0], h8, w8, 16), (32, 16, 3, 3, 3), 2),
@@ -651,7 +884,58 @@ def train_kernel_cases(gen, batch):
                 g = gout.to(y.dtype)
                 return cuda_ms(lambda: torch.autograd.grad(
                     y, xg, g, retain_graph=True), iters=20)
-            cases.append((kind, dt, grads, backward_ms))
+            meta = None
+            if dt == torch.bfloat16 and kind not in timed:
+                timed.add(kind)
+                nd = len(wshape) - 2
+                tr = kind == "trconv3d_train"
+                taps, ci = math.prod(wshape[2:]), xshape[-1]
+                co = wshape[1] if tr else wshape[0]
+                vox = (x.numel() // ci if tr
+                       else gout.numel() // co)
+                pad = wshape[-1] // 2
+                meta = dict(
+                    nbytes=size(x, wt) + gout.numel() * x.element_size(),
+                    ops=conv_ops(vox, taps, ci, co),
+                    library=lambda x=x, wt=cl_weight(wt), go=gout.to(dt),
+                    st=stride, nd=nd, pad=pad, tr=tr:
+                    torch.ops.aten.convolution_backward(
+                        cl(go), cl(x), wt, None, [st] * nd, [pad] * nd,
+                        [1] * nd, tr, [1 if tr else 0] * nd, 1,
+                        [True, False, False]))
+            cases.append((kind, dt, grads, backward_ms, meta))
+
+    # K9 — the fused train aggregate's stats kernel and K1 with a per-view
+    # BN affine, at stages 0 and 2 (its own generator keeps the earlier
+    # cases' inputs as they were)
+    gen9 = torch.Generator().manual_seed(9)
+    for stage in (0, 2):
+        src_projs, ref_proj, hyp, d, h, w, g = geo[stage]
+        hyp = hyp.expand(b, d, *hyp.shape[2:]).contiguous()
+        for dt in (torch.bfloat16, torch.float32):
+            src = torch.randn(b, s, h, w, g, generator=gen9).to(DEV, dt)
+            ref = torch.randn(b, h, w, g, generator=gen9).to(DEV, dt)
+            k0 = (torch.randn(g, generator=gen9) * 0.3).to(DEV)
+            bn = ((torch.rand(s, generator=gen9) + 0.5).to(DEV),
+                  (torch.randn(s, generator=gen9) * 0.2).to(DEV),
+                  torch.tensor(1.2, device=DEV), torch.tensor(-0.2, device=DEV))
+            args = (src, ref, src_projs, ref_proj, hyp, k0)
+            points = b * d * h * w
+            stats = (lambda p, a=args: rowsweep_stats(*a, plain=p))
+            wsum = (lambda p, a=args, bn=bn:
+                    rowsweep_aggregate_with_wsum(*a, *bn, plain=p))
+            first = dt == torch.bfloat16 and stage == 0
+            cases += [
+                ("rowsweep_stats", dt, stats,
+                 lambda p, f=stats: cuda_ms(lambda: f(p)),
+                 dict(nbytes=size(src, ref, hyp, k0), library=None,
+                      ops=aggregate_ops(points, s, g, True)) if first
+                 else None),
+                ("rowsweep_aggregate_with_wsum", dt, wsum,
+                 lambda p, f=wsum: cuda_ms(lambda: f(p)),
+                 dict(nbytes=size(src, ref, hyp, k0) + points * (g + 1) * 4,
+                      library=None, ops=aggregate_ops(points, s, g, False))
+                 if first else None)]
     return cases
 
 
@@ -659,7 +943,7 @@ def check_train_kernels(batch):
     from mdfnet_tpu_torch.ops.cuda.splat_kernel import splat_2d
     gen = torch.Generator().manual_seed(1)
     report = {}
-    for name, dt, run, timer in train_kernel_cases(gen, batch):
+    for name, dt, run, timer, meta in train_kernel_cases(gen, batch):
         got, ref = run(False), run(True)
         torch.cuda.synchronize()
         err, rel = _rel_err(got, ref)
@@ -668,15 +952,21 @@ def check_train_kernels(batch):
         shape = tuple((got[0] if isinstance(got, tuple) else got).shape)
         line = (f"train kernel {name} {str(dt)[6:]} {shape}: max_abs_err "
                 f"{err:.3e} rel {rel:.3e} (tol {REL_TOL[dt]:.0e})")
-        if name == "splat_2d":
+        if name in ("splat_2d", "rowsweep_stats"):
             again = run(False)
             torch.cuda.synchronize()
             require(torch.equal(got, again),
-                    "splat_2d: two launches on the same inputs differ")
+                    f"{name}: two launches on the same inputs differ")
             line += "; two launches bit-identical"
-        if dt == torch.bfloat16 and "ms" not in entry:
+        if meta is not None and "ms" not in entry:
             entry["ms"], entry["plain_ms"] = timer(False), timer(True)
-            line += f"; {entry['ms']:.3f} ms vs plain {entry['plain_ms']:.3f} ms"
+            entry.update(bound(meta["nbytes"], meta["ops"]))
+            entry["library_ms"] = (cuda_ms(meta["library"])
+                                   if meta["library"] else None)
+            line += (f"; {entry['ms']:.3f} ms vs plain "
+                     f"{entry['plain_ms']:.3f} ms, bound "
+                     f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}), "
+                     f"library {entry['library_ms']} ms")
             if name.endswith("_train"):
                 line += " (input gradient)"
         print(line, flush=True)
@@ -686,15 +976,18 @@ def check_train_kernels(batch):
     return report
 
 
-def _step(dtype: str, plain: bool, batch, *, launches=None):
+def _step(dtype: str, plain: bool, batch, *, launches=None,
+          warp_impl: str = "dense"):
     """One train step's loss, gradients and per-stage volumes from the
     seed-0 weights, convs in ``dtype`` ("bfloat16" or "float32").
     ``launches``: the counters to zero before the step and read after it
-    (the main path's run)."""
+    (the main path's run); ``warp_impl="fused"``: the fused train
+    aggregate."""
+    from mdfnet_tpu_torch.config import ModelConfig
     from mdfnet_tpu_torch.models.registry import build_model
     from mdfnet_tpu_torch.train_lib import loss_and_grads
-    model = build_model(compute_dtype=dtype, seed=0, device=DEV) \
-        .requires_grad_(True)
+    model = build_model(ModelConfig(warp_impl=warp_impl), compute_dtype=dtype,
+                        seed=0, device=DEV).requires_grad_(True)
     vols, hooks = {}, []
     for kind, mods in (("cost", model.Homoaggre), ("prob", model.Regular)):
         for s, mod in enumerate(mods):
@@ -726,17 +1019,25 @@ def _grad_stats(grads, ref):
     return errs, coss
 
 
-def train_gate(batch):
-    from mdfnet_tpu_torch.ops.cuda import (conv_kernel, splat_kernel,
-                                           warp_kernel)
+def train_gate(batch, warp_impl: str = "dense"):
+    """The bf16 and f32 step gates; returns the bf16 step's launches and
+    the f32 kernel step's (loss, gradients)."""
+    from mdfnet_tpu_torch.ops.cuda import (aggregate_kernel, conv_kernel,
+                                           splat_kernel, warp_kernel)
     counters = (warp_kernel.LAUNCHES, splat_kernel.LAUNCHES,
-                conv_kernel.LAUNCHES)
+                conv_kernel.LAUNCHES, aggregate_kernel.LAUNCHES)
     loss_b, grads_b, vols_b, launches = _step("bfloat16", False, batch,
-                                              launches=counters)
-    step_ids = [k for k in launches if k != "conv2d_chain"]
+                                              launches=counters,
+                                              warp_impl=warp_impl)
+    # the chain and the eval aggregate run in eval only, and no model path
+    # runs the pair; the fused aggregate's kernels run with warp_impl="fused"
+    step_ids = [k for k in launches if k not in (
+        "conv2d_chain", "conv3d_pair_bn_act", "rowsweep_aggregate")
+        and (warp_impl == "fused" or k not in FUSED_KERNELS)]
     require(all(launches[k] > 0 for k in step_ids),
             f"a kernel of the train step never launched: {launches}")
-    loss_p, grads_p, vols_p, _ = _step("float32", True, batch)
+    loss_p, grads_p, vols_p, _ = _step("float32", True, batch,
+                                       warp_impl=warp_impl)
     # bf16 kernels vs plain f32
     diffs = {"loss": abs(loss_b - loss_p) / abs(loss_p)}
     for key, r in vols_p.items():
@@ -744,7 +1045,8 @@ def train_gate(batch):
         diffs[key] = d / r.std().item() if key.startswith("cost") else d
     errs, coss = _grad_stats(grads_b, grads_p)
     med_cos = float(np.median(list(coss.values())))
-    print(f"train gate bf16 kernels vs plain f32 ({TRAIN_WIDTH}x{TRAIN_HEIGHT}"
+    print(f"{warp_impl} train gate bf16 kernels vs plain f32 ("
+          f"{TRAIN_WIDTH}x{TRAIN_HEIGHT}"
           f"x{NVIEWS}, batch {TRAIN_BATCH}): loss {loss_b:.4f} vs "
           f"{loss_p:.4f}; " + ", ".join(
               f"{k} {v:.2e} (bound {STEP_BOUNDS_BF16[k]:.1e})"
@@ -761,12 +1063,14 @@ def train_gate(batch):
             f"train gate bf16: median gradient cosine {med_cos:.4f}")
     del grads_b, vols_b
     # f32 kernels vs plain f32: every parameter
-    loss_k, grads_k, _, _ = _step("float32", False, batch)
+    loss_k, grads_k, _, _ = _step("float32", False, batch,
+                                  warp_impl=warp_impl)
     errs, coss = _grad_stats(grads_k, grads_p)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     worst = max(errs, key=errs.get)
     med_err = float(np.median(list(errs.values())))
-    print(f"train gate f32 kernels vs plain f32: loss rel {loss_rel:.2e} "
+    print(f"{warp_impl} train gate f32 kernels vs plain f32: loss rel "
+          f"{loss_rel:.2e} "
           f"(bound {STEP_BOUNDS_F32['loss']:.0e}); gradients of all "
           f"{len(errs)} parameters: rel err max {errs[worst]:.2e} ({worst}; "
           f"bound {STEP_BOUNDS_F32['grad rel err']:.2e}) median "
@@ -779,20 +1083,81 @@ def train_gate(batch):
     bad = [n for n in errs if errs[n] > STEP_BOUNDS_F32["grad rel err"]
            or coss[n] < MIN_COS_F32]
     require(not bad, f"train gate f32: gradients out of bounds: {bad[:5]}")
+    return launches, (loss_k, grads_k)
+
+
+def _versus(loss, grads, loss_ref, grads_ref) -> dict:
+    """Loss, worst and median gradient error, worst cosine against a
+    reference step."""
+    errs, coss = _grad_stats(grads, grads_ref)
+    worst = max(errs, key=errs.get)
+    return {"loss": abs(loss - loss_ref) / abs(loss_ref),
+            "grad rel err": errs[worst], "worst": worst,
+            "median grad rel err": float(np.median(list(errs.values()))),
+            "cosine min": min(coss.values())}
+
+
+def fused_gate(batch, unfused_f32):
+    """The fused train aggregate's step (warp_impl="fused") under the bf16
+    and f32 gates, then the fused f32 step against the unfused f32 step on
+    the kernels (FUSED_BOUNDS), and the same with a fault injected into the
+    fused backward (the BN backward without its mean term), which must
+    exceed them. Returns the fused bf16 step's launches."""
+    from mdfnet_tpu_torch.ops import aggregate_train
+    launches, (loss_f, grads_f) = train_gate(batch, warp_impl="fused")
+    require(all(launches[k] > 0 for k in (*FUSED_KERNELS, "sample_2d",
+                                           "splat_2d")),
+            f"a kernel of the fused step never launched: {launches}")
+    clean = _versus(loss_f, grads_f, *unfused_f32)
+    del grads_f
+    bn_backward = aggregate_train.bn_backward
+
+    def without_mean(d_shat, s_hat, r):
+        m2 = (d_shat * s_hat).sum(dtype=torch.float64) / d_shat.numel()
+        return r * (d_shat - s_hat * m2.float())
+    aggregate_train.bn_backward = without_mean
+    try:
+        loss_x, grads_x, _, _ = _step("float32", False, batch,
+                                      warp_impl="fused")
+    finally:
+        aggregate_train.bn_backward = bn_backward
+    fault = _versus(loss_x, grads_x, *unfused_f32)
+    del grads_x
+
+    def show(v):
+        return (f"loss rel {v['loss']:.2e}, grad rel err max "
+                f"{v['grad rel err']:.2e} ({v['worst']}) median "
+                f"{v['median grad rel err']:.2e}, cosine min "
+                f"{v['cosine min']:.6f}")
+    over = [k for k, b in FUSED_BOUNDS.items() if fault[k] > b]
+    over += ["cosine min"] if fault["cosine min"] < MIN_COS_FUSED else []
+    print(f"fused vs unfused f32 step on the kernels: {show(clean)} (bounds "
+          f"{FUSED_BOUNDS}, cosine >= {MIN_COS_FUSED}); with the BN "
+          f"backward's mean term dropped: {show(fault)}, beyond {over}; "
+          f"launches {launches}", flush=True)
+    for k, b in FUSED_BOUNDS.items():
+        require(clean[k] <= b, f"fused vs unfused: {k} {clean[k]:.2e} > {b}")
+    require(clean["cosine min"] >= MIN_COS_FUSED,
+            f"fused vs unfused: cosine {clean['cosine min']:.6f}")
+    require(over, "an injected fault in the fused backward stays within "
+                  "the fused-vs-unfused bounds")
     return launches
 
 
-def learn_phase(batch, smi):
-    """20 Adam steps on one batch (bf16 kernels): the loss falls; ms/step
-    (median after 2 warm-up steps), profiled device time and idle share,
-    peak memory, and one step's time by layer."""
+def learn_phase(batch, smi, warp_impl: str = "dense", steps: int = 20,
+                profile: bool = True):
+    """Adam steps on one batch (bf16 kernels): the loss falls; ms/step
+    (median after 2 warm-up steps), peak memory, profiled device time and
+    idle share, and one step's time by layer, which it returns."""
+    from mdfnet_tpu_torch.config import ModelConfig
     from mdfnet_tpu_torch.models.registry import build_model
     from mdfnet_tpu_torch.train_lib import make_optimizer, poly_lr, train_step
-    model = build_model(compute_dtype="bfloat16", seed=0, device=DEV) \
-        .requires_grad_(True)
+    model = build_model(ModelConfig(warp_impl=warp_impl),
+                        compute_dtype="bfloat16", seed=0,
+                        device=DEV).requires_grad_(True)
     opt = make_optimizer(model, poly_lr(1, 1e-3, 30, 0.9))
     losses, times = [], []
-    for i in range(20):
+    for i in range(steps):
         if i == 2:
             torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -802,19 +1167,23 @@ def learn_phase(batch, smi):
         times.append((time.perf_counter() - t0) * 1e3)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     ms_step = statistics.median(times[2:])
-    busy, wall_us, top = device_profile(
-        lambda: train_step(model, opt, batch), 14)
-    print(f"learn: losses {[round(v, 2) for v in losses]}", flush=True)
-    print(f"train step {TRAIN_WIDTH}x{TRAIN_HEIGHT}x{NVIEWS} batch "
-          f"{TRAIN_BATCH} bf16 on {smi}: {ms_step:.2f} ms/step (median of "
-          f"{len(times) - 2}; runs {[round(t, 1) for t in times]}), peak "
-          f"{peak_mb:.0f} MiB; profiled step: device busy {busy / 1e3:.2f} ms "
-          f"of {wall_us / 1e3:.2f} ms wall (idle {1 - busy / wall_us:.1%}); "
-          f"estimated idle of an unprofiled step (vs its median) "
-          f"{1 - busy / 1e3 / ms_step:.1%}; top: {top}", flush=True)
+    print(f"{warp_impl} learn: losses {[round(v, 2) for v in losses]}",
+          flush=True)
+    line = (f"{warp_impl} train step {TRAIN_WIDTH}x{TRAIN_HEIGHT}x{NVIEWS} "
+            f"batch {TRAIN_BATCH} bf16 on {smi}: {ms_step:.2f} ms/step "
+            f"(median of {len(times) - 2}; runs "
+            f"{[round(t, 1) for t in times]}), peak {peak_mb:.0f} MiB")
+    if profile:
+        busy, wall_us, top = device_profile(
+            lambda: train_step(model, opt, batch), 14)
+        line += (f"; profiled step: device busy {busy / 1e3:.2f} ms of "
+                 f"{wall_us / 1e3:.2f} ms wall (idle {1 - busy / wall_us:.1%})"
+                 f"; estimated idle of an unprofiled step (vs its median) "
+                 f"{1 - busy / 1e3 / ms_step:.1%}; top: {top}")
+    print(line, flush=True)
     require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     require(losses[-1] < 0.9 * losses[0], f"no learning: {losses}")
-    train_layers(model, opt, batch)
+    return train_layers(model, opt, batch)
 
 
 def train_layers(model, opt, batch):
@@ -874,6 +1243,19 @@ def train_layers(model, opt, batch):
         + ", ".join(f"{k} {v:.2f}" for k, v in backward.items())
         + f"; Adam {bwd_end.elapsed_time(end):.2f}; total {total:.2f}",
         flush=True)
+    return forward, backward
+
+
+def fused_learn_phase(batch, smi, unfused_layers):
+    """10 Adam steps of the fused model (warp_impl="fused"); its aggregates'
+    forward and backward times beside the unfused path's."""
+    forward, backward = learn_phase(batch, smi, warp_impl="fused", steps=10,
+                                    profile=False)
+    names = [f"Homoaggre.{s}" for s in range(len(NDEPTHS))]
+    print("aggregates (ms, one step, fused vs unfused): " + ", ".join(
+        f"{n} forward {forward[n]:.2f} vs {unfused_layers[0][n]:.2f}, "
+        f"backward {backward[n]:.2f} vs {unfused_layers[1][n]:.2f}"
+        for n in names), flush=True)
 
 
 def train_cli_phase():
@@ -964,24 +1346,34 @@ def main():
           f"({most}); spill stores: {', '.join(spills) or 'none'}",
           flush=True)
 
+    def entry(name, info, report, launches):
+        info = dict(info)
+        info.pop("counter", None)
+        return dict(name=name, route="cuda", **info, **report[name],
+                    launches=launches)
+
     scene = dtu_scene()
-    kernels = check_kernels(scene)
-    model, launches = forward_phase(build_s, scene)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    report = check_kernels(scene)
+    model, args, launches = forward_phase(build_s, scene)
+    kernels = [entry(n, info, report, launches[n])
+               for n, info in KERNELS.items()]
+    pair_launches = pair_phase(model, args)
+    kernels += [entry(n, info, report, pair_launches)
+                for n, info in PAIR_KERNEL.items()]
     serve_phase(model)
-    del model
+    del model, args
 
     batch = train_batch()
     report = check_train_kernels(batch)
-    launches = train_gate(batch)
-    for name, info in TRAIN_KERNELS.items():
-        info = dict(info)
-        counter = info.pop("counter", name)
-        kernels.append(dict(name=name, route="cuda", **info, **report[name],
-                            launches=launches[counter]))
-    learn_phase(batch, smi)
+    launches, unfused_f32 = train_gate(batch)
+    kernels += [entry(n, info, report, launches[info.get("counter", n)])
+                for n, info in TRAIN_KERNELS.items()]
+    unfused_layers = learn_phase(batch, smi)
     train_cli_phase()
+    launches = fused_gate(batch, unfused_f32)
+    kernels += [entry(n, info, report, launches[n])
+                for n, info in FUSED_KERNELS.items()]
+    fused_learn_phase(batch, smi, unfused_layers)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

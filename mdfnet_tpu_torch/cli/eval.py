@@ -1,12 +1,13 @@
 """Evaluation CLI of the port (twin of ``mdfnet_tpu/cli/eval.py``):
 
     python -m mdfnet_tpu_torch.cli.eval -p CKPT.pth [--root DIR]
-        [-o OUTPUT] [--scans ...]
+        [-o OUTPUT] [--scans ...] [--device cuda|cpu]
 
 The DTU eval set only (Tanks & Temples is not ported yet). CKPT is a
-reference-schema ``.pth`` ({'epoch', 'model'}). On a CUDA device
-the model runs the hand-written kernels with bf16 convs (f32 geometry,
-softmax and fitting); on the CPU it runs the plain versions in f32.
+reference-schema ``.pth`` ({'epoch', 'model'}). On the card (``--device
+cuda``, the default; with no card it exits with an error) the model runs the
+hand-written kernels with bf16 convs (f32 geometry, softmax and fitting);
+``--device cpu`` runs the plain versions in f32.
 """
 from __future__ import annotations
 
@@ -16,10 +17,10 @@ import os
 
 import torch
 
-from mdfnet_tpu.config import DataConfig, EvalConfig, ModelConfig
-from mdfnet_tpu.data.datasets import DTUEvalDataset
+from mdfnet_tpu_torch.config import DataConfig, EvalConfig, ModelConfig
+from mdfnet_tpu_torch.data import DTUEvalDataset
 from mdfnet_tpu_torch.evaluate import run_eval
-from mdfnet_tpu_torch.models.registry import build_model
+from mdfnet_tpu_torch.models.registry import build_model, resolve_device
 from mdfnet_tpu_torch.utils.weights import load_checkpoint
 
 log = logging.getLogger("mdfnet_tpu_torch.eval")
@@ -35,11 +36,17 @@ def main(argv=None):
     parser.add_argument("-o", "--output", default="outputs")
     parser.add_argument("--scans", default=None,
                         help="comma-separated DTU scan ids")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="cuda (default; fails without a card) or cpu "
+                             "(the plain versions in f32)")
     args = parser.parse_args(argv)
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        parser.error(str(e))
 
     data_cfg = DataConfig(root_dir=args.root) if args.root else DataConfig()
-    on_card = torch.cuda.is_available()
-    device = torch.device("cuda" if on_card else "cpu")
+    on_card = device.type == "cuda"
     model = build_model(ModelConfig(
         compute_dtype="bfloat16" if on_card else "float32"), device=device)
     epoch = load_checkpoint(model, args.pre_model)

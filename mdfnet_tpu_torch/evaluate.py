@@ -2,7 +2,7 @@
 ``mdfnet_tpu/evaluate.py``, reference eval.py:10-50).
 
 Writes ``depth_est/<ref>.pfm``, ``depth_est/<ref>.png`` and
-``confidence/<ref>.pfm`` per view through ``mdfnet_tpu.data.formats``, in the
+``confidence/<ref>.pfm`` per view through ``data/formats.py``, in the
 reference's directory schema, so the fusion backends are drop-in. A writer
 thread stores batch i's files while the card runs batch i + 1.
 """
@@ -18,8 +18,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from mdfnet_tpu.data.formats import ensure_dir, write_depth_png, write_pfm
-from mdfnet_tpu.data.pipeline import BatchLoader
+from mdfnet_tpu_torch.data.formats import (ensure_dir, write_depth_png,
+                                           write_pfm)
+from mdfnet_tpu_torch.data.pipeline import BatchLoader
 
 log = logging.getLogger("mdfnet_tpu_torch.eval")
 

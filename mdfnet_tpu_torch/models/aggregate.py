@@ -1,6 +1,6 @@
 """Group-wise vector cost aggregation over source views (port of
 ``mdfnet_tpu/models/aggregate.py``, reference net/unit/homoaggregate.py:8-46),
-eval only.
+eval and train.
 
 Features become per-group unit vectors by a softmax over each group's
 channels; ref and each warped source are correlated per group; a tiny
@@ -9,11 +9,17 @@ per-voxel visibility weight for a weighted average. With C/G == 2 (the
 reference configuration) the softmax collapses to sigmoids of channel-pair
 differences and the whole eval chain is the fused aggregate kernel (K1).
 
-Train (C/G == 2, JAX ``aggregate.py:312-363``) keeps the chain unfused, so
-autograd reaches the features: every source view's pair differences are
-warped by the differentiable warp (K6 forward, K7 backward), and DepthWeight
-runs its BatchNorm on batch statistics, one call (one running-statistics
-update) per source view in view order.
+Train (C/G == 2) has two paths, as in JAX. With ``warp_impl="fused"``
+(JAX ``aggregate.py:202-225``) it is the fused train aggregate
+(``ops/aggregate_train.py``: the stats kernel, then K1 with a per-view BN
+affine; a closed-form backward on K6 and K7), after which DepthWeight's
+running statistics take the V sequential updates that the unfused path
+makes. Otherwise (JAX ``aggregate.py:312-363``, and the JAX fallback of
+``"fused"`` for C/G != 2) the chain stays unfused, so autograd reaches the
+features: every source view's pair differences are warped by the
+differentiable warp (K6 forward, K7 backward), and DepthWeight runs its
+BatchNorm on batch statistics, one call (one running-statistics update) per
+source view in view order.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 from torch import nn
 
 from mdfnet_tpu_torch.models.layers import BatchNorm, ConvND
+from mdfnet_tpu_torch.ops.aggregate_train import rowsweep_aggregate_train
 from mdfnet_tpu_torch.ops.cuda.aggregate_kernel import rowsweep_aggregate
 from mdfnet_tpu_torch.ops.warp import homography_warp, homography_warp_train
 
@@ -61,9 +68,13 @@ class DepthWeight(nn.Sequential):
 
 
 class VectorAggregate(nn.Module):
-    def __init__(self, ngroups: int):
+    """``warp_impl``: the JAX config's field; ``"fused"`` selects the fused
+    train aggregate (C/G == 2); eval runs K1 whatever it says."""
+
+    def __init__(self, ngroups: int, warp_impl: str = "dense"):
         super().__init__()
         self.ngroups = ngroups
+        self.warp_impl = warp_impl
         self.depth_weight = DepthWeight(ngroups)
 
     def forward(self, feats: torch.Tensor, ref_proj: torch.Tensor,
@@ -78,6 +89,9 @@ class VectorAggregate(nn.Module):
             (B, D, H, W, G) f32 cost volume.
         """
         c, g = feats.shape[-1], self.ngroups
+        if train and self.warp_impl == "fused" and c == 2 * g:
+            return self._fused_train_path(feats, ref_proj, src_projs,
+                                          depth_hypos, plain)
         if train:
             if c != 2 * g:
                 raise NotImplementedError(
@@ -95,6 +109,22 @@ class VectorAggregate(nn.Module):
                 "the CUDA aggregate kernel takes C/G == 2 only")
         return self._softmax_groups_path(feats.float(), ref_proj, src_projs,
                                          depth_hypos)
+
+    def _fused_train_path(self, feats, ref_proj, src_projs, depth_hypos,
+                          plain):
+        """The fused train aggregate on the pair differences, then
+        DepthWeight's BN running statistics: one update per source view in
+        view order, from the stats kernel's batch statistics (JAX
+        ``_ScalarFieldBN``, ``aggregate.py:62-74``)."""
+        diffs = feats[..., 0::2] - feats[..., 1::2]          # (B, V, H, W, G)
+        conv_bn, conv1 = self.depth_weight
+        vol, stats = rowsweep_aggregate_train(
+            diffs[:, 1:].contiguous(), diffs[:, 0].contiguous(), src_projs,
+            ref_proj, depth_hypos, conv_bn.conv.weight.reshape(-1),
+            conv_bn.bn.weight, conv_bn.bn.bias, conv1.weight.reshape(()),
+            conv1.bias.reshape(()), plain=plain)
+        conv_bn.bn.update_running_stats(stats[:, 0], stats[:, 1])
+        return vol
 
     def _train_path(self, feats, ref_proj, src_projs, depth_hypos, plain):
         """sim = p q + (1-p)(1-q) with p = sigmoid(warped source pair

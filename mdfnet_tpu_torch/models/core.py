@@ -33,13 +33,14 @@ class CoreNet(nn.Module):
 
     The topology comes from ``ModelConfig`` (through
     ``registry.build_model``). ``dtype`` is the conv compute dtype; geometry,
-    softmax, fitting and regression run in f32.
+    softmax, fitting and regression run in f32. ``warp_impl="fused"``
+    trains the aggregates on the fused train aggregate (K9).
     """
 
     def __init__(self, *, chs: Sequence[int], ndepths: Sequence[int],
                  curve_classes: Sequence[str | None],
                  prob_threshs: Sequence[float], ngroups: Sequence[int],
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, warp_impl: str = "dense"):
         super().__init__()
         self.ndepths = tuple(ndepths)
         self.curve_classes = tuple(curve_classes)
@@ -47,7 +48,7 @@ class CoreNet(nn.Module):
         self.dtype = dtype
         nstages = len(self.ndepths)
         self.Backbone = FPN4Scales(tuple(chs))
-        self.Homoaggre = nn.ModuleList(VectorAggregate(ngroups[s])
+        self.Homoaggre = nn.ModuleList(VectorAggregate(ngroups[s], warp_impl)
                                        for s in range(nstages))
         self.Regular = nn.ModuleList(
             [RegularNet3Scales(ngroups[0], 16)]

@@ -80,6 +80,20 @@ class BatchNorm(nn.Module):
              + self.bias.float())
         return y.reshape(x.shape).to(x.dtype)
 
+    @torch.no_grad()
+    def update_running_stats(self, means: torch.Tensor,
+                             unbiased_vars: torch.Tensor) -> None:
+        """The running-statistics updates of V train calls whose batch
+        statistics were computed elsewhere (the fused train aggregate's
+        stats kernel): V sequential EMA updates in order, from each call's
+        batch mean and unbiased variance (``means``, ``unbiased_vars``: (V,)
+        for one channel, or (V, C))."""
+        m = self.momentum
+        for mean, var in zip(means, unbiased_vars):
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(m * var)
+        self.num_batches_tracked.add_(len(means))
+
 
 class ConvND(nn.Module):
     """Conv weight (and optional bias) in torch layout (O, I, *k); runs as a

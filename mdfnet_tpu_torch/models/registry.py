@@ -1,8 +1,12 @@
 """Config-driven model assembly (port of ``mdfnet_tpu/models/registry.py``).
 
-Reads the topology fields of ``mdfnet_tpu.config.ModelConfig`` and its
-``compute_dtype``; the TPU-only fields (``warp_impl``, ``pallas_conv``,
-``wfold``, ``remat``) select nothing here.
+Reads the topology fields of :class:`mdfnet_tpu_torch.config.ModelConfig`,
+its ``compute_dtype`` and its ``warp_impl``: ``"fused"`` selects the fused
+train aggregate (``ops/aggregate_train.py``: the stats kernel, then the
+aggregate kernel with a per-view BatchNorm affine) in training, as
+``warp_impl="fused"`` does in the JAX package; eval runs the same kernels
+whatever it says. The other JAX-only fields (``pallas_conv``, ``wfold``,
+``remat``) select nothing here.
 """
 from __future__ import annotations
 
@@ -11,17 +15,29 @@ import dataclasses
 import torch
 from torch import nn
 
-from mdfnet_tpu.config import ModelConfig
+from mdfnet_tpu_torch.config import ModelConfig
 from mdfnet_tpu_torch.models.core import CoreNet
 from mdfnet_tpu_torch.models.layers import init_parameters
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def resolve_device(device: str | torch.device) -> torch.device:
+    """``device`` as a ``torch.device``; raises if it names CUDA and there is
+    no card (an entry point never falls back to the CPU by itself)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card unless the caller "
+            "asks for the CPU (device='cpu', or --device cpu on a CLI)")
+    return device
+
+
 def build_model(config: ModelConfig | None = None, *,
                 compute_dtype: str | None = None, seed: int = 0,
-                device: str | torch.device = "cpu") -> CoreNet:
-    """An eval-mode CoreNet with torch-default random weights drawn from a
+                device: str | torch.device = "cuda") -> CoreNet:
+    """An eval-mode CoreNet on ``device`` (the card unless the caller asks
+    for the CPU) with torch-default random weights drawn from a
     ``torch.Generator`` seeded with ``seed``. ``config`` defaults to the
     default ``ModelConfig``; ``compute_dtype`` ("float32" or "bfloat16"),
     when given, replaces the config's."""
@@ -34,11 +50,13 @@ def build_model(config: ModelConfig | None = None, *,
         if getattr(config, field) != ported:
             raise NotImplementedError(
                 f"{field}={getattr(config, field)!r} is not ported yet")
+    device = resolve_device(device)
     model = CoreNet(chs=config.chs, ndepths=config.ndepths,
                     curve_classes=config.curve_classes,
                     prob_threshs=config.prob_threshs,
                     ngroups=config.ngroups,
-                    dtype=_DTYPES[config.compute_dtype])
+                    dtype=_DTYPES[config.compute_dtype],
+                    warp_impl=config.warp_impl)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval().requires_grad_(False)
 

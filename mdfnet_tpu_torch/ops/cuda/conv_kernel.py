@@ -1,9 +1,10 @@
-"""Convolutions with a fused folded-BN / bias epilogue (K2-K5): CUDA kernels
-and their plain PyTorch versions.
+"""Convolutions with a fused folded-BN / bias epilogue (K2-K5, K10): CUDA
+kernels and their plain PyTorch versions.
 
 Ports of ``mdfnet_tpu/ops/pallas/conv3d_kernel.py`` (``conv3d_bn_relu`` K2,
-``trconv3d_bn_relu`` K3) and ``mdfnet_tpu/ops/pallas/conv2d_kernel.py``
-(``conv2d_fused`` K4, ``conv2d_chain_fused`` K5). All take channels-last
+``trconv3d_bn_relu`` K3, ``conv3d_pair_bn_relu`` K10) and
+``mdfnet_tpu/ops/pallas/conv2d_kernel.py`` (``conv2d_fused`` K4,
+``conv2d_chain_fused`` K5). All take channels-last
 tensors (NHWC / NDHWC) and torch-layout weights, and compute
 
     y = relu?(conv(x) * scale[co] + offset[co]) (+ residual)
@@ -13,7 +14,9 @@ with f32 accumulation; folded eval BN is ``scale = gamma / sqrt(var + eps)``,
 
 The chain (K5) runs its layers as consecutive launches of the K4 kernel, with
 the Res blocks' 0.1 scale and skip adds in that kernel's epilogue; fusing the
-chain in shared memory is later work.
+chain in shared memory is later work. The pair (K10, ``csrc/conv3d_pair.cu``)
+is two stride-1 conv3d layers in one launch whose intermediate volume stays
+in shared memory; as in the JAX package, no model path runs it.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``plain=True`` asks for the plain version explicitly.
@@ -32,10 +35,11 @@ from mdfnet_tpu_torch.ops.cuda import build, exact_cuda_math
 # conv3d_train, K2 at stride 2 for trconv3d_train, K4 for conv2d_train.
 LAUNCHES = {"conv3d_bn_act": 0, "trconv3d_bn_act": 0, "conv2d_bn_act": 0,
             "conv2d_chain": 0, "conv3d_dgrad": 0, "trconv3d_dgrad": 0,
-            "conv2d_dgrad": 0}
+            "conv2d_dgrad": 0, "conv3d_pair_bn_act": 0}
 
 _COB = 8                    # output channels per thread (csrc/conv_bn_act.cu)
 _MAX_SMEM = 227 * 1024      # shared memory one block may use on the H100
+_PAIR_MID_VOXELS = 4 * 10 * 18   # csrc/conv3d_pair.cu's tile with its halo
 _DTYPES = {(torch.float32, torch.float32): 0,
            (torch.bfloat16, torch.bfloat16): 1,
            (torch.bfloat16, torch.float32): 2}
@@ -193,6 +197,68 @@ def trconv3d_bn_act(x: torch.Tensor, weight: torch.Tensor,
     return _launch(counter, x, weight.permute(2, 3, 4, 0, 1), scale,
                    offset, residual, out_dtype, kd=3, k=3, stride=2,
                    relu=relu, transposed=True)
+
+
+def conv3d_pair_bn_act_plain(x, w1, s1, o1, w2, s2, o2, *, relu=True):
+    """Plain version of :func:`conv3d_pair_bn_act`: two chained plain
+    conv3d + folded BN (+ ReLU), the intermediate rounded to x's dtype."""
+    mid = _conv_plain(x, w1, s1, o1, stride=1, relu=relu, residual=None,
+                      out_dtype=x.dtype)
+    return _conv_plain(mid, w2, s2, o2, stride=1, relu=relu, residual=None,
+                       out_dtype=x.dtype)
+
+
+def conv3d_pair_bn_act(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
+                       o1: torch.Tensor, w2: torch.Tensor, s2: torch.Tensor,
+                       o2: torch.Tensor, *, relu: bool = True,
+                       plain: bool = False) -> torch.Tensor:
+    """Two chained stride-1 3x3x3 convs, pad 1, each with a folded BN and
+    the ``relu`` flag, in one launch (K10); the intermediate never goes to
+    device memory and is rounded to x's dtype, as in the JAX kernel.
+
+    Args:
+        x: (N, D, H, W, Ci), bf16 or f32.
+        w1: (Cm, Ci, 3, 3, 3), Cm % 8 == 0 on CUDA; s1, o1: (Cm,).
+        w2: (Co, Cm, 3, 3, 3); s2, o2: (Co,).
+    Returns:
+        (N, D, H, W, Co) in x's dtype.
+    """
+    if plain or not x.is_cuda:
+        return conv3d_pair_bn_act_plain(x, w1, s1, o1, w2, s2, o2, relu=relu)
+    n, d, h, w, ci = x.shape
+    cm, co = w1.shape[0], w2.shape[0]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"conv3d pair kernel: unsupported dtype {x.dtype}")
+    if tuple(w1.shape) != (cm, ci, 3, 3, 3) \
+            or tuple(w2.shape) != (co, cm, 3, 3, 3):
+        raise ValueError(f"conv3d pair kernel: weights {tuple(w1.shape)}, "
+                         f"{tuple(w2.shape)} do not chain from Ci={ci}")
+    if cm % _COB:
+        raise ValueError(f"conv3d pair kernel: Cm={cm} is not a multiple "
+                         f"of {_COB}")
+    cop = -(-co // _COB) * _COB
+    elem = x.element_size()
+    if _PAIR_MID_VOXELS * cm * elem > _MAX_SMEM:
+        raise ValueError(f"conv3d pair kernel: Cm={cm} exceeds the shared "
+                         "memory of the intermediate tile")
+    w1k = w1.float().permute(2, 3, 4, 1, 0).reshape(27 * ci, cm).contiguous()
+    w2k = _padded(w2.float().permute(2, 3, 4, 1, 0).reshape(27 * cm, co), cop)
+    s1p, o1p = s1.float().contiguous(), o1.float().contiguous()
+    s2p, o2p = _padded(s2, cop), _padded(o2, cop)
+    y = torch.empty((n, d, h, w, co), dtype=x.dtype, device=x.device)
+    for t, name in ((x, "x"), (w1k, "w1"), (s1p, "s1"), (o1p, "o1"),
+                    (w2k, "w2"), (s2p, "s2"), (o2p, "o2"), (y, "out")):
+        build.check_operand(t, name)
+    device, stream = build.launch_context(x)
+    lib = build.load_library()
+    err = lib.mdf_conv3d_pair(
+        x.data_ptr(), w1k.data_ptr(), s1p.data_ptr(), o1p.data_ptr(),
+        w2k.data_ptr(), s2p.data_ptr(), o2p.data_ptr(), y.data_ptr(), n, d,
+        h, w, ci, cm, co, cop, int(relu), _DTYPES[(x.dtype, x.dtype)],
+        device, stream)
+    build.check(err, "conv3d_pair")
+    LAUNCHES["conv3d_pair_bn_act"] += 1
+    return y
 
 
 def conv2d_chain(x: torch.Tensor, weights, scales, offsets, *,

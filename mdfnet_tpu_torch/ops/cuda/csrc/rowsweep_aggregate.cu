@@ -1,7 +1,10 @@
-// Fused plane-sweep warp + group-wise vector cost aggregation (K1).
+// Fused plane-sweep warp + group-wise vector cost aggregation (K1), eval and
+// train.
 //
 // Replaces: mdfnet_tpu/ops/pallas/aggregate_kernel.py:427 rowsweep_aggregate
-// (kernel body _rowsweep_kernel, line 52), eval path, C/G == 2.
+// (kernel body _rowsweep_kernel, line 52), C/G == 2: the eval path, and with
+// with_wsum=True and a per-view BN affine (:66-71, :178-182) the aggregation
+// pass of the train-mode fused aggregate (ops/pallas/aggregate_vjp.py:81).
 //
 // Per reference pixel (b, h, w) and plane d, for each source s: project the
 // pixel lifted to the plane's depth into s, bilinearly sample the source's G
@@ -27,6 +30,12 @@
 // the gather warp's tap rounding (mdfnet_tpu/ops/sample.py): the coordinate
 // chain uses non-contracted multiplies/adds so it rounds like the unfused
 // reference. One difference: a NaN coordinate (z == 0) samples zeros here.
+// The chain per (pixel, plane, source) is mdf::sweep_similarity (common.cuh),
+// which the stats kernel (rowsweep_stats.cu) shares.
+//
+// The train instantiation (TRAIN = true) reads a per-source-view BN affine
+// bn = [bn_s[S], bn_o[S]] instead of the two scalars in params, and also
+// writes the weight sum wsum (B, D, H, W) f32, which the backward needs.
 
 #include "common.cuh"
 
@@ -34,14 +43,16 @@ namespace {
 
 constexpr int kBlock = 128;
 
-template <typename T, int G>
+template <typename T, int G, bool TRAIN>
 __global__ void __launch_bounds__(kBlock) rowsweep_aggregate_kernel(
     const T* __restrict__ src,         // (B, S, H, W, G) source pair diffs
     const T* __restrict__ ref,         // (B, H, W, G) reference pair diffs
     const float* __restrict__ rel,     // (B, S, 4, 4) src_proj @ inv(ref_proj)
     const float* __restrict__ hypos,   // (B, D, H, W) or (B, D)
     const float* __restrict__ params,  // [bn_s, bn_o, k1, b1, k0[G]]
+    const float* __restrict__ bn,      // TRAIN: [bn_s[S], bn_o[S]]
     float* __restrict__ out,           // (B, D, H, W, G)
+    float* __restrict__ wsum_out,      // TRAIN: (B, D, H, W)
     int B, int S, int D, int H, int W, int hypo_per_pixel, float sx, float sy) {
   const long long total = (long long)B * D * H * W;
   const long long p = (long long)blockIdx.x * kBlock + threadIdx.x;
@@ -54,66 +65,22 @@ __global__ void __launch_bounds__(kBlock) rowsweep_aggregate_kernel(
   const int b = (int)(r / D);
 
   const float hyp = hypo_per_pixel ? hypos[p] : hypos[(long long)b * D + d];
-  const float bn_s = params[0], bn_o = params[1], k1 = params[2], b1 = params[3];
+  const float k1 = params[2], b1 = params[3];
   const float* k0 = params + 4;
 
   float q[G], acc[G], sim[G];
-  const T* rp = ref + (((long long)b * H + h) * W + w) * G;
+  mdf::load_q<T, G>(ref + (((long long)b * H + h) * W + w) * G, q);
 #pragma unroll
-  for (int g0 = 0; g0 < G; g0 += 8) {
-    float v[8];
-    mdf::load8(rp + g0, v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      q[g0 + j] = mdf::sigmoid(v[j]);
-      acc[g0 + j] = 0.0f;
-    }
-  }
+  for (int g = 0; g < G; ++g) acc[g] = 0.0f;
   float wsum = 0.0f;
   const float xf = (float)w, yf = (float)h;
 
   for (int s = 0; s < S; ++s) {
-    const float* R = rel + ((long long)b * S + s) * 16;
-    // rot @ [x, y, 1], then * depth + trans, in the reference's order
-    const float rx = __fadd_rn(__fadd_rn(__fmul_rn(R[0], xf), __fmul_rn(R[1], yf)), R[2]);
-    const float ry = __fadd_rn(__fadd_rn(__fmul_rn(R[4], xf), __fmul_rn(R[5], yf)), R[6]);
-    const float rz = __fadd_rn(__fadd_rn(__fmul_rn(R[8], xf), __fmul_rn(R[9], yf)), R[10]);
-    const float X = __fadd_rn(__fmul_rn(rx, hyp), R[3]);
-    const float Y = __fadd_rn(__fmul_rn(ry, hyp), R[7]);
-    const float Z = __fadd_rn(__fmul_rn(rz, hyp), R[11]);
-    float x = __fsub_rn(__fmul_rn(__fdiv_rn(X, Z), sx), 0.5f);
-    float y = __fsub_rn(__fmul_rn(__fdiv_rn(Y, Z), sy), 0.5f);
-    // fully outside (or NaN): snap to -1, where both taps read zero
-    if (!(x > -1.0f && x < (float)W)) x = -1.0f;
-    if (!(y > -1.0f && y < (float)H)) y = -1.0f;
-    const float x0f = floorf(x), y0f = floorf(y);
-    const float wx = x - x0f, wy = y - y0f;
-    const int x0 = (int)x0f, y0 = (int)y0f;
-    const bool vx0 = x0 >= 0, vx1 = x0 + 1 < W;
-    const bool vy0 = y0 >= 0, vy1 = y0 + 1 < H;
-    const T* sp = src + ((long long)b * S + s) * H * W * G;
-    const T* row0 = sp + ((long long)y0 * W + x0) * G;
-    const T* row1 = row0 + (long long)W * G;
-
-    float sfield = 0.0f;
-#pragma unroll
-    for (int g0 = 0; g0 < G; g0 += 8) {
-      float v00[8] = {0}, v01[8] = {0}, v10[8] = {0}, v11[8] = {0};
-      if (vy0 && vx0) mdf::load8(row0 + g0, v00);
-      if (vy0 && vx1) mdf::load8(row0 + G + g0, v01);
-      if (vy1 && vx0) mdf::load8(row1 + g0, v10);
-      if (vy1 && vx1) mdf::load8(row1 + G + g0, v11);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float top = v00[j] * (1.0f - wx) + v01[j] * wx;
-        const float bot = v10[j] * (1.0f - wx) + v11[j] * wx;
-        const float pv = mdf::sigmoid(top * (1.0f - wy) + bot * wy);
-        const float qq = q[g0 + j];
-        const float sm = pv * qq + (1.0f - pv) * (1.0f - qq);
-        sim[g0 + j] = sm;
-        sfield += sm * k0[g0 + j];
-      }
-    }
+    const float sfield = mdf::sweep_similarity<T, G>(
+        src + ((long long)b * S + s) * H * W * G, rel + ((long long)b * S + s) * 16, xf, yf,
+        hyp, H, W, sx, sy, q, k0, sim);
+    const float bn_s = TRAIN ? bn[s] : params[0];
+    const float bn_o = TRAIN ? bn[S + s] : params[1];
     const float act = fmaxf(sfield * bn_s + bn_o, 0.0f);
     const float wgt = mdf::sigmoid(act * k1 + b1);
 #pragma unroll
@@ -129,37 +96,53 @@ __global__ void __launch_bounds__(kBlock) rowsweep_aggregate_kernel(
     for (int j = 0; j < 8; ++j) v[j] = acc[g0 + j] / wsum;
     mdf::store8(op + g0, v);
   }
+  if (TRAIN) wsum_out[p] = wsum;
 }
 
-template <typename T, int G>
-cudaError_t launch(const void* src, const void* ref, const void* rel, const void* hypos,
-                   const void* params, void* out, int B, int S, int D, int H, int W,
-                   int hypo_per_pixel, float sx, float sy, cudaStream_t stream) {
-  const long long total = (long long)B * D * H * W;
+struct Args {
+  const void *src, *ref, *rel, *hypos, *params, *bn;
+  void *out, *wsum;
+  int B, S, D, H, W, hypo_per_pixel;
+  float sx, sy;
+};
+
+template <typename T, int G, bool TRAIN>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const long long total = (long long)a.B * a.D * a.H * a.W;
   const unsigned grid = (unsigned)((total + kBlock - 1) / kBlock);
-  rowsweep_aggregate_kernel<T, G><<<grid, kBlock, 0, stream>>>(
-      static_cast<const T*>(src), static_cast<const T*>(ref), static_cast<const float*>(rel),
-      static_cast<const float*>(hypos), static_cast<const float*>(params),
-      static_cast<float*>(out), B, S, D, H, W, hypo_per_pixel, sx, sy);
+  rowsweep_aggregate_kernel<T, G, TRAIN><<<grid, kBlock, 0, stream>>>(
+      static_cast<const T*>(a.src), static_cast<const T*>(a.ref),
+      static_cast<const float*>(a.rel), static_cast<const float*>(a.hypos),
+      static_cast<const float*>(a.params), static_cast<const float*>(a.bn),
+      static_cast<float*>(a.out), static_cast<float*>(a.wsum), a.B, a.S, a.D, a.H, a.W,
+      a.hypo_per_pixel, a.sx, a.sy);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_groups(int G, const void* src, const void* ref, const void* rel,
-                            const void* hypos, const void* params, void* out, int B, int S,
-                            int D, int H, int W, int hypo_per_pixel, float sx, float sy,
-                            cudaStream_t stream) {
-  switch (G) {
-    case 8: return launch<T, 8>(src, ref, rel, hypos, params, out, B, S, D, H, W, hypo_per_pixel, sx, sy, stream);
-    case 16: return launch<T, 16>(src, ref, rel, hypos, params, out, B, S, D, H, W, hypo_per_pixel, sx, sy, stream);
-    case 32: return launch<T, 32>(src, ref, rel, hypos, params, out, B, S, D, H, W, hypo_per_pixel, sx, sy, stream);
-    default: return cudaErrorInvalidValue;
+template <bool TRAIN>
+cudaError_t dispatch(const Args& a, int G, int dtypes, cudaStream_t st) {
+  if (dtypes == MDF_BF16_F32) {
+    switch (G) {
+      case 8: return launch<__nv_bfloat16, 8, TRAIN>(a, st);
+      case 16: return launch<__nv_bfloat16, 16, TRAIN>(a, st);
+      case 32: return launch<__nv_bfloat16, 32, TRAIN>(a, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if (dtypes == MDF_F32_F32) {
+    switch (G) {
+      case 8: return launch<float, 8, TRAIN>(a, st);
+      case 16: return launch<float, 16, TRAIN>(a, st);
+      case 32: return launch<float, 32, TRAIN>(a, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success).
+// Each entry returns cudaGetLastError() after the launch (0 on success).
 extern "C" int mdf_rowsweep_aggregate(const void* src, const void* ref, const void* rel,
                                       const void* hypos, const void* params, void* out,
                                       int B, int S, int D, int H, int W, int G,
@@ -167,14 +150,23 @@ extern "C" int mdf_rowsweep_aggregate(const void* src, const void* ref, const vo
                                       int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtypes == MDF_BF16_F32)
-    return dispatch_groups<__nv_bfloat16>(G, src, ref, rel, hypos, params, out, B, S, D, H, W,
-                                          hypo_per_pixel, sx, sy, st);
-  if (dtypes == MDF_F32_F32)
-    return dispatch_groups<float>(G, src, ref, rel, hypos, params, out, B, S, D, H, W,
-                                  hypo_per_pixel, sx, sy, st);
-  return cudaErrorInvalidValue;
+  const Args a{src, ref, rel, hypos, params, nullptr, out, nullptr,
+               B, S, D, H, W, hypo_per_pixel, sx, sy};
+  return dispatch<false>(a, G, dtypes, static_cast<cudaStream_t>(stream));
+}
+
+// The train instantiation: bn = [bn_s[S], bn_o[S]] (f32), wsum (B, D, H, W).
+extern "C" int mdf_rowsweep_aggregate_train(const void* src, const void* ref, const void* rel,
+                                            const void* hypos, const void* params,
+                                            const void* bn, void* out, void* wsum, int B,
+                                            int S, int D, int H, int W, int G,
+                                            int hypo_per_pixel, int dtypes, float sx,
+                                            float sy, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Args a{src, ref, rel, hypos, params, bn, out, wsum,
+               B, S, D, H, W, hypo_per_pixel, sx, sy};
+  return dispatch<true>(a, G, dtypes, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* mdf_error_string(int err) {

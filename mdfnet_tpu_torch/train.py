@@ -2,7 +2,7 @@
 
     python -m mdfnet_tpu_torch.train -d dtu [--root DIR] [--scans 2,6]
         [--lightings N] [--epochs N] [--batch-size N] [--nviews N]
-        [--ckpt-dir DIR] [-p CKPT.pth] [--fast]
+        [--ckpt-dir DIR] [-p CKPT.pth] [--fast] [--device cuda|cpu]
 
 Per epoch: the polynomial LR, the mean loss appended to
 ``<ckpt-dir>/epoch_loss.txt`` and a checkpoint ``<ckpt-dir>/<dataset>_<epoch>.pth``
@@ -11,9 +11,11 @@ Per epoch: the polynomial LR, the mean loss appended to
 reference ``.pth`` (weights only). The DTU train set sits under
 ``<root>/dtu640x512``.
 
-On a CUDA device every kernel of the step is a hand-written CUDA kernel;
-``--fast`` runs the convs in bf16 (the JAX CLI's ``--fast``), otherwise in
-f32 on the same kernels. On the CPU the step runs the plain versions.
+It trains on the card (``--device cuda``, the default; with no card it
+exits with an error), where every kernel of the step is a hand-written CUDA
+kernel; ``--fast`` runs the convs in bf16 (the JAX CLI's ``--fast``),
+otherwise in f32 on the same kernels. ``--device cpu`` runs the plain
+versions on the CPU.
 """
 from __future__ import annotations
 
@@ -25,9 +27,10 @@ import time
 
 import torch
 
-from mdfnet_tpu.config import DataConfig, ModelConfig, TrainConfig
-from mdfnet_tpu_torch.data import BatchLoader, DTUTrainDataset
-from mdfnet_tpu_torch.models.registry import build_model
+from mdfnet_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+from mdfnet_tpu_torch.data import (BatchLoader, BlendedMVSTrainDataset,
+                                   DTUTrainDataset)
+from mdfnet_tpu_torch.models.registry import build_model, resolve_device
 from mdfnet_tpu_torch.train_lib import (batch_to_device, make_optimizer,
                                         poly_lr, resume, save_checkpoint,
                                         set_lr, train_step)
@@ -37,7 +40,10 @@ log = logging.getLogger("mdfnet_tpu_torch.train")
 
 def train(dataset, model_config: ModelConfig, train_config: TrainConfig,
           dataset_name: str = "dtu", pre_model: str | None = None,
-          device: str | torch.device = "cpu") -> None:
+          device: str | torch.device = "cuda") -> None:
+    """Train from ``train_config.start_epoch`` (or the resumed epoch) to
+    ``max_epochs`` on ``device``: the card unless the caller asks for the
+    CPU."""
     os.makedirs(train_config.checkpoint_dir, exist_ok=True)
     model = build_model(model_config, seed=train_config.seed,
                         device=device).requires_grad_(True)
@@ -106,7 +112,14 @@ def main(argv=None):
     parser.add_argument("--fast", action="store_true",
                         help="bf16 conv compute (f32 BN statistics, loss, "
                              "master weights and Adam)")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="cuda (default; fails without a card) or cpu "
+                             "(the plain versions)")
     args = parser.parse_args(argv)
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        parser.error(str(e))
 
     data_cfg = DataConfig(root_dir=args.root) if args.root else DataConfig()
     model_cfg = ModelConfig(compute_dtype="bfloat16" if args.fast
@@ -132,12 +145,10 @@ def main(argv=None):
             scans=scans, lightings=lightings, nviews=train_cfg.nviews,
             robust_sampling=train_cfg.robust_views)
     else:
-        from mdfnet_tpu.data.datasets import BlendedMVSTrainDataset
         dataset = BlendedMVSTrainDataset(
             os.path.join(data_cfg.root_dir, data_cfg.blendedmvs_subdir),
             nviews=train_cfg.nviews, robust_sampling=train_cfg.robust_views)
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     log.info("training on %s, %s convs", torch.cuda.get_device_name(0)
              if device.type == "cuda" else "cpu", model_cfg.compute_dtype)
     train(dataset, model_cfg, train_cfg, dataset_name=args.dataset,

@@ -1,7 +1,7 @@
 """Weights in the reference ``state_dict`` schema.
 
 The port's module names copy the reference's, so a reference ``.pth`` and a
-JAX-exported variable tree (through ``mdfnet_tpu.utils.pth_import``) load
+JAX-exported variable tree (through ``utils/pth_import.py``) load
 with ``load_state_dict(strict=True)`` and no converter.
 """
 from __future__ import annotations
@@ -10,7 +10,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mdfnet_tpu.utils.pth_import import variables_to_state_dict
+from mdfnet_tpu_torch.utils.pth_import import variables_to_state_dict
 
 
 def state_dict_from_jax_variables(variables) -> dict[str, torch.Tensor]:

@@ -6,6 +6,8 @@ tests run it. Inputs come from numpy seeds or the synthetic scenes; weights
 come from the JAX model's ``init`` (BatchNorm statistics perturbed from a
 numpy seed, so the folded epilogues are exercised), exported through
 ``variables_to_state_dict`` and loaded with ``load_state_dict(strict=True)``.
+The port runs on the CPU here: every port model is built with
+``device="cpu"`` from the port's own ``ModelConfig`` (:func:`port_config`).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from mdfnet_tpu.config import ModelConfig
 from mdfnet_tpu.data.synthetic import make_batch, make_structured_scene
 from mdfnet_tpu.models import build_model as build_jax_model
+from mdfnet_tpu_torch import config as port_config_module
 from mdfnet_tpu_torch.models.registry import build_model
 from mdfnet_tpu_torch.utils.weights import state_dict_from_jax_variables
 
@@ -28,6 +31,16 @@ torch.set_num_threads(2)
 # narrow widths with C/G == 2 at every stage, as in the default config
 SMALL = ModelConfig(chs=(8, 8, 16, 32), ngroups=(16, 8, 4))
 DEPTH_EXTENT = 935.0 - 425.0   # the synthetic scenes' depth range
+
+
+def port_config(config: ModelConfig) -> port_config_module.ModelConfig:
+    """The port's ModelConfig with the same fields as a JAX one."""
+    return port_config_module.ModelConfig(**dataclasses.asdict(config))
+
+
+def build_port(config: ModelConfig, **kw):
+    """The port's CoreNet for a JAX ModelConfig, on the CPU."""
+    return build_model(port_config(config), device="cpu", **kw)
 
 
 def scene_args(height: int = 64, width: int = 96, nviews: int = 3,
@@ -69,7 +82,7 @@ def jax_model_and_port(config: ModelConfig, args, seed: int = 0):
     variables = perturb_batchnorm(jax.tree_util.tree_map(np.asarray,
                                                          variables),
                                   np.random.RandomState(seed))
-    port = build_model(config)
+    port = build_port(config)
     port.load_state_dict(state_dict_from_jax_variables(variables),
                          strict=True)
     return jm, variables, port

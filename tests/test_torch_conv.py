@@ -14,10 +14,12 @@ from _torch_port_helpers import to_torch
 from mdfnet_tpu.ops.pallas.conv2d_kernel import (conv2d_chain_fused,
                                                  conv2d_fused)
 from mdfnet_tpu.ops.pallas.conv3d_kernel import (conv3d_bn_relu,
+                                                 conv3d_pair_bn_relu,
                                                  trconv3d_bn_relu)
 from mdfnet_tpu_torch.ops.cuda import conv_kernel
 from mdfnet_tpu_torch.ops.cuda.conv_kernel import (
-    conv2d_bn_act, conv2d_chain, conv3d_bn_act, trconv3d_bn_act)
+    conv2d_bn_act, conv2d_chain, conv3d_bn_act, conv3d_pair_bn_act,
+    trconv3d_bn_act)
 
 ATOL = 3e-4   # the Pallas tests' own bound for f32 sums of <= 1728 terms
 
@@ -160,4 +162,61 @@ def test_cpu_wrappers_launch_nothing():
     trconv3d_bn_act(x, w, ones, zeros)
     conv2d_bn_act(x[:, 0], w[..., 0], ones, zeros)
     conv2d_chain(x[:, 0], [w[..., 0]], [ones], [zeros])
+    assert conv_kernel.LAUNCHES == before
+
+
+def _pair_inputs(rng, shape, ci, cm, co):
+    x = rng.randn(*shape, ci).astype(np.float32)
+    k1 = (rng.randn(3, 3, 3, ci, cm) * 0.2).astype(np.float32)
+    k2 = (rng.randn(3, 3, 3, cm, co) * 0.2).astype(np.float32)
+    # offsets well away from 0: an intermediate voxel outside the volume
+    # that took relu(o1) instead of zero would show at every border
+    s1, o1 = (0.5 + rng.rand(cm)).astype(np.float32), \
+        (0.5 + rng.rand(cm)).astype(np.float32)
+    s2, o2 = _epilogue(rng, co)
+    return x, k1, s1, o1, k2, s2, o2
+
+
+def _port_pair(x, k1, s1, o1, k2, s2, o2, relu=True):
+    return conv3d_pair_bn_act(*to_torch(x, _torch_weight(k1), s1, o1,
+                                        _torch_weight(k2), s2, o2),
+                              relu=relu).numpy()
+
+
+def test_conv3d_pair_matches_pallas():
+    """The plain pair vs the TPU pair kernel (interpret mode), one tiny
+    shape: the same two chained layers, f32."""
+    rng = np.random.RandomState(70)
+    x, k1, s1, o1, k2, s2, o2 = _pair_inputs(rng, (1, 3, 4, 6), 8, 8, 8)
+    got = _port_pair(x, k1, s1, o1, k2, s2, o2)
+    pallas = conv3d_pair_bn_relu(
+        jnp.asarray(x[0].transpose(0, 1, 3, 2)), jnp.asarray(k1),
+        jnp.asarray(s1), jnp.asarray(o1), jnp.asarray(k2), jnp.asarray(s2),
+        jnp.asarray(o2), th=4, td=2, interpret=True)
+    np.testing.assert_allclose(got[0], np.asarray(pallas).transpose(0, 1, 3, 2),
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape,ci,cm,co", [((1, 3, 5, 7), 3, 8, 1),
+                                            ((2, 5, 9, 11), 16, 8, 12)])
+def test_conv3d_pair_matches_xla(shape, ci, cm, co, relu):
+    """The plain pair vs two XLA convolutions with the folded epilogues, at
+    odd extents, Ci not a multiple of 8, Co = 1 and Co = 12."""
+    rng = np.random.RandomState(71 + ci)
+    x, k1, s1, o1, k2, s2, o2 = _pair_inputs(rng, shape, ci, cm, co)
+    act = (lambda v: np.maximum(v, 0.0)) if relu else (lambda v: v)
+    mid = act(_xla_conv(x, k1, 1, 3) * s1 + o1)
+    want = act(_xla_conv(mid, k2, 1, 3) * s2 + o2)
+    got = _port_pair(x, k1, s1, o1, k2, s2, o2, relu=relu)
+    assert got.shape == want.shape == shape + (co,)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_conv3d_pair_cpu_wrapper_launches_nothing():
+    before = dict(conv_kernel.LAUNCHES)
+    x = torch.randn(1, 2, 4, 6, 8)
+    w = torch.randn(8, 8, 3, 3, 3)
+    ones, zeros = torch.ones(8), torch.zeros(8)
+    conv3d_pair_bn_act(x, w, ones, zeros, w, ones, zeros)
     assert conv_kernel.LAUNCHES == before

@@ -12,8 +12,9 @@ import torch
 
 from _torch_port_helpers import (depth_error, jax_model_and_port, scene_args,
                                  to_torch)
-from mdfnet_tpu.config import ModelConfig
+from mdfnet_tpu.config import ModelConfig as JaxModelConfig
 from mdfnet_tpu.utils.pth_import import save_reference_checkpoint
+from mdfnet_tpu_torch.config import ModelConfig
 from mdfnet_tpu_torch.models.registry import build_model, count_params
 from mdfnet_tpu_torch.utils.weights import load_checkpoint
 
@@ -22,7 +23,7 @@ from mdfnet_tpu_torch.utils.weights import load_checkpoint
 def full_width():
     """Default ModelConfig (all widths), tiny 64x96 image, 3 views."""
     args = scene_args(64, 96, nviews=3, structure="steps")
-    jm, variables, port = jax_model_and_port(ModelConfig(), args)
+    jm, variables, port = jax_model_and_port(JaxModelConfig(), args)
     forward = jax.jit(lambda *a: jm.apply(variables, *a, train=False))
     return args, variables, port, forward
 
@@ -60,7 +61,7 @@ def test_pth_round_trip(full_width, tmp_path):
     args, variables, port, _ = full_width
     path = str(tmp_path / "ref.pth")
     save_reference_checkpoint(path, variables, epoch=7)
-    other = build_model(seed=1)
+    other = build_model(seed=1, device="cpu")
     assert load_checkpoint(other, path) == 7
     inputs = to_torch(*args)
     a, b = port(*inputs), other(*inputs)
@@ -74,19 +75,27 @@ def test_pth_round_trip(full_width, tmp_path):
                                          ("refine_impl", "refine1")])
 def test_alternative_units_not_ported(field, value):
     with pytest.raises(NotImplementedError):
-        build_model(ModelConfig(**{field: value}))
+        build_model(ModelConfig(**{field: value}), device="cpu")
 
 
 def test_port_imports_no_jax():
-    """The card's machine has no JAX: the port's modules must not need it."""
-    code = ("import sys, mdfnet_tpu_torch\n"
+    """The card's machine has no JAX, and the port keeps its own copies of
+    the JAX package's host modules: with ``mdfnet_tpu`` blocked, every
+    module of the port and ``chip_smoke`` imports, a model builds, and no
+    module of ``jax``, ``jaxlib``, ``flax`` or ``mdfnet_tpu`` is loaded."""
+    code = ("import pkgutil, sys\n"
+            "sys.modules['mdfnet_tpu'] = None\n"
+            "import mdfnet_tpu_torch, chip_smoke\n"
+            "names = [m.name for m in pkgutil.walk_packages("
+            "mdfnet_tpu_torch.__path__, 'mdfnet_tpu_torch.')]\n"
+            "assert len(names) > 25, names\n"
+            "for name in names:\n"
+            "    __import__(name)\n"
             "from mdfnet_tpu_torch.models.registry import build_model\n"
-            "import mdfnet_tpu_torch.cli.eval, mdfnet_tpu_torch.evaluate\n"
-            "import mdfnet_tpu_torch.data, chip_smoke\n"
-            "import mdfnet_tpu_torch.train, mdfnet_tpu_torch.train_lib\n"
-            "build_model()\n"
+            "build_model(device='cpu')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax')]\n"
+            "('jax', 'jaxlib', 'flax', 'mdfnet_tpu') "
+            "and sys.modules[m] is not None]\n"
             "assert not bad, bad\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
@@ -108,20 +117,21 @@ def _imported_packages(path: str) -> set:
 
 def test_no_port_module_imports_jax():
     """No module of the port, imported or not by the check above, names
-    ``jax``, ``jaxlib`` or ``flax`` in an import."""
+    ``jax``, ``jaxlib``, ``flax`` or ``mdfnet_tpu`` in an import."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     pkg = os.path.join(root, "mdfnet_tpu_torch")
     files = [os.path.join(d, f) for d, _, names in os.walk(pkg)
              for f in names if f.endswith(".py")]
     assert len(files) > 20
     for path in files:
-        bad = _imported_packages(path) & {"jax", "jaxlib", "flax"}
+        bad = _imported_packages(path) & {"jax", "jaxlib", "flax",
+                                          "mdfnet_tpu"}
         assert not bad, (os.path.relpath(path, root), bad)
 
 
 def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py reaches the JAX package's host helpers only through the
-    port (``mdfnet_tpu_torch.data``), never by importing ``mdfnet_tpu``."""
+    """chip_smoke.py imports the port and nothing of ``mdfnet_tpu`` or
+    JAX."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     tops = _imported_packages(os.path.join(root, "chip_smoke.py"))
     assert "mdfnet_tpu_torch" in tops
@@ -132,7 +142,42 @@ def test_chip_smoke_imports_only_the_port():
     (None, torch.float32), ("bfloat16", torch.bfloat16)])
 def test_build_model_compute_dtype(compute_dtype, dtype):
     """``compute_dtype`` overrides the default config's; weights stay f32."""
-    model = build_model(compute_dtype=compute_dtype)
+    model = build_model(compute_dtype=compute_dtype, device="cpu")
     assert model.dtype == dtype
     assert model.ndepths == ModelConfig().ndepths
     assert {p.dtype for p in model.parameters()} == {torch.float32}
+
+
+@pytest.mark.parametrize("main,argv", [
+    ("mdfnet_tpu_torch.cli.eval", ["-p", "missing.pth"]),
+    ("mdfnet_tpu_torch.train", ["-d", "dtu", "--epochs", "1"])])
+def test_cli_without_a_card_fails_loudly(monkeypatch, capsys, main, argv):
+    """With no CUDA device and no ``--device cpu``, each CLI exits non-zero
+    with a message, before it reads any data."""
+    import importlib
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        importlib.import_module(main).main(argv)
+    assert exc.value.code != 0
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_build_model_without_a_card_fails_loudly(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model()
+
+
+def test_c_signatures_match_the_sources():
+    """Every C entry point of ``csrc/*.cu`` is declared to ctypes with its
+    argument kinds (pointer, int, float), in order: a mismatch would pass
+    a cut pointer or a wrong int to the kernel, and no compiler sees it."""
+    import re
+    from mdfnet_tpu_torch.ops.cuda import build
+    src = "".join(p.read_text() for p in sorted(build.CSRC.glob("*.cu")))
+    found = {}
+    for m in re.finditer(r'extern "C" int (mdf_\w+)\(([^)]*)\)', src):
+        found[m[1]] = [
+            build._P if "*" in a else build._F if a.split()[0] == "float"
+            else build._I for a in m[2].split(",")]
+    assert found == build.SIGNATURES

@@ -12,9 +12,10 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from mdfnet_tpu.config import ModelConfig
 from mdfnet_tpu_torch import geometry
+from mdfnet_tpu_torch.config import ModelConfig
 from mdfnet_tpu_torch.models.registry import build_model
+from mdfnet_tpu_torch.ops.aggregate_train import rowsweep_aggregate_train
 from mdfnet_tpu_torch.ops.cuda import (aggregate_kernel, conv_kernel,
                                        conv_vjp, exact_cuda_math,
                                        splat_kernel, warp_kernel)
@@ -317,7 +318,8 @@ def test_train_step_on_the_kernels():
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
     for c, b in zip(counters, before):
         for name in c:
-            if name != "conv2d_chain":
+            # the chain runs in eval only; no model path runs the pair
+            if name not in ("conv2d_chain", "conv3d_pair_bn_act"):
                 assert c[name] > b[name], name
 
 
@@ -331,3 +333,141 @@ def test_rejected_train_kernel_calls_are_not_counted():
         splat_kernel.splat_2d(torch.randn(1, 1, 2, 3, 12).cuda(), x[:, None],
                               x[:, None], 4, 6)
     assert (dict(warp_kernel.LAUNCHES), dict(splat_kernel.LAUNCHES)) == before
+
+
+def _aggregate_args(dtype, g, per_pixel, stress, b=2, s=3, d=6, h=20, w=36):
+    """(src diffs, ref diffs, src_projs, ref_proj, hypotheses, k0) on the
+    card for a batch of b items (the same cameras)."""
+    ref_proj, src_projs = _cameras(h, w, s + 1, yaw=0.35 if stress else 0.0)
+    hyp = torch.linspace(*((40, 5000) if stress else (425, 935)), d) \
+        .reshape(1, d, 1, 1).repeat(b, 1, 1, 1)
+    if per_pixel:
+        hyp = hyp + torch.rand(b, d, h, w) * 30
+    return (torch.randn(b, s, h, w, g).cuda().to(dtype),
+            torch.randn(b, h, w, g).cuda().to(dtype),
+            src_projs.expand(b, s, 4, 4).contiguous(),
+            ref_proj.expand(b, 4, 4).contiguous(), hyp.cuda(),
+            torch.randn(g).cuda() * 0.3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g,per_pixel,stress", [(8, True, False),
+                                                (32, False, False),
+                                                (16, False, True)])
+def test_rowsweep_stats_and_its_determinism(dtype, g, per_pixel, stress):
+    """f64 sums of the batch's field vs the plain version; two launches
+    bit-identical."""
+    args = _aggregate_args(dtype, g, per_pixel, stress)
+    before = aggregate_kernel.LAUNCHES["rowsweep_stats"]
+    got = aggregate_kernel.rowsweep_stats(*args)
+    again = aggregate_kernel.rowsweep_stats(*args)
+    ref = aggregate_kernel.rowsweep_stats(*args, plain=True)
+    torch.cuda.synchronize()
+    assert aggregate_kernel.LAUNCHES["rowsweep_stats"] == before + 2
+    assert got.dtype == torch.float64 and got.shape == (3, 2)
+    assert torch.equal(got, again)
+    # the f32 field of each voxel differs by summation order only
+    err = (got - ref).abs().max().item()
+    assert err <= REL_TOL[torch.float32] * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g,per_pixel,stress", [(8, True, False),
+                                                (32, False, False),
+                                                (16, False, True)])
+def test_rowsweep_aggregate_with_wsum(dtype, g, per_pixel, stress):
+    """K1's train instantiation: a per-view affine, the weight sum too."""
+    args = _aggregate_args(dtype, g, per_pixel, stress)
+    bn = (torch.rand(3).cuda() + 0.5, torch.randn(3).cuda() * 0.2,
+          torch.tensor(1.2).cuda(), torch.tensor(-0.2).cuda())
+    before = aggregate_kernel.LAUNCHES["rowsweep_aggregate_with_wsum"]
+    got = aggregate_kernel.rowsweep_aggregate_with_wsum(*args, *bn)
+    ref = aggregate_kernel.rowsweep_aggregate_with_wsum(*args, *bn,
+                                                        plain=True)
+    torch.cuda.synchronize()
+    assert aggregate_kernel.LAUNCHES["rowsweep_aggregate_with_wsum"] == \
+        before + 1
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype == torch.float32
+        err = (a - r).abs().max().item()
+        assert err <= REL_TOL[torch.float32] * r.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_train_aggregate_gradients(dtype):
+    """The fused train aggregate on the kernels vs on the plain versions:
+    volume, statistics and every gradient; the four kernels launch."""
+    args = _aggregate_args(dtype, 8, True, False)
+    params = [torch.randn(8).cuda() * 0.3, torch.tensor([1.1]).cuda(),
+              torch.tensor([0.1]).cuda(), torch.tensor(1.2).cuda(),
+              torch.tensor(-0.2).cuda()]
+    g_vol = torch.randn(2, 6, 20, 36, 8).cuda()
+    counters = (aggregate_kernel.LAUNCHES, warp_kernel.LAUNCHES,
+                splat_kernel.LAUNCHES)
+    results = []
+    for plain in (False, True):
+        src, ref = (t.clone().requires_grad_(True) for t in args[:2])
+        k0 = args[5].clone().requires_grad_(True)
+        ps = [p.clone().requires_grad_(True) for p in params[1:]]
+        before = [dict(c) for c in counters]
+        vol, stats = rowsweep_aggregate_train(src, ref, *args[2:5], k0, *ps,
+                                              plain=plain)
+        vol.backward(g_vol)
+        if not plain:
+            moved = {k for c, b in zip(counters, before) for k in c
+                     if c[k] > b[k]}
+            assert {"rowsweep_stats", "rowsweep_aggregate_with_wsum",
+                    "sample_2d", "splat_2d"} <= moved
+        results.append([vol, stats, src.grad, ref.grad, k0.grad]
+                       + [p.grad for p in ps])
+    torch.cuda.synchronize()
+    for got, want in zip(*results):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 1e-3 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,ci,cm,co", [((1, 5, 11, 19), 32, 16, 16),
+                                            ((2, 3, 9, 17), 8, 8, 3),
+                                            ((1, 4, 6, 20), 64, 64, 64),
+                                            ((1, 3, 5, 7), 3, 8, 1)])
+def test_conv3d_pair(dtype, shape, ci, cm, co):
+    """The pair kernel vs two chained plain convs, at odd extents (partial
+    tiles), Ci not a multiple of 8 and Co < 8."""
+    x = torch.randn(*shape, ci).cuda().to(dtype)
+    w1 = (torch.randn(cm, ci, 3, 3, 3) * 0.1).cuda().to(dtype)
+    w2 = (torch.randn(co, cm, 3, 3, 3) * 0.1).cuda().to(dtype)
+    e1 = (torch.rand(cm).cuda() + 0.5, torch.randn(cm).cuda() * 0.3)
+    e2 = (torch.rand(co).cuda() + 0.5, torch.randn(co).cuda() * 0.1)
+    before = conv_kernel.LAUNCHES["conv3d_pair_bn_act"]
+    _agree(lambda p: conv_kernel.conv3d_pair_bn_act(x, w1, *e1, w2, *e2,
+                                                    plain=p), dtype)
+    assert conv_kernel.LAUNCHES["conv3d_pair_bn_act"] == before + 1
+
+
+def test_fused_train_step_on_the_kernels():
+    """A small full-width f32 step with warp_impl="fused": the kernels vs the
+    plain versions on the card."""
+    from mdfnet_tpu_torch.train_lib import loss_and_grads
+    h, w, v = 64, 96, 3
+    k = torch.tensor([[1.8 * w, 0, w / 2], [0, 1.8 * w, h / 2], [0, 0, 1]])
+    e = torch.eye(4).repeat(v, 1, 1)
+    e[:, 0, 3] = -torch.arange(v) * 12.0
+    gt = torch.rand(2, h, w).cuda() * 400 + 450
+    batch = {"imgs": torch.rand(2, v, h, w, 3).cuda(),
+             "extrinsics": e[None].repeat(2, 1, 1, 1).cuda(),
+             "intrinsics": k.repeat(2, v, 1, 1).cuda(),
+             "depth_range": torch.tensor([[425.0, 935.0]] * 2).cuda(),
+             "ref_depths": {str(s): gt[:, ::2 ** s, ::2 ** s]
+                            for s in range(4)}}
+    losses, grads = [], []
+    for plain in (False, True):
+        model = build_model(ModelConfig(warp_impl="fused"),
+                            device="cuda").requires_grad_(True)
+        losses.append(float(loss_and_grads(model, batch, plain=plain)))
+        grads.append(torch.cat([p.grad.flatten()
+                                for p in model.parameters()]))
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+    cos = grads[0] @ grads[1] / (grads[0].norm() * grads[1].norm())
+    assert cos > 0.999

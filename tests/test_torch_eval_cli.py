@@ -30,7 +30,7 @@ def test_eval_cli_matches_jax_cli(tmp_path):
     common = ["-p", ckpt, "--root", str(data), "--scans", "9"]
     jax_out, port_out = str(tmp_path / "jax"), str(tmp_path / "port")
     jax_eval_main(common + ["-o", jax_out])
-    stats = port_eval_main(common + ["-o", port_out])
+    stats = port_eval_main(common + ["-o", port_out, "--device", "cpu"])
 
     files = _tree(port_out)
     assert files == _tree(jax_out) and len(files) == 9   # 3 views x 3 files

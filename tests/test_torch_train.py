@@ -14,7 +14,7 @@ import optax
 import pytest
 import torch
 
-from _torch_port_helpers import SMALL, perturb_batchnorm
+from _torch_port_helpers import SMALL, build_port, perturb_batchnorm
 from mdfnet_tpu.data.synthetic import (make_batch, make_structured_scene,
                                        write_dtu_train_tree)
 from mdfnet_tpu.models import build_model as build_jax_model
@@ -79,7 +79,7 @@ def step():
             "stats": _state_dict(variables["params"], stats),
             "params": _state_dict(new_params, variables["batch_stats"])}
 
-    port = build_model(SMALL)
+    port = build_port(SMALL)
     port.load_state_dict(state_dict_from_jax_variables(variables),
                          strict=True)
     port.requires_grad_(True)
@@ -211,7 +211,7 @@ def _cli(root, ckpt_dir, epochs, *extra):
     train_main(["-d", "dtu", "--root", str(root), "--scans", "1",
                 "--lightings", "1", "--epochs", str(epochs), "--batch-size",
                 "2", "--nviews", str(NVIEWS), "--ckpt-dir", str(ckpt_dir),
-                *extra])
+                "--device", "cpu", *extra])
 
 
 def test_train_cli_writes_loss_and_a_strict_checkpoint(dtu_tree, tmp_path):
@@ -223,7 +223,7 @@ def test_train_cli_writes_loss_and_a_strict_checkpoint(dtu_tree, tmp_path):
     assert len(losses) == 1 and math.isfinite(losses[0])
     ckpt = torch.load(tmp_path / "dtu_1.pth", weights_only=True)
     assert set(ckpt) == {"epoch", "model", "optimizer"}
-    model = build_model(seed=3)
+    model = build_model(seed=3, device="cpu")
     assert load_checkpoint(model, str(tmp_path / "dtu_1.pth")) == 1
     imgs = torch.rand(1, NVIEWS, 32, 64, 3)
     k = torch.tensor([[115.2, 0, 32], [0, 115.2, 16], [0, 0, 1]])
