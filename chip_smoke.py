@@ -8,16 +8,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
   3. kernels — each kernel vs its plain PyTorch version at the DTU stage
      shapes, bf16 and f32, with times from CUDA events, its bound (the
      least time the card could take for the same work) and, where one
-     PyTorch call computes the same function, that call's time;
+     PyTorch call computes the same function, that call's time; the bf16
+     main-path cases of K2, K4 and K5 also on the direct kernel, which the
+     tensor-core (tc) route must beat by 3x for K2 and K4 in device time;
+     how near the exact (f64) sums the tc kernel's f32 sums come beside the
+     direct kernel's;
   4. forward — the CoreNet eval forward at 1600x1184, 5 views, B=1, bf16
      convs, seeded random weights with a sharpened posterior: every kernel's
-     launch counter must move, and the output must agree with the plain f32
+     launch counter must move, the tc kernel must launch once for each conv
+     that the route rule sends to it (and the direct kernel for the rest),
+     and the output must agree with the plain f32
      forward on the card: depth (median <= 0.4%, p95 <= 3% of the depth
      range, the bounds of tools/check_fused_oracle.py), confidence, and each
      stage's cost and probability volumes (FORWARD_BOUNDS);
   5. pair    — the conv3d pair kernel (K10, on no model path) on the
      stage-0 U-Net's three stride-1 pairs, fed that forward's own volumes,
-     against the two conv3d launches each pair replaces;
+     against the two conv3d launches (tc route) each pair replaces;
   6. serve   — ``python -m mdfnet_tpu_torch.cli.eval`` on a synthetic DTU
      eval tree (1600x1200 cropped to 1184, 3 reference views);
   7. train kernels — the training step's kernels at the DTU train shapes
@@ -32,7 +38,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      probability volume, the gradients' cosines: STEP_BOUNDS_BF16), and on
      the kernels in f32 against the plain versions in f32 (loss and every
      parameter's gradient: STEP_BOUNDS_F32); every launch counter of the
-     bf16 step must move;
+     bf16 step must move, the tc kernel's too; the f32 step launches no tc;
   9. learn   — 20 Adam steps on one batch: finite losses, the last below 0.9
      x the first; ms/step, device time and idle share (torch.profiler),
      peak memory, and one step's time by layer (CUDA events);
@@ -93,25 +99,32 @@ NDEPTHS, NGROUPS = (48, 24, 8), (32, 16, 8)
 DEV = "cuda"
 _SRC = "mdfnet_tpu_torch/ops/cuda/csrc/"
 # the least time an H100 SXM could take (its published peak rates): bytes
-# over 3.35 TB/s of HBM3, or operations over 67 TFLOP/s, the f32 rate of the
-# CUDA cores, on which every port kernel computes today (bf16 in, f32 FMA)
-PEAK_BYTES_PER_S, PEAK_OPS_PER_S = 3.35e12, 67e12
+# over 3.35 TB/s of HBM3, or operations over the peak rate for their type:
+# the convolutions' bf16 products (K2-K5, K8, K10) over 989 TFLOP/s, the
+# dense bf16 rate of the tensor cores; the f32 elementwise work of K1, K6,
+# K7 and K9 over 67 TFLOP/s, the f32 rate of the CUDA cores
+PEAK_BYTES_PER_S, PEAK_BF16_TC_PER_S, PEAK_F32_PER_S = 3.35e12, 989e12, 67e12
+CONV_KERNELS = {"conv3d_bn_act", "trconv3d_bn_act", "conv2d_bn_act",
+                "conv2d_chain", "conv3d_pair_bn_act", "conv3d_train",
+                "trconv3d_train", "conv2d_train"}
+# K2, K4 and K5 (and K8's input gradients) run their bf16 convs with Ci, Co
+# multiples of 8 on the tc kernel, the rest on the direct kernel
+_TC = dict(source=_SRC + "conv_tc.cu", direct_source=_SRC + "conv_bn_act.cu")
+# tc vs direct at K2's and K4's main-path shapes, at least, in device time
+TC_SPEEDUP = 3.0
 KERNELS = {   # wrapper name -> its CUDA source and the TPU kernel it replaces
     "rowsweep_aggregate": dict(
         source=_SRC + "rowsweep_aggregate.cu",
         replaces="mdfnet_tpu/ops/pallas/aggregate_kernel.py:427"),
     "conv3d_bn_act": dict(
-        source=_SRC + "conv_bn_act.cu",
-        replaces="mdfnet_tpu/ops/pallas/conv3d_kernel.py:577"),
+        **_TC, replaces="mdfnet_tpu/ops/pallas/conv3d_kernel.py:577"),
     "trconv3d_bn_act": dict(
         source=_SRC + "conv_bn_act.cu",
         replaces="mdfnet_tpu/ops/pallas/conv3d_kernel.py:741"),
     "conv2d_bn_act": dict(
-        source=_SRC + "conv_bn_act.cu",
-        replaces="mdfnet_tpu/ops/pallas/conv2d_kernel.py:242"),
+        **_TC, replaces="mdfnet_tpu/ops/pallas/conv2d_kernel.py:242"),
     "conv2d_chain": dict(
-        source=_SRC + "conv_bn_act.cu",
-        replaces="mdfnet_tpu/ops/pallas/conv2d_kernel.py:654"),
+        **_TC, replaces="mdfnet_tpu/ops/pallas/conv2d_kernel.py:654"),
 }
 # on no model path (as in the JAX package); its launches are the pair phase's
 PAIR_KERNEL = {"conv3d_pair_bn_act": dict(
@@ -127,15 +140,14 @@ TRAIN_KERNELS = {
         source=_SRC + "splat_2d.cu",
         replaces="mdfnet_tpu/ops/pallas/splat_kernel.py:129"),
     "conv3d_train": dict(
-        source=_SRC + "conv_bn_act.cu",
-        replaces="mdfnet_tpu/ops/pallas/conv3d_vjp.py:58", counter="conv3d_dgrad"),
+        **_TC, replaces="mdfnet_tpu/ops/pallas/conv3d_vjp.py:58",
+        counter="conv3d_dgrad"),
     "trconv3d_train": dict(
-        source=_SRC + "conv_bn_act.cu",
-        replaces="mdfnet_tpu/ops/pallas/conv3d_vjp.py:112",
+        **_TC, replaces="mdfnet_tpu/ops/pallas/conv3d_vjp.py:112",
         counter="trconv3d_dgrad"),
     "conv2d_train": dict(
-        source=_SRC + "conv_bn_act.cu",
-        replaces="mdfnet_tpu/ops/pallas/conv2d_vjp.py:45", counter="conv2d_dgrad"),
+        **_TC, replaces="mdfnet_tpu/ops/pallas/conv2d_vjp.py:45",
+        counter="conv2d_dgrad"),
 }
 # the fused train aggregate's kernels (K9); their launches are the fused
 # step's (warp_impl="fused")
@@ -202,11 +214,49 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float) -> dict:
-    """The least time the card could take for work that moves ``nbytes``
-    (each input read once, each output written once) and does ``ops``."""
+def interleaved_ms(timers: dict, rounds: int = 5) -> dict:
+    """The median of ``rounds`` readings of each timer (a function that
+    returns milliseconds), read in turn: a call that the host bounds reads
+    the host's load, which swings within a run, so the times compared
+    share its swings."""
+    times = {k: [] for k in timers}
+    for _ in range(rounds):
+        for k, timer in timers.items():
+            times[k].append(timer())
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Mean milliseconds of device time per call: ``iters`` calls captured
+    in one CUDA graph and replayed, timed by CUDA events, so no host work
+    (the wrappers' Python, the launches) stands between the kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm-up off the capture, as torch
+        fn()                           # asks before a capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def bound(name: str, nbytes: float, ops: float) -> dict:
+    """The least time the card could take for kernel ``name``'s work, which
+    moves ``nbytes`` (each input read once, each output written once) and
+    does ``ops`` at the peak rate of their type."""
+    peak = PEAK_BF16_TC_PER_S if name in CONV_KERNELS else PEAK_F32_PER_S
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -305,12 +355,16 @@ def kernel_cases(gen, scene):
             wt = rnd(co, shape[-1], 3, 3, 3, scale=0.1).to(dt)
             out_vox = shape[0] * -(-shape[1] // s) * -(-shape[2] // s) \
                 * -(-shape[3] // s)
+            e = epi(co)
             meta = dict(in_bytes=size(x, wt),
                         ops=conv_ops(out_vox, 27, shape[-1], co),
                         library=lambda x=x, wt=cl_weight(wt), s=s: F.conv3d(
-                            cl(x), wt, stride=s, padding=1))
+                            cl(x), wt, stride=s, padding=1),
+                        direct=lambda x=x, wt=wt, co=co, s=s, e=e:
+                        conv3d_bn_act(x, wt, *e, stride=s, relu=co > 1,
+                                      route="direct"))
             cases.append(("conv3d_bn_act", dt, lambda p, x=x, wt=wt, co=co,
-                          s=s, e=epi(co): conv3d_bn_act(
+                          s=s, e=e: conv3d_bn_act(
                               x, wt, *e, stride=s, relu=co > 1, plain=p),
                           meta))
         # K3 — stage-0 conv10 with its skip add; stage-1 conv343_2
@@ -332,11 +386,14 @@ def kernel_cases(gen, scene):
         # refine's C->1 tail (f32 out)
         x = rnd(NVIEWS, h2, w2, 16).to(dt)
         w5 = rnd(32, 16, 5, 5, scale=0.05).to(dt)
+        e5 = epi(32)
         meta = dict(in_bytes=size(x, w5),
                     ops=conv_ops(NVIEWS * (h2 // 2) * (w2 // 2), 25, 16, 32),
                     library=lambda x=x, wt=cl_weight(w5): F.conv2d(
-                        cl(x), wt, stride=2, padding=2))
-        cases.append(("conv2d_bn_act", dt, lambda p, x=x, wt=w5, e=epi(32):
+                        cl(x), wt, stride=2, padding=2),
+                    direct=lambda x=x, wt=w5, e=e5: conv2d_bn_act(
+                        x, wt, *e, stride=2, route="direct"))
+        cases.append(("conv2d_bn_act", dt, lambda p, x=x, wt=w5, e=e5:
                       conv2d_bn_act(x, wt, *e, stride=2, plain=p), meta))
         w1 = rnd(64, 16, 1, 1, scale=0.2).to(dt)
         r1 = rnd(NVIEWS, h2, w2, 64).to(dt)
@@ -364,7 +421,10 @@ def kernel_cases(gen, scene):
             return F.conv2d(v, ws[2], stride=2, padding=2)
         meta = dict(in_bytes=size(xi, *ws), library=trunk,
                     ops=conv_ops(full, 9, 3, 8) + conv_ops(full, 9, 8, 8)
-                    + conv_ops(full // 4, 25, 8, 16))
+                    + conv_ops(full // 4, 25, 8, 16),
+                    direct=lambda x=xi, ws=ws, es=es: conv2d_chain(
+                        x, ws, [e[0] for e in es], [e[1] for e in es],
+                        final_stride=2, route="direct"))
         cases.append(("conv2d_chain", dt, lambda p, x=xi, ws=ws, es=es:
                       conv2d_chain(x, ws, [e[0] for e in es],
                                    [e[1] for e in es], final_stride=2,
@@ -442,20 +502,138 @@ def check_kernels(scene):
         if dt == torch.bfloat16 and meta is not None and "ms" not in entry:
             entry["ms"] = cuda_ms(lambda: fn(False))
             entry["plain_ms"] = cuda_ms(lambda: fn(True), iters=3)
-            entry.update(bound(meta["in_bytes"] + size(got), meta["ops"]))
+            entry.update(bound(name, meta["in_bytes"] + size(got),
+                               meta["ops"]))
             entry["library_ms"] = (cuda_ms(meta["library"])
                                    if meta["library"] else None)
             line += (f"; {entry['ms']:.3f} ms vs plain "
                      f"{entry['plain_ms']:.3f} ms, bound "
                      f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}), "
                      f"library {entry['library_ms']} ms")
+            if "direct" in meta:
+                # both routes, and the library call, by wall time per call
+                # (events around back-to-back calls, as "ms") and by device
+                # time (a CUDA graph's replay): the wrapper's host work can
+                # exceed a short kernel's; the 3x gate is on device time
+                entry["direct_ms"] = cuda_ms(meta["direct"])
+                entry["device_ms"] = device_ms(lambda: fn(False))
+                entry["direct_device_ms"] = device_ms(meta["direct"])
+                entry["library_device_ms"] = device_ms(meta["library"])
+                line += (f"; routes: tc {entry['ms']:.3f} ms, direct "
+                         f"{entry['direct_ms']:.3f} ms; device time: tc "
+                         f"{entry['device_ms']:.3f} ms, direct "
+                         f"{entry['direct_device_ms']:.3f} ms ("
+                         f"{entry['direct_device_ms'] / entry['device_ms']:.2f}"
+                         f"x), library {entry['library_device_ms']:.3f} ms")
         if dt == torch.bfloat16 and meta and "beside" in meta:
             line += (f"; {cuda_ms(lambda: fn(False)):.3f} ms vs two K2 "
                      f"launches {cuda_ms(meta['beside']):.3f} ms")
         print(line, flush=True)
         require(rel <= REL_TOL[dt] and np.isfinite(err),
                 f"{name} disagrees with its plain version")
+        require(name not in ("conv3d_bn_act", "conv2d_bn_act")
+                or entry.get("direct_device_ms", math.inf)
+                >= TC_SPEEDUP * entry.get("device_ms", 0.0),
+                f"{name}: the tc kernel is not {TC_SPEEDUP}x faster than the "
+                "direct kernel at its main-path shape")
     return report
+
+
+def tc_sums() -> None:
+    """How near the exact sums the tc kernel's f32 sums come, against the
+    direct kernel's: bf16 inputs at K2's and K4's main-path shapes, f32
+    output, mean |y - exact| / mean |exact| with the exact conv in f64 (the
+    tc kernel adds its tensor-core partial sums in f32 every few K steps,
+    csrc/conv_tc.cu kFlush)."""
+    import torch.nn.functional as F
+    from mdfnet_tpu_torch.ops.cuda import conv_kernel
+    gen = torch.Generator().manual_seed(3)
+    h8, w8, h2, w2 = HEIGHT // 8, WIDTH // 8, HEIGHT // 2, WIDTH // 2
+    parts = []
+    for name, shape, co, k, s in (
+            ("K2", (1, NDEPTHS[0], h8, w8, NGROUPS[0]), 16, 3, 1),
+            ("K4", (NVIEWS, h2, w2, 16), 32, 5, 2)):
+        x = torch.randn(*shape, generator=gen).to(DEV, torch.bfloat16)
+        w = (torch.randn(co, shape[-1], *(k,) * (len(shape) - 2),
+                         generator=gen) * 0.1).to(DEV, torch.bfloat16)
+        one, zero = torch.ones(co, device=DEV), torch.zeros(co, device=DEV)
+        conv = (conv_kernel.conv3d_bn_act if len(shape) == 5
+                else conv_kernel.conv2d_bn_act)
+        exact = (F.conv3d if len(shape) == 5 else F.conv2d)(
+            cl(x).double(), w.double(), stride=s, padding=k // 2)
+        exact = exact.movedim(1, -1)
+
+        def err(route):
+            y = conv(x, w, one, zero, stride=s, relu=False,
+                     out_dtype=torch.float32, route=route).double()
+            return ((y - exact).abs().mean() / exact.abs().mean()).item()
+        tc, direct = err("tc"), err("direct")
+        parts.append(f"{name} tc {tc:.2e}, direct {direct:.2e}")
+        require(tc <= 1.5 * direct, f"{name}: the tc sums are less exact "
+                f"than the direct kernel's ({tc:.2e} vs {direct:.2e})")
+        del x, exact
+    print("tc sums (mean |f32 - exact| / mean |exact|): " + "; ".join(parts),
+          flush=True)
+
+
+def route_table(traced: list, what: str) -> None:
+    """Each distinct conv that a traced run launched (conv_kernel.TRACE),
+    at its own shape, timed on both kernels (seeded random bf16 inputs):
+    device time (device_ms, no host between launches) and wall time per
+    call of back-to-back calls (cuda_ms, interleaved_ms's medians: the
+    wrapper's host work where it exceeds the kernel's), and on the tc route
+    the wall time of the weight packing alone; the rule's choice beside the
+    other route, the run's conv time summed over its launches on each
+    route, and the classes that are slower on the rule's route."""
+    from mdfnet_tpu_torch.ops.cuda import conv_kernel
+    gen = torch.Generator().manual_seed(4)
+    counts = {}
+    for route, *key in traced:
+        counts.setdefault(tuple(key), [route, 0])[1] += 1
+    rows, slower = [], []
+    total = {(r, t): 0.0 for r in ("tc", "direct") for t in ("dev", "wall")}
+    for (kd, k, s, shape, co), (route, n) in counts.items():
+        x = torch.randn(*shape, generator=gen).to(DEV, torch.bfloat16)
+        w = (torch.randn(co, shape[-1], *(k,) * (3 if kd == 3 else 2),
+                         generator=gen) * 0.1).to(DEV, torch.bfloat16)
+        one, zero = torch.ones(co, device=DEV), torch.zeros(co, device=DEV)
+        if kd == 1:
+            x = x[:, 0]
+        conv = (conv_kernel.conv3d_bn_act if kd == 3
+                else conv_kernel.conv2d_bn_act)
+        fns = {r: (lambda r=r: conv(x, w, one, zero, stride=s, route=r))
+               for r in ("tc", "direct") if r == "direct"
+               or conv_kernel.tc_plan(kd, k, s, shape[-1], co)}
+        w_kio = w.permute(*range(2, w.dim()), 1, 0)
+        pack = (lambda: conv_kernel.pack_tc_weight(w_kio, kd=kd, k=k,
+                                                   stride=s))
+        ms = {r: {"dev": device_ms(fn, iters=5)} for r, fn in fns.items()}
+        walls = interleaved_ms({r: lambda fn=fn: cuda_ms(fn) for r, fn in (
+            {**fns, "pack": pack} if "tc" in fns else fns).items()})
+        for r, v in ms.items():
+            v["wall"] = walls[r]
+        if "tc" in ms:
+            ms["tc"]["pack"] = walls["pack"]
+        for (r, t) in total:
+            total[r, t] += n * ms.get(r, ms["direct"])[t]
+        other = "direct" if route == "tc" else "tc"
+        name = f"{kd}x{k}x{k}/s{s} {shape[-1]}->{co} {tuple(shape[:-1])}"
+        if other in ms:
+            slower += [f"{name} by {t}" for t in ("dev", "wall")
+                       if ms[route][t] > ms[other][t]]
+        rows.append(f"{name} x{n} {route}: " + ", ".join(
+            f"{r} {v['dev']:.3f} (wall {v['wall']:.3f}"
+            + (f", pack {v['pack']:.3f})" if "pack" in v else ")")
+            for r, v in ms.items()))
+        del x
+    print(f"route table ({what}; conv, input shape, launches per run, the "
+          f"rule's route: device ms per launch on each kernel, wall ms per "
+          f"call): " + "; ".join(rows) + "; the run's convs on the rule's "
+          f"routes ~{total['tc', 'dev']:.2f} ms device, "
+          f"~{total['tc', 'wall']:.2f} ms wall; all direct "
+          f"~{total['direct', 'dev']:.2f} ms device, "
+          f"~{total['direct', 'wall']:.2f} ms wall; slower on the rule's "
+          f"route: {slower or 'none'}", flush=True)
 
 
 def sharpen(model, seed: int = 1) -> None:
@@ -495,6 +673,7 @@ def stage_volumes(model, args, plain):
 
 def forward_phase(build_s, scene):
     from mdfnet_tpu_torch.data import make_batch
+    from mdfnet_tpu_torch.models.conv_routes import eval_conv_routes
     from mdfnet_tpu_torch.models.registry import build_model
     from mdfnet_tpu_torch.ops.cuda import aggregate_kernel, conv_kernel
 
@@ -507,18 +686,35 @@ def forward_phase(build_s, scene):
     args = [torch.from_numpy(batch[k]).to(DEV)
             for k in ("imgs", "extrinsics", "intrinsics", "depth_range")]
 
-    for c in counters:
+    for c in (*counters, conv_kernel.TC_LAUNCHES):
         for k in c:
             c[k] = 0
+    conv_kernel.TRACE = traced = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = model(*args)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    conv_kernel.TRACE = None
     # the eval path's kernels (the *_dgrad counters belong to training)
     launches = {k: v for c in counters for k, v in c.items() if k in KERNELS}
+    tc = {k: conv_kernel.TC_LAUNCHES[k] for k in launches
+          if k in conv_kernel.TC_LAUNCHES}
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the main path never launched: {launches}")
+    # the tc kernel once per conv that the rule sends to it, from the
+    # model's layers; the direct kernel still serves the rest (Co = 1 in
+    # ProbConv and refine's tail, Ci = 3 and 1 in the chains' heads)
+    routes = eval_conv_routes(model)
+    require(conv_kernel.LAUNCHES["conv_tc"] == routes.count("tc") > 0,
+            f"tc launches {conv_kernel.LAUNCHES['conv_tc']}, the rule gives "
+            f"{routes.count('tc')}")
+    require(all(launches[k] > tc[k] for k in tc),
+            f"the direct kernel served none of a wrapper's convs: {launches}, "
+            f"tc {tc}")
+    print(f"routes: {routes.count('tc')} tc launches per forward as the rule "
+          f"gives for the model's {len(routes)} convs; tc per wrapper {tc}",
+          flush=True)
 
     times = []
     torch.cuda.reset_peak_memory_stats()
@@ -570,13 +766,17 @@ def forward_phase(build_s, scene):
                 f"bf16 kernel forward: {k} {v:.2e} > {FORWARD_BOUNDS[k]:.1e}")
     del vols, ref_vols
     profile_phase(model, args, ms_map)
-    return model, args, launches
+    route_table(traced, "the eval forward")
+    return model, args, launches, tc
 
 
 def pair_phase(model, args) -> int:
     """K10 on the stage-0 U-Net's three stride-1 pairs, fed the eval
     forward's own volumes: each pair against the two conv3d (K2) launches
-    that it replaces in that forward. Returns K10's launches here."""
+    that it replaces in that forward, which take the tc route. K10 sums in
+    another order and rounds its intermediate as the first launch does, so
+    they differ by about one bf16 step (REL_TOL). Returns K10's launches
+    here."""
     from mdfnet_tpu_torch.ops.cuda import conv_kernel
     reg = model.Regular[0]
     pairs = [(reg.conv01[0], reg.conv01[1]), (reg.conv12[1], reg.conv12[2]),
@@ -607,7 +807,7 @@ def pair_phase(model, args) -> int:
                     / max(ref.abs().max().item(), 1e-6))
     print(f"pair: the stage-0 U-Net's stride-1 pairs "
           f"{[tuple(seen['in', i].shape) for i in range(3)]} on K10 vs two "
-          f"K2 launches each: rel err {[f'{e:.2e}' for e in errs]} (tol "
+          f"K2 launches (tc) each: rel err {[f'{e:.2e}' for e in errs]} (tol "
           f"{REL_TOL[torch.bfloat16]:.0e}); launches {launches}", flush=True)
     require(launches == 3 and all(e <= REL_TOL[torch.bfloat16] for e in errs),
             "pair phase: K10 disagrees with the two K2 launches")
@@ -959,8 +1159,10 @@ def check_train_kernels(batch):
                     f"{name}: two launches on the same inputs differ")
             line += "; two launches bit-identical"
         if meta is not None and "ms" not in entry:
-            entry["ms"], entry["plain_ms"] = timer(False), timer(True)
-            entry.update(bound(meta["nbytes"], meta["ops"]))
+            # wall per call of back-to-back calls, mostly the host's time
+            entry.update(interleaved_ms({"ms": lambda: timer(False),
+                                         "plain_ms": lambda: timer(True)}))
+            entry.update(bound(name, meta["nbytes"], meta["ops"]))
             entry["library_ms"] = (cuda_ms(meta["library"])
                                    if meta["library"] else None)
             line += (f"; {entry['ms']:.3f} ms vs plain "
@@ -1020,15 +1222,23 @@ def _grad_stats(grads, ref):
 
 
 def train_gate(batch, warp_impl: str = "dense"):
-    """The bf16 and f32 step gates; returns the bf16 step's launches and
-    the f32 kernel step's (loss, gradients)."""
+    """The bf16 and f32 step gates; returns the bf16 step's launches, its
+    tc-route launches per conv counter, and the f32 kernel step's (loss,
+    gradients). The f32 step must take the direct kernels only."""
     from mdfnet_tpu_torch.ops.cuda import (aggregate_kernel, conv_kernel,
                                            splat_kernel, warp_kernel)
     counters = (warp_kernel.LAUNCHES, splat_kernel.LAUNCHES,
                 conv_kernel.LAUNCHES, aggregate_kernel.LAUNCHES)
-    loss_b, grads_b, vols_b, launches = _step("bfloat16", False, batch,
-                                              launches=counters,
-                                              warp_impl=warp_impl)
+    conv_kernel.TRACE = traced = []
+    loss_b, grads_b, vols_b, launches = _step(
+        "bfloat16", False, batch, launches=counters + (
+            conv_kernel.TC_LAUNCHES,), warp_impl=warp_impl)
+    conv_kernel.TRACE = None
+    tc = dict(conv_kernel.TC_LAUNCHES)
+    launches = {k: v for c in counters for k, v in c.items()}
+    if warp_impl == "dense":
+        route_table(traced, "the bf16 train step, forward and input "
+                    "gradients")
     # the chain and the eval aggregate run in eval only, and no model path
     # runs the pair; the fused aggregate's kernels run with warp_impl="fused"
     step_ids = [k for k in launches if k not in (
@@ -1063,8 +1273,11 @@ def train_gate(batch, warp_impl: str = "dense"):
             f"train gate bf16: median gradient cosine {med_cos:.4f}")
     del grads_b, vols_b
     # f32 kernels vs plain f32: every parameter
-    loss_k, grads_k, _, _ = _step("float32", False, batch,
-                                  warp_impl=warp_impl)
+    loss_k, grads_k, _, f32_launches = _step("float32", False, batch,
+                                             launches=counters,
+                                             warp_impl=warp_impl)
+    require(f32_launches["conv_tc"] == 0 and f32_launches["conv3d_bn_act"] > 0,
+            f"the f32 step left the direct conv kernel: {f32_launches}")
     errs, coss = _grad_stats(grads_k, grads_p)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     worst = max(errs, key=errs.get)
@@ -1083,7 +1296,7 @@ def train_gate(batch, warp_impl: str = "dense"):
     bad = [n for n in errs if errs[n] > STEP_BOUNDS_F32["grad rel err"]
            or coss[n] < MIN_COS_F32]
     require(not bad, f"train gate f32: gradients out of bounds: {bad[:5]}")
-    return launches, (loss_k, grads_k)
+    return launches, tc, (loss_k, grads_k)
 
 
 def _versus(loss, grads, loss_ref, grads_ref) -> dict:
@@ -1104,7 +1317,7 @@ def fused_gate(batch, unfused_f32):
     fused backward (the BN backward without its mean term), which must
     exceed them. Returns the fused bf16 step's launches."""
     from mdfnet_tpu_torch.ops import aggregate_train
-    launches, (loss_f, grads_f) = train_gate(batch, warp_impl="fused")
+    launches, _, (loss_f, grads_f) = train_gate(batch, warp_impl="fused")
     require(all(launches[k] > 0 for k in (*FUSED_KERNELS, "sample_2d",
                                            "splat_2d")),
             f"a kernel of the fused step never launched: {launches}")
@@ -1341,21 +1554,28 @@ def main():
             int(regs[1]) if regs else 0, int(spill[1]) if spill else 0)
     most = max(kern, key=lambda k: kern[k][0], default="")
     spills = [f"{k} {v[1]} B" for k, v in kern.items() if v[1]]
+    tc = {k: v for k, v in kern.items() if k.startswith("conv_tc_kernel")}
     print(f"build: {build_s:.1f} s -> {os.path.relpath(lib_path, ROOT)}; "
           f"{len(kern)} kernels, most registers {kern.get(most, (0,))[0]} "
-          f"({most}); spill stores: {', '.join(spills) or 'none'}",
-          flush=True)
+          f"({most}); spill stores: {', '.join(spills) or 'none'}; the tc "
+          f"kernel (registers, spill store bytes): "
+          + ", ".join(f"{k[len('conv_tc_kernel'):]} {v}" for k, v in
+                      tc.items()), flush=True)
+    require(len(tc) == 8 and not any(v[1] for v in tc.values()),
+            f"the tc kernel's instantiations spill or are missing: {tc}")
 
-    def entry(name, info, report, launches):
+    def entry(name, info, report, launches, tc_launches=None):
         info = dict(info)
         info.pop("counter", None)
+        extra = {} if tc_launches is None else {"tc_launches": tc_launches}
         return dict(name=name, route="cuda", **info, **report[name],
-                    launches=launches)
+                    launches=launches, **extra)
 
     scene = dtu_scene()
     report = check_kernels(scene)
-    model, args, launches = forward_phase(build_s, scene)
-    kernels = [entry(n, info, report, launches[n])
+    tc_sums()
+    model, args, launches, tc = forward_phase(build_s, scene)
+    kernels = [entry(n, info, report, launches[n], tc.get(n))
                for n, info in KERNELS.items()]
     pair_launches = pair_phase(model, args)
     kernels += [entry(n, info, report, pair_launches)
@@ -1365,8 +1585,9 @@ def main():
 
     batch = train_batch()
     report = check_train_kernels(batch)
-    launches, unfused_f32 = train_gate(batch)
-    kernels += [entry(n, info, report, launches[info.get("counter", n)])
+    launches, tc, unfused_f32 = train_gate(batch)
+    kernels += [entry(n, info, report, launches[info.get("counter", n)],
+                      tc.get(info.get("counter", n)))
                 for n, info in TRAIN_KERNELS.items()]
     unfused_layers = learn_phase(batch, smi)
     train_cli_phase()

@@ -18,10 +18,22 @@ chain in shared memory is later work. The pair (K10, ``csrc/conv3d_pair.cu``)
 is two stride-1 conv3d layers in one launch whose intermediate volume stays
 in shared memory; as in the JAX package, no model path runs it.
 
+On the card a conv takes one of two kernels, by one static rule
+(:func:`conv_route`): a bf16 conv with Ci and Co multiples of 8 (Co <= 64)
+runs on the tensor cores (``csrc/conv_tc.cu``, an implicit GEMM on wgmma
+with the input tile and its halo in shared memory, weights packed by
+:func:`pack_tc_weight`); every other conv, the f32 ones, Co = 1 and Ci in
+{1, 3}, and the transposed conv run on the direct kernels of
+``csrc/conv_bn_act.cu`` (f32 FMA on the CUDA cores). There is no fallback
+between them: a launch that fails raises.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``plain=True`` asks for the plain version explicitly.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -29,17 +41,29 @@ import torch.nn.functional as F
 from mdfnet_tpu_torch.ops.cuda import build, exact_cuda_math
 
 # kernel launches since the last reset (the main-path check reads them); the
-# chain counts each of its layer launches. The ``*_dgrad`` counters are the
+# chain counts each of its layer launches. ``conv_tc`` counts the launches
+# that took the tc route (csrc/conv_tc.cu), whichever wrapper made them; the
+# wrapper's own counter counts them too. The ``*_dgrad`` counters are the
 # launches that compute an input gradient for the training convolutions
 # (ops/cuda/conv_vjp.py, which passes ``counter=``): K2 or K3 for
 # conv3d_train, K2 at stride 2 for trconv3d_train, K4 for conv2d_train.
 LAUNCHES = {"conv3d_bn_act": 0, "trconv3d_bn_act": 0, "conv2d_bn_act": 0,
             "conv2d_chain": 0, "conv3d_dgrad": 0, "trconv3d_dgrad": 0,
-            "conv2d_dgrad": 0, "conv3d_pair_bn_act": 0}
+            "conv2d_dgrad": 0, "conv3d_pair_bn_act": 0, "conv_tc": 0}
+# the tc-route launches among each wrapper counter's (their sum is
+# LAUNCHES["conv_tc"])
+TC_LAUNCHES = {k: 0 for k in LAUNCHES if k != "conv_tc"}
+# None, or a list to which every conv launch appends (route, kd, k, stride,
+# x's (N, D, H, W, Ci) shape, Co): what a run sends to which kernel
+TRACE = None
 
 _COB = 8                    # output channels per thread (csrc/conv_bn_act.cu)
 _MAX_SMEM = 227 * 1024      # shared memory one block may use on the H100
 _PAIR_MID_VOXELS = 4 * 10 * 18   # csrc/conv3d_pair.cu's tile with its halo
+# csrc/conv_tc.cu: 64-row M blocks per warpgroup, by N (Co padded); the
+# bytes of its table of K-step descriptors
+_TC_MB = {8: 4, 16: 4, 32: 2, 64: 2}
+_TC_TABLE = 1024
 _DTYPES = {(torch.float32, torch.float32): 0,
            (torch.bfloat16, torch.bfloat16): 1,
            (torch.bfloat16, torch.float32): 2}
@@ -67,6 +91,126 @@ def _conv_plain(x, weight, scale, offset, *, stride, relu, residual,
     return y.to(out_dtype)
 
 
+def _slots(k: int, stride: int) -> list[int]:
+    """The tc kernel's order of kw within a kernel row: even kw first at
+    stride 2, where the tile splits w by parity."""
+    return list(range(k)) if stride == 1 else [*range(0, k, 2),
+                                               *range(1, k, 2)]
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_index(k: int, stride: int, device: torch.device) -> torch.Tensor:
+    """:func:`_slots` as an index tensor on ``device``."""
+    return torch.tensor(_slots(k, stride), device=device)
+
+
+def pack_tc_weight(w_kio: torch.Tensor, *, kd: int, k: int,
+                   stride: int) -> torch.Tensor:
+    """(*taps, Ci, Co) weights as the tc kernel takes them: (kd*k*k*Ci/8,
+    Co, 8) bf16, K chunk ((kd*k + kh)*Ci/8 + c)*k + slot holding input
+    channels 8c..8c+7 of tap (kd, kh, _slots(k, stride)[slot]) for each
+    output channel. One gather of ``w_kio`` in bf16: the kernel zero-fills
+    the channels beyond Co and an odd count's last chunk itself."""
+    ci, co = w_kio.shape[-2:]
+    # (kd, kh, kw, c, j, co) -> (kd, kh, c, kw, co, j), views of w_kio
+    src = w_kio.reshape(kd, k, k, ci // 8, 8, co).permute(0, 1, 3, 2, 5, 4)
+    return torch.index_select(src.to(torch.bfloat16), 3, _slot_index(
+        k, stride, w_kio.device)).view(-1, co, 8)
+
+
+def conv_tc_plain(x, packed, scale, offset, *, kd, k, stride, relu,
+                  residual, out_dtype):
+    """Plain version of the tc kernel on its own operands: x (N, D, H, W, Ci)
+    or (N, H, W, Ci) and the packed weights of :func:`pack_tc_weight`,
+    consumed one K chunk at a time in the kernel's order, each an (M, 8) x
+    (8, Co) product of the shifted, strided input, summed in f32; then the
+    epilogue."""
+    x5 = x if x.dim() == 5 else x[:, None]
+    nb, di, hi, wi, ci = x5.shape
+    nch, pd, p = ci // 8, kd // 2, k // 2
+    do = -(-di // stride) if kd > 1 else di
+    ho, wo = -(-hi // stride), -(-wi // stride)
+    xp = F.pad(x5.float(), (0, 0, p, p, p, p, pd, pd))
+    w = packed.float()
+    acc = torch.zeros((nb, do, ho, wo, w.shape[1]), device=x.device)
+    slots = _slots(k, stride)
+    for q in range(kd * k * k * nch):
+        slot, t = q % k, q // k
+        c, t = t % nch, t // nch
+        kh, kdd = t % k, t // k
+        kw = slots[slot]
+        patch = xp[:, kdd:kdd + stride * (do - 1) + 1:stride,
+                   kh:kh + stride * (ho - 1) + 1:stride,
+                   kw:kw + stride * (wo - 1) + 1:stride, 8 * c:8 * c + 8]
+        acc += patch @ w[q].T
+    y = acc * scale.float() + offset.float()
+    if relu:
+        y = torch.relu(y)
+    if residual is not None:
+        y = y + (residual if x.dim() == 5 else residual[:, None]).float()
+    y = y.to(out_dtype)
+    return y if x.dim() == 5 else y[:, 0]
+
+
+# ------------------------------------------------------------ the route
+
+class TcPlan(NamedTuple):
+    """The tc kernel's tile for one conv class (see :func:`tc_plan`)."""
+    n: int          # Co padded to 8, 16, 32 or 64
+    td: int         # output tile td x 8*bh x 8 voxels
+    bh: int
+    q: int          # K chunks of 8 input channels (even)
+    q_stage: int    # K chunks per weight stage: q, or q / kd
+    smem: int       # bytes of shared memory per block
+
+
+@functools.lru_cache(maxsize=None)
+def tc_plan(kd: int, k: int, stride: int, ci: int,
+            co: int) -> TcPlan | None:
+    """The tc kernel's tile for a conv, or None where it takes no such conv
+    (Ci or Co not a multiple of 8, Co > 64) or no tile fits in shared memory.
+
+    A block owns 2 * _TC_MB[n] M blocks of 8 x 8 output voxels (h, w),
+    stacked along D as far as the input tile with its halo and the weights
+    fit (``td`` x ``bh``), and holds the weights whole (``q_stage == q``) or
+    one kd slab at a time; csrc/conv_tc.cu computes the same extents."""
+    if ci % 8 or co % 8 or not 0 < co <= 64 or ci <= 0:
+        return None
+    n = next(v for v in _TC_MB if v >= co)
+    nch = ci // 8
+    q = kd * k * k * nch
+    q += q % 2
+    if q // 2 * 8 > _TC_TABLE:
+        return None
+    seg = stride * (8 + (k - 1) // stride)
+    mblocks = 2 * _TC_MB[n]
+    stages = [q] + ([q // kd] if kd > 1 and nch % 2 == 0 else [])
+    for td in ([t for t in (8, 4, 2, 1) if t <= mblocks] if kd > 1 else [1]):
+        bh = mblocks // td
+        rows = ((stride * (td - 1) + kd) * (stride * (8 * bh - 1) + k)
+                * nch * seg)
+        for q_stage in stages:
+            # the epilogue's f32 stage (64 rows of n + 8 per warpgroup)
+            # reuses the tile's bytes
+            smem = _TC_TABLE + max(16 * (rows + q_stage * n),
+                                   2 * 64 * (n + 8) * 4)
+            if smem <= _MAX_SMEM:
+                return TcPlan(n, td, bh, q, q_stage, smem)
+    return None
+
+
+def conv_route(dtype: torch.dtype, kd: int, k: int, stride: int, ci: int,
+               co: int) -> str:
+    """Which kernel a conv launches on the card: "tc" (csrc/conv_tc.cu,
+    wgmma on the tensor cores) for a bf16 input with Ci % 8 == 0, Co % 8 ==
+    0, Co <= 64 and a tile that fits in shared memory; "direct"
+    (csrc/conv_bn_act.cu, f32 FMA) for the rest: f32, Co = 1 (ProbConv,
+    refine's tail), Ci in {1, 3} (the trunk's and refine's heads)."""
+    if dtype == torch.bfloat16 and tc_plan(kd, k, stride, ci, co):
+        return "tc"
+    return "direct"
+
+
 # ------------------------------------------------------------ kernel launches
 
 def _padded(v: torch.Tensor, cop: int) -> torch.Tensor:
@@ -76,69 +220,99 @@ def _padded(v: torch.Tensor, cop: int) -> torch.Tensor:
 
 
 def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
-            stride, relu, transposed=False):
+            stride, relu, transposed=False, route=None):
     """Launch the conv (or transposed conv) kernel on (N, D, H, W, Ci) and
-    count the launch under ``LAUNCHES[counter]``.
+    count the launch under ``LAUNCHES[counter]`` (and ``"conv_tc"`` on the
+    tc route).
 
-    ``w_kio``: (*taps, Ci, Co) weights in any float dtype."""
+    ``w_kio``: (*taps, Ci, Co) weights in any float dtype. ``route``: None
+    follows :func:`conv_route`; "tc" or "direct" forces one (a transposed
+    conv is always direct)."""
     n, di, hi, wi, ci = x5.shape
     co = w_kio.shape[-1]
-    cop = -(-co // _COB) * _COB
     if (x5.dtype, out_dtype) not in _DTYPES:
         raise ValueError(f"conv kernel: unsupported dtypes {x5.dtype} -> "
                          f"{out_dtype}")
     if w_kio.shape[-2] != ci:
         raise ValueError(f"conv kernel: weight has {w_kio.shape[-2]} input "
                          f"channels, x has {ci}")
-    if 27 * ci * _COB * 4 > _MAX_SMEM:
-        raise ValueError(f"conv kernel: Ci={ci} exceeds the shared memory of "
-                         "the weight stage")
     if transposed:
         do, ho, wo = 2 * di, 2 * hi, 2 * wi
     else:
         do = -(-di // stride) if kd > 1 else di
         ho, wo = -(-hi // stride), -(-wi // stride)
-    w = _padded(w_kio.reshape(-1, co), cop)
-    s, o = _padded(scale, cop), _padded(offset, cop)
+    route = route or ("direct" if transposed
+                      else conv_route(x5.dtype, kd, k, stride, ci, co))
     y = torch.empty((n, do, ho, wo, co), dtype=out_dtype, device=x5.device)
-    operands = [(x5, "x"), (w, "weight"), (s, "scale"), (o, "offset"),
-                (y, "out")]
+    operands = [(x5, "x"), (y, "out")]
     if residual is not None:
         if residual.shape != y.shape or residual.dtype != out_dtype:
             raise ValueError(f"conv kernel: residual {tuple(residual.shape)} "
                              f"{residual.dtype} does not match the output "
                              f"{tuple(y.shape)} {out_dtype}")
         operands.append((residual, "residual"))
+    if route == "tc":
+        plan = tc_plan(kd, k, stride, ci, co)
+        if transposed or plan is None or x5.dtype != torch.bfloat16:
+            raise ValueError(f"conv tc kernel: no tile for {x5.dtype} kd={kd} "
+                             f"k={k} stride={stride} Ci={ci} Co={co}"
+                             f"{' (transposed)' if transposed else ''}")
+        cop = plan.n
+        w = pack_tc_weight(w_kio, kd=kd, k=k, stride=stride)
+        # the kernel reads the first Co entries only
+        s, o = scale.float().contiguous(), offset.float().contiguous()
+    elif route == "direct":
+        if 27 * ci * _COB * 4 > _MAX_SMEM:
+            raise ValueError(f"conv kernel: Ci={ci} exceeds the shared "
+                             "memory of the weight stage")
+        cop = -(-co // _COB) * _COB
+        w = _padded(w_kio.reshape(-1, co), cop)
+        s, o = _padded(scale, cop), _padded(offset, cop)
+    else:
+        raise ValueError(f"conv kernel: unknown route {route!r}")
+    operands += [(w, "weight"), (s, "scale"), (o, "offset")]
     for t, name in operands:
         build.check_operand(t, name)
     device, stream = build.launch_context(x5)
     lib = build.load_library()
     res_ptr = None if residual is None else residual.data_ptr()
     dtypes = _DTYPES[(x5.dtype, out_dtype)]
-    if transposed:
-        err = lib.mdf_trconv_bn_act(
-            x5.data_ptr(), w.data_ptr(), s.data_ptr(), o.data_ptr(), res_ptr,
-            y.data_ptr(), n, di, hi, wi, ci, co, cop, int(relu), dtypes,
+    ptrs = (x5.data_ptr(), w.data_ptr(), s.data_ptr(), o.data_ptr(), res_ptr,
+            y.data_ptr())
+    if route == "tc":
+        name = "conv_tc"
+        err = lib.mdf_conv_tc(
+            *ptrs, n, di, hi, wi, ci, do, ho, wo, co, cop, kd, k, stride,
+            int(relu), plan.td, plan.bh, plan.q, plan.q_stage, dtypes,
             device, stream)
+    elif transposed:
+        name = "trconv_bn_act"
+        err = lib.mdf_trconv_bn_act(*ptrs, n, di, hi, wi, ci, co, cop,
+                                    int(relu), dtypes, device, stream)
     else:
-        err = lib.mdf_conv_bn_act(
-            x5.data_ptr(), w.data_ptr(), s.data_ptr(), o.data_ptr(), res_ptr,
-            y.data_ptr(), n, di, hi, wi, ci, do, ho, wo, co, cop, kd, k,
-            stride, int(relu), dtypes, device, stream)
-    build.check(err, "trconv_bn_act" if transposed else "conv_bn_act")
+        name = "conv_bn_act"
+        err = lib.mdf_conv_bn_act(*ptrs, n, di, hi, wi, ci, do, ho, wo, co,
+                                  cop, kd, k, stride, int(relu), dtypes,
+                                  device, stream)
+    build.check(err, name)
+    if route == "tc":
+        LAUNCHES["conv_tc"] += 1
+        TC_LAUNCHES[counter] += 1
     LAUNCHES[counter] += 1
+    if TRACE is not None and not transposed:
+        TRACE.append((route, kd, k, stride, tuple(x5.shape), co))
     return y
 
 
 def _conv2d_launch(counter, x, weight, scale, offset, *, stride, relu,
-                   residual, out_dtype):
+                   residual, out_dtype, route=None):
     k = weight.shape[-1]
     if k not in (1, 3, 5) or stride not in (1, 2):
         raise ValueError(f"conv2d kernel: k={k} stride={stride} unsupported")
     res = None if residual is None else residual[:, None]
     return _launch(counter, x[:, None], weight.permute(2, 3, 1, 0), scale,
                    offset, res, out_dtype, kd=1, k=k, stride=stride,
-                   relu=relu)[:, 0]
+                   relu=relu, route=route)[:, 0]
 
 
 # ------------------------------------------------------------ public wrappers
@@ -146,28 +320,30 @@ def _conv2d_launch(counter, x, weight, scale, offset, *, stride, relu,
 def conv2d_bn_act(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
                   offset: torch.Tensor, *, stride: int = 1, relu: bool = True,
                   residual: torch.Tensor | None = None, out_dtype=None,
-                  plain: bool = False,
-                  counter: str = "conv2d_bn_act") -> torch.Tensor:
+                  plain: bool = False, counter: str = "conv2d_bn_act",
+                  route: str | None = None) -> torch.Tensor:
     """2D conv (K4). x (N, H, W, Ci); weight (Co, Ci, k, k), k in {1, 3, 5};
     stride 1 or 2, padding (k-1)//2. Returns (N, ceil(H/s), ceil(W/s), Co)
     in ``out_dtype`` (default x.dtype). A launch counts under
-    ``LAUNCHES[counter]``."""
+    ``LAUNCHES[counter]``. ``route`` ("tc" or "direct") overrides
+    :func:`conv_route`, to compare the two kernels."""
     out_dtype = out_dtype or x.dtype
     if plain or not x.is_cuda:
         return _conv_plain(x, weight, scale, offset, stride=stride, relu=relu,
                            residual=residual, out_dtype=out_dtype)
     return _conv2d_launch(counter, x, weight, scale, offset,
                           stride=stride, relu=relu, residual=residual,
-                          out_dtype=out_dtype)
+                          out_dtype=out_dtype, route=route)
 
 
 def conv3d_bn_act(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
                   offset: torch.Tensor, *, stride: int = 1, relu: bool = True,
                   residual: torch.Tensor | None = None, out_dtype=None,
-                  plain: bool = False,
-                  counter: str = "conv3d_bn_act") -> torch.Tensor:
+                  plain: bool = False, counter: str = "conv3d_bn_act",
+                  route: str | None = None) -> torch.Tensor:
     """3x3x3 conv, pad 1, stride 1 or 2 (K2). x (N, D, H, W, Ci); weight
-    (Co, Ci, 3, 3, 3). Returns (N, ceil(D/s), ceil(H/s), ceil(W/s), Co)."""
+    (Co, Ci, 3, 3, 3). Returns (N, ceil(D/s), ceil(H/s), ceil(W/s), Co).
+    ``route`` as in :func:`conv2d_bn_act`."""
     out_dtype = out_dtype or x.dtype
     if plain or not x.is_cuda:
         return _conv_plain(x, weight, scale, offset, stride=stride, relu=relu,
@@ -176,7 +352,7 @@ def conv3d_bn_act(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
         raise ValueError("conv3d kernel: 3x3x3 weights, stride 1 or 2 only")
     return _launch(counter, x, weight.permute(2, 3, 4, 1, 0), scale,
                    offset, residual, out_dtype, kd=3, k=3, stride=stride,
-                   relu=relu)
+                   relu=relu, route=route)
 
 
 def trconv3d_bn_act(x: torch.Tensor, weight: torch.Tensor,
@@ -263,7 +439,8 @@ def conv3d_pair_bn_act(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
 
 def conv2d_chain(x: torch.Tensor, weights, scales, offsets, *,
                  relu_flags: tuple = (), residuals: tuple | None = None,
-                 final_stride: int = 1, plain: bool = False) -> torch.Tensor:
+                 final_stride: int = 1, plain: bool = False,
+                 route: str | None = None) -> torch.Tensor:
     """A chain of 2D convs (K5), computing what ``conv2d_chain_fused`` does.
 
     Args:
@@ -274,6 +451,8 @@ def conv2d_chain(x: torch.Tensor, weights, scales, offsets, *,
         residuals: per-layer ``None`` or an earlier layer index j: add layer
             j's output after this layer's ReLU (Res-block skips).
         final_stride: stride of the LAST layer (1 or 2); the others are 1.
+        route: None follows :func:`conv_route` per layer; "direct" runs
+            every layer on the direct kernel (to compare the two).
     Returns:
         The last layer's output, in x's dtype.
     """
@@ -294,7 +473,8 @@ def conv2d_chain(x: torch.Tensor, weights, scales, offsets, *,
                             **kw)
         else:
             v = _conv2d_launch("conv2d_chain", v, weights[layer],
-                               scales[layer], offsets[layer], **kw)
+                               scales[layer], offsets[layer], route=route,
+                               **kw)
         if layer in keep:
             kept[layer] = v
     return v

@@ -1,5 +1,9 @@
 // Direct convolutions with a fused folded-BN / bias epilogue (K2, K3, K4 and
-// the launches of K5).
+// the launches of K5) on the CUDA cores. Since the tensor-core kernel
+// (conv_tc.cu) took the bf16 convs with Ci and Co multiples of 8, this one
+// serves the rest (ops/cuda/conv_kernel.py conv_route): the f32 convs, Co =
+// 1 (ProbConv, refine's tail), Ci in {1, 3} (the trunk's and refine's
+// heads), and every transposed conv.
 //
 // Replaces:
 //   K2 mdfnet_tpu/ops/pallas/conv3d_kernel.py:577 conv3d_bn_relu
@@ -33,7 +37,6 @@
 // kernel with 7 of the 8 accumulators idle. The transposed conv gathers only
 // the taps where (o + pad - k) is even: blockIdx.z is the output parity
 // phase, so all threads of a block run the same 1..8 taps without divergence.
-// wgmma / TMA tiles are later work.
 
 #include "common.cuh"
 

@@ -1,0 +1,269 @@
+"""The tensor-core (tc) route of the conv kernels on the CPU: its plain
+mirror (``conv_tc_plain``, which consumes the packed bf16 weights in the tc
+kernel's K order) vs the plain conv and the TPU kernels in Pallas interpret
+mode, at every (KD, K, stride, Ci, Co) class the model sends there; the
+input gradients' flipped and swapped weights vs ``jax.vjp`` of the Pallas
+VJPs; and the route rule on the default model.
+
+Inputs are rounded to bf16 (the kernel's operands) and computed in f32, so
+the tolerance (3e-4, the Pallas tests' own) covers the order of the sums
+only."""
+import collections
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mdfnet_tpu.ops.pallas.conv2d_kernel import conv2d_fused
+from mdfnet_tpu.ops.pallas.conv2d_vjp import conv2d_train as jax_conv2d_train
+from mdfnet_tpu.ops.pallas.conv3d_kernel import conv3d_bn_relu
+from mdfnet_tpu.ops.pallas.conv3d_vjp import (conv3d_train as jax_conv3d_train,
+                                              trconv3d_train as
+                                              jax_trconv3d_train)
+from mdfnet_tpu_torch.models.conv_routes import (conv_classes,
+                                                 eval_conv_routes)
+from mdfnet_tpu_torch.models.layers import ConvTranspose3dWeight
+from mdfnet_tpu_torch.models.registry import build_model
+from mdfnet_tpu_torch.ops.cuda import conv_kernel
+from mdfnet_tpu_torch.ops.cuda.conv_kernel import (_conv_plain, conv_route,
+                                                   conv_tc_plain,
+                                                   pack_tc_weight, tc_plan)
+
+ATOL = 3e-4
+# (KD, K, stride, Ci, Co): every class of the default model's bf16 eval
+# forward, train forward and train input gradients that the rule sends to
+# the tc kernel (test_classes_cover_the_model), and Co = 24 (padded to 32)
+TC_CLASSES = [
+    (3, 3, 1, 32, 16), (3, 3, 1, 16, 16), (3, 3, 2, 16, 32),
+    (3, 3, 1, 32, 32), (3, 3, 2, 32, 64), (3, 3, 1, 64, 64),
+    (3, 3, 1, 16, 8), (3, 3, 1, 8, 8), (3, 3, 2, 8, 16), (3, 3, 1, 8, 16),
+    (3, 3, 1, 16, 32), (3, 3, 1, 64, 32), (3, 3, 2, 16, 8),
+    (1, 5, 2, 8, 16), (1, 5, 2, 16, 32), (1, 5, 2, 32, 64),
+    (1, 3, 1, 8, 8), (1, 3, 1, 16, 16), (1, 3, 1, 32, 32), (1, 3, 1, 64, 64),
+    (1, 3, 1, 8, 32), (1, 3, 1, 32, 8),
+    (1, 1, 1, 16, 64), (1, 1, 1, 32, 64), (1, 1, 1, 64, 16),
+    (1, 1, 1, 64, 32), (1, 1, 1, 64, 64),
+    (1, 3, 1, 24, 24)]
+
+
+def _bf16(a):
+    """Round to bf16 and back: the kernel's operands, exact in f32."""
+    return torch.from_numpy(a).to(torch.bfloat16).float()
+
+
+def _kio(w):
+    """torch (Co, Ci, *k) -> (KD, k, k, Ci, Co), KD = 1 for 2D."""
+    w_kio = w.permute(*range(2, w.dim()), 1, 0)
+    return w_kio if w.dim() == 5 else w_kio[None]
+
+
+def _mirror(x, w, scale, offset, *, stride, relu=True, residual=None,
+            out_dtype=torch.float32):
+    """conv_tc_plain on w packed as the wrapper packs it."""
+    kd = 3 if w.dim() == 5 else 1
+    k, ci, co = w.shape[-1], w.shape[1], w.shape[0]
+    packed = pack_tc_weight(_kio(w), kd=kd, k=k, stride=stride)
+    assert packed.dtype == torch.bfloat16 and packed.shape == (
+        kd * k * k * ci // 8, co, 8)
+    return conv_tc_plain(x, packed, scale, offset, kd=kd, k=k,
+                         stride=stride, relu=relu, residual=residual,
+                         out_dtype=out_dtype)
+
+
+def _model_tc_classes():
+    """The classes the default bf16 model sends to the tc kernel: its
+    convs (eval and train forward), the stride-1 convs' input gradients
+    (a conv from Co to Ci) and the transposed convs' (a stride-2 conv from
+    their Co to their Ci)."""
+    model = build_model(compute_dtype="bfloat16", device="cpu")
+    classes = set()
+    for m in (model.Backbone, *model.Regular, model.Refine):
+        for kd, k, s, ci, co in conv_classes(m):
+            classes.add((kd, k, s, ci, co))
+            if s == 1:
+                classes.add((kd, k, 1, co, ci))
+        for t in m.modules():
+            if isinstance(t, ConvTranspose3dWeight):
+                ci_t, co_t = t.weight.shape[:2]
+                classes.add((3, 3, 2, co_t, ci_t))
+    return {c for c in classes if conv_route(torch.bfloat16, *c) == "tc"}
+
+
+def test_classes_cover_the_model():
+    assert _model_tc_classes() <= set(TC_CLASSES)
+
+
+@pytest.mark.parametrize("kd,k,stride,ci,co", TC_CLASSES)
+def test_mirror_matches_plain_conv(kd, k, stride, ci, co):
+    """Odd extents (ragged tiles, stride 2 with odd D/H/W), a residual
+    after the ReLU and an f32 output."""
+    rng = np.random.RandomState(ci * 7 + co + 100 * stride + kd)
+    shape = (2, 5, 7, 9) if kd == 3 else (2, 13, 11)
+    x = _bf16(rng.randn(*shape, ci).astype(np.float32))
+    w = _bf16((rng.randn(co, ci, *(k,) * len(shape[1:])) * 0.2)
+              .astype(np.float32))
+    scale = torch.from_numpy((0.5 + rng.rand(co)).astype(np.float32))
+    offset = torch.from_numpy(rng.randn(co).astype(np.float32))
+    out = [(e + stride - 1) // stride for e in shape[1:]]
+    res = torch.from_numpy(rng.randn(shape[0], *out, co).astype(np.float32))
+    got = _mirror(x, w, scale, offset, stride=stride, residual=res)
+    want = _conv_plain(x, w, scale, offset, stride=stride, relu=True,
+                       residual=res, out_dtype=torch.float32)
+    assert got.shape == want.shape == (shape[0], *out, co)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
+
+
+def _pallas(x, w, scale, offset, stride):
+    """The TPU kernel in interpret mode on the port's layouts, or None
+    where it takes no such conv (conv2d_fused: k 1/3 at stride 1, k 3/5 at
+    stride 2)."""
+    k = np.asarray(_kio(w)[0] if w.dim() == 4 else _kio(w))
+    args = (jnp.asarray(scale.numpy()), jnp.asarray(offset.numpy()))
+    if w.dim() == 5:
+        out = conv3d_bn_relu(jnp.asarray(x[0].numpy().transpose(0, 1, 3, 2)),
+                             jnp.asarray(k), *args, stride=stride,
+                             interpret=True)
+        return np.asarray(out).transpose(0, 1, 3, 2)[None]
+    if (k.shape[0], stride) in ((1, 2), (5, 1)):
+        return None
+    out = conv2d_fused(jnp.asarray(x.numpy().transpose(0, 1, 3, 2)),
+                       jnp.asarray(k), *args, th=4, stride=stride,
+                       interpret=True)
+    return np.asarray(out).transpose(0, 1, 3, 2)
+
+
+@pytest.mark.parametrize("kd,k,stride,ci,co", TC_CLASSES)
+def test_mirror_matches_pallas(kd, k, stride, ci, co):
+    rng = np.random.RandomState(ci + co + 10 * k + stride)
+    shape = (1, 4, 6, 10) if kd == 3 else (2, 12, 20)
+    x = _bf16(rng.randn(*shape, ci).astype(np.float32))
+    w = _bf16((rng.randn(co, ci, *(k,) * len(shape[1:])) * 0.2)
+              .astype(np.float32))
+    scale = torch.from_numpy((0.5 + rng.rand(co)).astype(np.float32))
+    offset = torch.from_numpy(rng.randn(co).astype(np.float32))
+    want = _pallas(x, w, scale, offset, stride)
+    if want is None:
+        want = _conv_plain(x, w, scale, offset, stride=stride, relu=True,
+                           residual=None, out_dtype=torch.float32).numpy()
+    got = _mirror(x, w, scale, offset, stride=stride).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def _dhcw(a):   # (B, D, H, W, C) <-> (B, D, H, C, W)
+    return np.ascontiguousarray(np.swapaxes(a, -1, -2))
+
+
+@pytest.mark.parametrize("kind,shape,ci,co", [
+    ("conv3d", (2, 5, 6, 9), 16, 32),     # d_input: a conv 32 -> 16
+    ("conv3d", (1, 4, 5, 7), 8, 16),
+    ("trconv3d", (1, 3, 4, 5), 32, 16),   # d_input: a stride-2 conv 16 -> 32
+    ("trconv3d", (2, 3, 3, 4), 16, 8),
+    ("conv2d", (2, 11, 13), 8, 8),
+    ("conv2d", (2, 9, 10), 32, 64)])
+def test_mirror_input_gradient_matches_jax_vjp(kind, shape, ci, co):
+    """The input gradients that K8 sends to the tc kernel, on the weights
+    conv_vjp.py gives it: a stride-1 conv's weight flipped in space with
+    (Co, Ci) swapped, and the transposed conv's own (Ci, Co) weight read as
+    a stride-2 conv's (out, in); vs ``jax.vjp`` of the Pallas VJPs."""
+    rng = np.random.RandomState(ci + 3 * co)
+    x = rng.randn(*shape, ci).astype(np.float32)
+    nk = 2 if kind == "conv2d" else 3
+    if kind == "trconv3d":
+        # JAX stores a transposed conv's weight as (*k, O, I)
+        kern = _bf16((rng.randn(3, 3, 3, co, ci) * 0.1).astype(np.float32))
+        out = [2 * e for e in shape[1:]]
+    else:
+        kern = _bf16((rng.randn(*(3,) * nk, ci, co) * 0.1)
+                     .astype(np.float32))
+        out = list(shape[1:])
+    ct = _bf16(rng.randn(shape[0], *out, co).astype(np.float32))
+    # the torch layouts: a conv (Co, Ci, *k), a transposed conv (Ci, Co, *k)
+    w = torch.movedim(kern, (-1, -2), (0, 1)).contiguous()
+    ones, zeros = torch.ones(ci), torch.zeros(ci)
+    if kind == "trconv3d":
+        got = _mirror(ct, w, ones, zeros, stride=2, relu=False)
+        jax_fn = (lambda a, k_: jax_trconv3d_train(a, k_, True))
+    else:
+        flip = tuple(range(2, w.dim()))
+        got = _mirror(ct, w.transpose(0, 1).flip(flip), ones, zeros,
+                      stride=1, relu=False)
+        fn = jax_conv3d_train if kind == "conv3d" else jax_conv2d_train
+        jax_fn = (lambda a, k_: fn(a, k_, 1, True))
+    kj = kern.numpy()
+    _, vjp = jax.vjp(jax_fn, jnp.asarray(_dhcw(x)), jnp.asarray(kj))
+    dx_j, _ = vjp(jnp.asarray(_dhcw(ct.numpy())))
+    want = _dhcw(np.asarray(dx_j))
+    assert got.shape == want.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
+def test_default_model_routes():
+    """One bf16 eval forward of the default model: 45 tc launches (22 of
+    K2's 25, 7 of K4's 8, 16 of K5's 18) and a direct remainder of Co = 1
+    (three ProbConvs, refine's tail) and Ci in {3, 1} (the trunk's and
+    refine's heads); in f32 every conv is direct."""
+    model = build_model(compute_dtype="bfloat16", device="cpu")
+    routes = eval_conv_routes(model)
+    assert collections.Counter(routes) == {"tc": 45, "direct": 6}
+    per_part = {
+        "Backbone": conv_classes(model.Backbone),
+        "Regular": [c for r in model.Regular for c in conv_classes(r)],
+        "Refine": conv_classes(model.Refine)}
+    tc = {name: sum(conv_route(torch.bfloat16, *c) == "tc" for c in cl)
+          for name, cl in per_part.items()}
+    assert tc == {"Backbone": 15, "Regular": 22, "Refine": 8}
+    direct = sorted(c for cl in per_part.values() for c in cl
+                    if conv_route(torch.bfloat16, *c) == "direct")
+    assert direct == [(1, 3, 1, 1, 8), (1, 3, 1, 3, 8), (1, 3, 1, 8, 1),
+                      (3, 3, 1, 8, 1), (3, 3, 1, 8, 1), (3, 3, 1, 16, 1)]
+    f32 = build_model(device="cpu")
+    assert set(eval_conv_routes(f32)) == {"direct"}
+
+
+@pytest.mark.parametrize("args,route", [
+    ((torch.bfloat16, 3, 3, 1, 32, 16), "tc"),
+    ((torch.float32, 3, 3, 1, 32, 16), "direct"),
+    ((torch.bfloat16, 3, 3, 1, 16, 1), "direct"),
+    ((torch.bfloat16, 1, 3, 1, 3, 8), "direct"),
+    ((torch.bfloat16, 1, 3, 1, 8, 12), "direct"),
+    ((torch.bfloat16, 1, 3, 1, 8, 128), "direct"),
+    ((torch.bfloat16, 3, 3, 2, 64, 64), "direct"),    # no tile fits
+    ((torch.bfloat16, 3, 3, 2, 32, 16), "direct")])
+def test_route_rule(args, route):
+    assert conv_route(*args) == route
+
+
+def test_plans_fit_and_pack_in_the_kernel_order():
+    """Every class's tile fits the 227 KB a block may hold, with 2 * MB
+    M blocks; the packed weights hold chunk q = ((kd*K + kh)*Ci/8 + c)*K +
+    slot at row q, slots listing even kw first at stride 2."""
+    for kd, k, s, ci, co in TC_CLASSES:
+        plan = tc_plan(kd, k, s, ci, co)
+        assert plan.smem <= 227 * 1024
+        assert plan.td * plan.bh == 2 * conv_kernel._TC_MB[plan.n]
+        assert plan.q % plan.q_stage == 0 and plan.q % 2 == 0
+    w = torch.randn(16, 16, 3, 5, 5)[:, :, :1]       # (Co, Ci, 1, 5, 5)
+    packed = pack_tc_weight(_kio(w), kd=1, k=5, stride=2)
+    assert packed.shape == (50, 16, 8) and packed.is_contiguous()
+    for kh, c, slot in ((0, 0, 0), (2, 1, 3), (4, 1, 4), (3, 0, 2)):
+        kw = [0, 2, 4, 1, 3][slot]
+        q = (kh * 2 + c) * 5 + slot
+        torch.testing.assert_close(
+            packed[q].float(), w[:, 8 * c:8 * c + 8, 0, kh, kw]
+            .to(torch.bfloat16).float(), rtol=0, atol=0)
+
+
+def test_cpu_route_override_takes_the_plain_version():
+    """On the CPU ``route`` selects nothing: the plain version, no launch."""
+    before = dict(conv_kernel.LAUNCHES)
+    x = torch.randn(1, 4, 6, 8, 16)
+    w = torch.randn(8, 16, 3, 3, 3)
+    ones, zeros = torch.ones(8), torch.zeros(8)
+    for route in ("tc", "direct"):
+        got = conv_kernel.conv3d_bn_act(x, w, ones, zeros, route=route)
+        torch.testing.assert_close(got, conv_kernel.conv3d_bn_act(
+            x, w, ones, zeros))
+    assert conv_kernel.LAUNCHES == before

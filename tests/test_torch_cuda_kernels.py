@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from mdfnet_tpu_torch import geometry
 from mdfnet_tpu_torch.config import ModelConfig
+from mdfnet_tpu_torch.models.conv_routes import eval_conv_routes
 from mdfnet_tpu_torch.models.registry import build_model
 from mdfnet_tpu_torch.ops.aggregate_train import rowsweep_aggregate_train
 from mdfnet_tpu_torch.ops.cuda import (aggregate_kernel, conv_kernel,
@@ -170,6 +171,118 @@ def test_rejected_call_is_not_counted():
     assert conv_kernel.LAUNCHES == before
 
 
+# every (KD, K, stride, Ci, Co) class the eval and train paths route to the
+# tc kernel, plus Co padded (24 -> 32) and Ci = Co = 64 with kd slabs
+TC_CLASSES = [(3, 3, 1, 32, 16), (3, 3, 1, 16, 16), (3, 3, 1, 16, 32),
+              (3, 3, 1, 64, 64), (3, 3, 1, 8, 8), (3, 3, 1, 8, 16),
+              (3, 3, 2, 16, 32), (3, 3, 2, 32, 64), (3, 3, 2, 8, 16),
+              (1, 5, 2, 16, 32), (1, 5, 2, 8, 16), (1, 3, 1, 8, 8),
+              (1, 3, 1, 16, 16), (1, 3, 1, 8, 32), (1, 1, 1, 16, 64),
+              (1, 1, 1, 64, 16), (1, 3, 1, 24, 24)]
+
+
+def _tc_case(kd, k, stride, ci, co, out, shape):
+    x = torch.randn(*shape, ci).cuda().to(torch.bfloat16)
+    wshape = (co, ci) + (k,) * (3 if kd == 3 else 2)
+    w = (torch.randn(wshape) * 0.1).cuda().to(torch.bfloat16)
+    sc, off = torch.rand(co).cuda() + 0.5, torch.randn(co).cuda() * 0.3
+    out_dtype = torch.float32 if out == "f32+res" else torch.bfloat16
+    oshape = [(e + stride - 1) // stride for e in shape[1:]]
+    res = (torch.randn(shape[0], *oshape, co).cuda().to(out_dtype)
+           if out != "bf16" else None)
+    conv = conv_kernel.conv3d_bn_act if kd == 3 else conv_kernel.conv2d_bn_act
+    # Co = 24 (padded to 32 inside the kernel) also runs without the ReLU
+    return lambda p: conv(x, w, sc, off, stride=stride, relu=co != 24,
+                          residual=res, out_dtype=out_dtype, plain=p)
+
+
+@pytest.mark.parametrize("out", ["bf16", "bf16+res", "f32+res"])
+@pytest.mark.parametrize("kd,k,stride,ci,co", TC_CLASSES)
+def test_conv_tc(kd, k, stride, ci, co, out):
+    """The tc kernel vs the plain conv at odd extents: ragged M blocks and
+    tiles, every border, stride 2 with odd D/H/W; a residual; an f32 output
+    (f32 tolerance: bf16 products are exact in f32, only the order of the
+    sums differs)."""
+    shape = (2, 7, 13, 19) if kd == 3 else (2, 37, 29)
+    fn = _tc_case(kd, k, stride, ci, co, out, shape)
+    assert conv_kernel.conv_route(torch.bfloat16, kd, k, stride, ci,
+                                  co) == "tc"
+    before = dict(conv_kernel.LAUNCHES)
+    _agree(fn, torch.float32 if out == "f32+res" else torch.bfloat16)
+    assert conv_kernel.LAUNCHES["conv_tc"] == before["conv_tc"] + 1
+
+
+@pytest.mark.parametrize("kd,k,stride,ci,co", TC_CLASSES[:10])
+def test_conv_tc_matches_its_mirror(kd, k, stride, ci, co):
+    """The tc kernel vs ``conv_tc_plain`` on the packed weights, the plain
+    mirror of its K order, both in f32 output."""
+    shape = (1, 5, 11, 17) if kd == 3 else (2, 21, 19)
+    x = torch.randn(*shape, ci).cuda().to(torch.bfloat16)
+    w = (torch.randn((co, ci) + (k,) * (3 if kd == 3 else 2)) * 0.1).cuda()
+    sc, off = torch.rand(co).cuda() + 0.5, torch.randn(co).cuda() * 0.3
+    w_kio = w.permute(*range(2, w.dim()), 1, 0)
+    packed = conv_kernel.pack_tc_weight(w_kio.reshape(kd, k, k, ci, co),
+                                        kd=kd, k=k, stride=stride)
+    conv = conv_kernel.conv3d_bn_act if kd == 3 else conv_kernel.conv2d_bn_act
+    got = conv(x, w.to(torch.bfloat16), sc, off, stride=stride,
+               out_dtype=torch.float32)
+    ref = conv_kernel.conv_tc_plain(x, packed, sc, off, kd=kd, k=k,
+                                    stride=stride, relu=True,
+                                    residual=None, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    assert err <= REL_TOL[torch.float32] * ref.abs().max().item()
+
+
+def test_conv_tc_routes_and_failures():
+    """The rule keeps f32, Co = 1 and Ci = 3 on the direct kernel; forcing
+    the tc route where it has no tile raises before any launch, and a
+    launch the kernel refuses (an N it has no instantiation for) returns
+    an error that the wrapper's check raises."""
+    from mdfnet_tpu_torch.ops.cuda import build
+    for args in ((torch.float32, 3, 3, 1, 32, 16),
+                 (torch.bfloat16, 3, 3, 1, 16, 1),
+                 (torch.bfloat16, 1, 3, 1, 3, 8)):
+        assert conv_kernel.conv_route(*args) == "direct"
+    before = dict(conv_kernel.LAUNCHES)
+    x = torch.randn(1, 9, 9, 3).cuda().to(torch.bfloat16)
+    w = torch.randn(8, 3, 3, 3).cuda().to(torch.bfloat16)
+    ones, zeros = torch.ones(8).cuda(), torch.zeros(8).cuda()
+    with pytest.raises(ValueError):
+        conv_kernel.conv2d_bn_act(x, w, ones, zeros, route="tc")
+    with pytest.raises(ValueError):
+        conv_kernel.conv2d_bn_act(x.float(), w.float(), ones, zeros,
+                                  route="tc")
+    assert conv_kernel.LAUNCHES == before
+    x8 = torch.randn(1, 9, 9, 8).cuda().to(torch.bfloat16)
+    lib = build.load_library()
+    y = torch.empty(1, 9, 9, 8).cuda().to(torch.bfloat16)
+    err = lib.mdf_conv_tc(x8.data_ptr(), x8.data_ptr(), ones.data_ptr(),
+                          zeros.data_ptr(), None, y.data_ptr(), 1, 1, 9, 9,
+                          8, 1, 9, 9, 8, 24, 1, 3, 1, 1, 1, 8, 10, 10, 1,
+                          x8.device.index,
+                          torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError):
+        build.check(err, "conv_tc")
+
+
+def test_eval_forward_tc_launches_follow_the_rule():
+    """A small bf16 eval forward launches the tc kernel once per conv that
+    the rule sends there (45 at the default widths)."""
+    model = build_model(ModelConfig(compute_dtype="bfloat16"), device="cuda")
+    h, w, v = 64, 96, 3
+    k = torch.tensor([[1.8 * w, 0, w / 2], [0, 1.8 * w, h / 2], [0, 0, 1]])
+    e = torch.eye(4).repeat(v, 1, 1)
+    e[:, 0, 3] = -torch.arange(v) * 12.0
+    before = conv_kernel.LAUNCHES["conv_tc"]
+    model(torch.rand(1, v, h, w, 3).cuda(), e[None].cuda(),
+          k.repeat(1, v, 1, 1).cuda(), torch.tensor([[425.0, 935.0]]).cuda())
+    torch.cuda.synchronize()
+    assert conv_kernel.LAUNCHES["conv_tc"] - before == \
+        eval_conv_routes(model).count("tc") == 45
+
+
 def _sweep(h, w, d, v, stress):
     """(B*S images' sample coordinates x, y (S, D, H, W)) of a plane sweep
     over v - 1 sources; ``stress``: 20 degrees between views, planes 40 to
@@ -255,6 +368,24 @@ def _kernel_conv(kind, stride):
     return lambda x, w: conv_vjp.conv2d_train(x, w, stride)
 
 
+def _dgrad_counters(kind, stride, wshape, dtype, counter):
+    """The counters an input gradient moves: its ``*_dgrad`` counter, and
+    ``conv_tc`` where the rule sends its conv there (a stride-1 conv's input
+    gradient is a conv from Co to Ci; the transposed conv's a stride-2 conv
+    from its Co to its Ci; a stride-2 conv3d's is the transposed conv)."""
+    if counter is None:
+        return set()
+    if kind == "trconv3d":
+        conv = (3, 3, 2, wshape[1], wshape[0])
+    elif stride == 1:
+        conv = (3 if kind == "conv3d" else 1, wshape[-1], 1, wshape[0],
+                wshape[1])
+    else:
+        return {counter}
+    tc = conv_kernel.conv_route(dtype, *conv) == "tc"
+    return {counter} | ({"conv_tc"} if tc else set())
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kind,stride,xshape,wshape,counter", [
     ("conv3d", 1, (2, 6, 10, 14, 16), (8, 16, 3, 3, 3), "conv3d_dgrad"),
@@ -284,7 +415,8 @@ def test_conv_train_grads(dtype, kind, stride, xshape, wshape, counter):
         if len(results) == 1:
             moved = {k for k, n in conv_kernel.LAUNCHES.items()
                      if n != before[k]}
-            assert moved == ({counter} if counter else set())
+            assert moved == _dgrad_counters(kind, stride, wshape, dtype,
+                                            counter)
     torch.cuda.synchronize()
     for got, ref in zip(*results):
         assert got.shape == ref.shape and got.dtype == dtype
