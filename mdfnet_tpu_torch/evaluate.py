@@ -47,7 +47,11 @@ def run_eval(model: torch.nn.Module, dataset,
     - ``device_sec_per_view``: later batches, host clock around the
       forward with its input and output copies;
     - ``wall_sec_per_view``: later batches end to end, file writes
-      included (they overlap the next forward on the writer thread).
+      included (they overlap the next forward on the writer thread);
+    - ``device_views_per_sec`` and the JAX package's aliases
+      ``sec_per_view`` (= ``device_sec_per_view``) and ``views_per_sec``;
+    - ``n_coverage_fallbacks`` (0) and ``coverage_fallback_rate`` (0.0):
+      the port's warps have no window contract, so no item is re-run.
     """
     device = next(model.parameters()).device
     loader = BatchLoader(dataset, 1, shuffle=False, drop_last=False,
@@ -92,7 +96,14 @@ def run_eval(model: torch.nn.Module, dataset,
     if write_err:
         raise write_err[0]
     wall_time = time.perf_counter() - wall_start if wall_start else 0.0
+    sec_per_view = device_time / max(n_views, 1)
+    views_per_sec = n_views / device_time if device_time else 0.0
     return {"first_map_sec": first_map,
-            "device_sec_per_view": device_time / max(n_views, 1),
+            "device_sec_per_view": sec_per_view,
+            "device_views_per_sec": views_per_sec,
             "wall_sec_per_view": wall_time / max(n_views, 1),
-            "n_views": n_views}
+            "sec_per_view": sec_per_view,
+            "views_per_sec": views_per_sec,
+            "n_views": n_views,
+            "n_coverage_fallbacks": 0,
+            "coverage_fallback_rate": 0.0}

@@ -19,11 +19,12 @@ is two stride-1 conv3d layers in one launch whose intermediate volume stays
 in shared memory; as in the JAX package, no model path runs it.
 
 On the card a conv takes one of two kernels, by one static rule
-(:func:`conv_route`): a bf16 conv with Ci and Co multiples of 8 (Co <= 64)
-runs on the tensor cores (``csrc/conv_tc.cu``, an implicit GEMM on wgmma
-with the input tile and its halo in shared memory, weights packed by
-:func:`pack_tc_weight`); every other conv, the f32 ones, Co = 1 and Ci in
-{1, 3}, and the transposed conv run on the direct kernels of
+(:func:`conv_route`): a bf16 conv with Ci and Co multiples of 8 (Co <= 64;
+Co <= 32 for the transposed conv) runs on the tensor cores
+(``csrc/conv_tc.cu``, an implicit GEMM on wgmma with the input tile and its
+halo in shared memory, weights packed by :func:`pack_tc_weight`, or for the
+transposed conv by :func:`pack_trconv_tc_weight`); every other conv, the
+f32 ones, Co = 1 and Ci in {1, 3}, runs on the direct kernels of
 ``csrc/conv_bn_act.cu`` (f32 FMA on the CUDA cores). There is no fallback
 between them: a launch that fails raises.
 
@@ -54,7 +55,8 @@ LAUNCHES = {"conv3d_bn_act": 0, "trconv3d_bn_act": 0, "conv2d_bn_act": 0,
 # LAUNCHES["conv_tc"])
 TC_LAUNCHES = {k: 0 for k in LAUNCHES if k != "conv_tc"}
 # None, or a list to which every conv launch appends (route, kd, k, stride,
-# x's (N, D, H, W, Ci) shape, Co): what a run sends to which kernel
+# x's (N, D, H, W, Ci) shape, Co, transposed): what a run sends to which
+# kernel
 TRACE = None
 
 _COB = 8                    # output channels per thread (csrc/conv_bn_act.cu)
@@ -152,6 +154,88 @@ def conv_tc_plain(x, packed, scale, offset, *, kd, k, stride, relu,
     return y if x.dim() == 5 else y[:, 0]
 
 
+# The transposed conv on the tc kernel (csrc/conv_tc.cu trconv_tc_kernel):
+# four GEMMs over the input voxels, one per output parity pair (pd, ph),
+# each with both w parities stacked on N = 2 Co.
+_TR_PAIRS = ((0, 0), (0, 1), (1, 0), (1, 1))
+
+
+def _tr_tap(parity: int, offset: int) -> int:
+    """The tap along one axis that output 2i + ``parity`` of the transposed
+    conv takes from input i + ``offset``: 2i takes k = 1 from i, 2i + 1
+    takes k = 2 from i and k = 0 from i + 1."""
+    return 1 if parity == 0 else 2 - 2 * offset
+
+
+def _tr_chunks() -> list[tuple[int, int, int, int]]:
+    """The tc kernel's 18 K chunks per 8 input channels of the transposed
+    conv, in its order: (GEMM p, input offsets od, oh, w offset ow), GEMM
+    by GEMM, offsets (od, oh) in order, ow innermost."""
+    return [(p, *divmod(t, ph + 1), ow)
+            for p, (pd, ph) in enumerate(_TR_PAIRS)
+            for t in range((pd + 1) * (ph + 1)) for ow in (0, 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def _tr_tap_index(device: torch.device) -> torch.Tensor:
+    """The taps kd*9 + kh*3 + kw of each chunk of :func:`_tr_chunks` for
+    the even, then the odd w parity. The even one has none at w offset 1
+    (the kernel zero-fills it): that entry repeats the odd one's."""
+    taps = []
+    for p, od, oh, ow in _tr_chunks():
+        pd, ph = _TR_PAIRS[p]
+        khd = _tr_tap(pd, od) * 9 + _tr_tap(ph, oh) * 3
+        odd = khd + _tr_tap(1, ow)
+        taps += [khd + 1 if ow == 0 else odd, odd]
+    return torch.tensor(taps, device=device)
+
+
+def pack_trconv_tc_weight(w_kio: torch.Tensor) -> torch.Tensor:
+    """(3, 3, 3, Ci, Co) transposed-conv weights as the tc kernel takes
+    them: (Ci/8 * 18, 2 Co, 8) bf16, chunk 18c + j holding input channels
+    8c..8c+7 of chunk j of :func:`_tr_chunks` for the even w parity's Co
+    output channels, then the odd one's. One gather of ``w_kio`` in bf16."""
+    ci, co = w_kio.shape[-2:]
+    # (kd, kh, kw, c, j, co) -> (c, tap, co, j), views of w_kio
+    src = w_kio.reshape(27, ci // 8, 8, co).permute(1, 0, 3, 2)
+    return torch.index_select(src.to(torch.bfloat16), 1, _tr_tap_index(
+        w_kio.device)).view(-1, 2 * co, 8)
+
+
+def trconv_tc_plain(x, packed, scale, offset, *, relu, residual, out_dtype):
+    """Plain version of the tc transposed conv on its own operands: x (N,
+    D, H, W, Ci) and the packed weights of :func:`pack_trconv_tc_weight`,
+    consumed GEMM by GEMM (output parities (pd, ph, 0) and (pd, ph, 1) at
+    once) and K chunk by K chunk in the kernel's order, each an (M, 8) x
+    (8, 2 Co) product of the input shifted by the chunk's offsets (zero
+    past the far end), summed in f32; then the epilogue."""
+    nb, di, hi, wi, ci = x.shape
+    nch, co = ci // 8, packed.shape[1] // 2
+    xp = F.pad(x.float(), (0, 0, 0, 1, 0, 1, 0, 1))
+    chunks = _tr_chunks()
+    w = packed.float().view(nch, len(chunks), 2 * co, 8).clone()
+    for j, (_, _, _, ow) in enumerate(chunks):
+        if ow:
+            w[:, j, :co] = 0.0    # the even w parity's missing tap
+    scale2, offset2 = scale.float().repeat(2), offset.float().repeat(2)
+    y = torch.empty((nb, 2 * di, 2 * hi, 2 * wi, co), device=x.device)
+    for p, (pd, ph) in enumerate(_TR_PAIRS):
+        acc = torch.zeros((nb, di, hi, wi, 2 * co), device=x.device)
+        for c in range(nch):
+            for j, (q, od, oh, ow) in enumerate(chunks):
+                if q == p:
+                    acc += xp[:, od:od + di, oh:oh + hi, ow:ow + wi,
+                              8 * c:8 * c + 8] @ w[c, j].T
+        v = acc * scale2 + offset2
+        if relu:
+            v = torch.relu(v)
+        # a row's 2 Co columns are fine w 2i and 2i + 1
+        y[:, pd::2, ph::2] = v.view(nb, di, hi, 2 * wi, co)
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(out_dtype)
+
+
 # ------------------------------------------------------------ the route
 
 class TcPlan(NamedTuple):
@@ -160,22 +244,30 @@ class TcPlan(NamedTuple):
     td: int         # output tile td x 8*bh x 8 voxels
     bh: int
     q: int          # K chunks of 8 input channels (even)
-    q_stage: int    # K chunks per weight stage: q, or q / kd
+    q_stage: int    # K chunks per weight stage: q, or q / kd (transposed:
+                    # the largest GEMM's, 8 Ci / 8)
     smem: int       # bytes of shared memory per block
 
 
 @functools.lru_cache(maxsize=None)
-def tc_plan(kd: int, k: int, stride: int, ci: int,
-            co: int) -> TcPlan | None:
+def tc_plan(kd: int, k: int, stride: int, ci: int, co: int,
+            transposed: bool = False, depth: int = 0,
+            height: int = 0) -> TcPlan | None:
     """The tc kernel's tile for a conv, or None where it takes no such conv
-    (Ci or Co not a multiple of 8, Co > 64) or no tile fits in shared memory.
+    (Ci or Co not a multiple of 8, Co > 64; Co > 32 for the transposed
+    conv) or no tile fits in shared memory.
 
     A block owns 2 * _TC_MB[n] M blocks of 8 x 8 output voxels (h, w),
     stacked along D as far as the input tile with its halo and the weights
     fit (``td`` x ``bh``), and holds the weights whole (``q_stage == q``) or
-    one kd slab at a time; csrc/conv_tc.cu computes the same extents."""
+    one kd slab at a time; csrc/conv_tc.cu computes the same extents. The
+    transposed conv (3x3x3, stride 2) tiles input voxels instead, see
+    :func:`_trconv_tc_plan`; ``depth`` and ``height`` are its input's D and
+    H."""
     if ci % 8 or co % 8 or not 0 < co <= 64 or ci <= 0:
         return None
+    if transposed:
+        return _trconv_tc_plan(ci, co, depth, height)
     n = next(v for v in _TC_MB if v >= co)
     nch = ci // 8
     q = kd * k * k * nch
@@ -199,19 +291,66 @@ def tc_plan(kd: int, k: int, stride: int, ci: int,
     return None
 
 
+def _trconv_tc_plan(ci: int, co: int, depth: int,
+                    height: int) -> TcPlan | None:
+    """The transposed conv's tile: 2 * _TC_MB[n] M blocks of 8 x 8 input
+    voxels, n = 2 Co padded (its w parities stacked on N); the input tile
+    has a halo of one voxel at the far end. Of the ``td`` x ``bh`` whose
+    tile fits, the one that pads ``depth`` x ``height`` least (the larger
+    td on a tie; with both 0 the largest); the weights of the four GEMMs
+    whole (``q_stage == q``) or one GEMM's at a time (``q_stage``: the
+    largest GEMM's chunks)."""
+    n = next((v for v in _TC_MB if v >= 2 * co), None)
+    nch = ci // 8
+    q = 18 * nch
+    if n is None or q // 2 * 8 > _TC_TABLE:
+        return None
+    mblocks = 2 * _TC_MB[n]
+    tds = [t for t in (8, 4, 2, 1) if t <= mblocks]
+    # stable: ties keep the larger td first
+    tds.sort(key=lambda t: -(-depth // t) * t
+             * -(-height // (8 * mblocks // t)) * (8 * mblocks // t))
+    for td in tds:
+        bh = mblocks // td
+        rows = (td + 1) * (8 * bh + 1) * nch * 9
+        for q_stage in (q, 8 * nch):
+            # the epilogue's f32 stage (64 rows of n + 8 per warpgroup)
+            # has bytes of its own: the input tile serves all four GEMMs
+            smem = (_TC_TABLE + 16 * (rows + q_stage * n)
+                    + 2 * 64 * (n + 8) * 4)
+            if smem <= _MAX_SMEM:
+                return TcPlan(n, td, bh, q, q_stage, smem)
+    return None
+
+
 def conv_route(dtype: torch.dtype, kd: int, k: int, stride: int, ci: int,
-               co: int) -> str:
-    """Which kernel a conv launches on the card: "tc" (csrc/conv_tc.cu,
-    wgmma on the tensor cores) for a bf16 input with Ci % 8 == 0, Co % 8 ==
-    0, Co <= 64 and a tile that fits in shared memory; "direct"
+               co: int, transposed: bool = False) -> str:
+    """Which kernel a conv (``transposed``: the 3x3x3 stride-2 transposed
+    conv) launches on the card: "tc" (csrc/conv_tc.cu, wgmma on the tensor
+    cores) for a bf16 input with Ci % 8 == 0, Co % 8 == 0, Co <= 64 (32
+    transposed) and a tile that fits in shared memory; "direct"
     (csrc/conv_bn_act.cu, f32 FMA) for the rest: f32, Co = 1 (ProbConv,
     refine's tail), Ci in {1, 3} (the trunk's and refine's heads)."""
-    if dtype == torch.bfloat16 and tc_plan(kd, k, stride, ci, co):
+    if dtype == torch.bfloat16 and tc_plan(kd, k, stride, ci, co,
+                                           transposed):
         return "tc"
     return "direct"
 
 
 # ------------------------------------------------------------ kernel launches
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def trconv_tc_groups(tiles: int, sms: int) -> int:
+    """Blocks per coarse tile of the tc transposed conv (1, 2 or 4, each
+    running 4, 2 or 1 of its GEMMs): the fewest that give the launch two
+    blocks per SM, so a small volume's launch is not one block's latency
+    (a tile's input is then read once per block, mostly from L2)."""
+    return next((g for g in (1, 2) if tiles * g >= 2 * sms), 4)
+
 
 def _padded(v: torch.Tensor, cop: int) -> torch.Tensor:
     """Pad the last (output channel) axis to ``cop``, as contiguous f32."""
@@ -226,8 +365,7 @@ def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
     tc route).
 
     ``w_kio``: (*taps, Ci, Co) weights in any float dtype. ``route``: None
-    follows :func:`conv_route`; "tc" or "direct" forces one (a transposed
-    conv is always direct)."""
+    follows :func:`conv_route`; "tc" or "direct" forces one."""
     n, di, hi, wi, ci = x5.shape
     co = w_kio.shape[-1]
     if (x5.dtype, out_dtype) not in _DTYPES:
@@ -241,8 +379,7 @@ def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
     else:
         do = -(-di // stride) if kd > 1 else di
         ho, wo = -(-hi // stride), -(-wi // stride)
-    route = route or ("direct" if transposed
-                      else conv_route(x5.dtype, kd, k, stride, ci, co))
+    route = route or conv_route(x5.dtype, kd, k, stride, ci, co, transposed)
     y = torch.empty((n, do, ho, wo, co), dtype=out_dtype, device=x5.device)
     operands = [(x5, "x"), (y, "out")]
     if residual is not None:
@@ -252,13 +389,15 @@ def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
                              f"{tuple(y.shape)} {out_dtype}")
         operands.append((residual, "residual"))
     if route == "tc":
-        plan = tc_plan(kd, k, stride, ci, co)
-        if transposed or plan is None or x5.dtype != torch.bfloat16:
+        plan = tc_plan(kd, k, stride, ci, co, transposed,
+                       *((di, hi) if transposed else (0, 0)))
+        if plan is None or x5.dtype != torch.bfloat16:
             raise ValueError(f"conv tc kernel: no tile for {x5.dtype} kd={kd} "
                              f"k={k} stride={stride} Ci={ci} Co={co}"
                              f"{' (transposed)' if transposed else ''}")
         cop = plan.n
-        w = pack_tc_weight(w_kio, kd=kd, k=k, stride=stride)
+        w = (pack_trconv_tc_weight(w_kio) if transposed
+             else pack_tc_weight(w_kio, kd=kd, k=k, stride=stride))
         # the kernel reads the first Co entries only
         s, o = scale.float().contiguous(), offset.float().contiguous()
     elif route == "direct":
@@ -279,7 +418,16 @@ def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
     dtypes = _DTYPES[(x5.dtype, out_dtype)]
     ptrs = (x5.data_ptr(), w.data_ptr(), s.data_ptr(), o.data_ptr(), res_ptr,
             y.data_ptr())
-    if route == "tc":
+    if route == "tc" and transposed:
+        name = "trconv_tc"
+        tiles = (n * -(-di // plan.td) * -(-hi // (8 * plan.bh))
+                 * -(-wi // 8))
+        err = lib.mdf_trconv_tc(*ptrs, n, di, hi, wi, ci, co, cop, int(relu),
+                                plan.td, plan.bh,
+                                trconv_tc_groups(tiles, _sm_count(device)),
+                                int(plan.q_stage == plan.q), dtypes, device,
+                                stream)
+    elif route == "tc":
         name = "conv_tc"
         err = lib.mdf_conv_tc(
             *ptrs, n, di, hi, wi, ci, do, ho, wo, co, cop, kd, k, stride,
@@ -299,8 +447,8 @@ def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
         LAUNCHES["conv_tc"] += 1
         TC_LAUNCHES[counter] += 1
     LAUNCHES[counter] += 1
-    if TRACE is not None and not transposed:
-        TRACE.append((route, kd, k, stride, tuple(x5.shape), co))
+    if TRACE is not None:
+        TRACE.append((route, kd, k, stride, tuple(x5.shape), co, transposed))
     return y
 
 
@@ -359,10 +507,11 @@ def trconv3d_bn_act(x: torch.Tensor, weight: torch.Tensor,
                     scale: torch.Tensor, offset: torch.Tensor, *,
                     relu: bool = True, residual: torch.Tensor | None = None,
                     out_dtype=None, plain: bool = False,
-                    counter: str = "trconv3d_bn_act") -> torch.Tensor:
+                    counter: str = "trconv3d_bn_act",
+                    route: str | None = None) -> torch.Tensor:
     """ConvTranspose3d(k3, stride 2, pad 1, output_padding 1) (K3).
     x (N, D, H, W, Ci); weight (Ci, Co, 3, 3, 3), torch's layout. Returns
-    (N, 2D, 2H, 2W, Co)."""
+    (N, 2D, 2H, 2W, Co). ``route`` as in :func:`conv2d_bn_act`."""
     out_dtype = out_dtype or x.dtype
     if plain or not x.is_cuda:
         return _conv_plain(x, weight, scale, offset, stride=2, relu=relu,
@@ -372,7 +521,7 @@ def trconv3d_bn_act(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError("trconv3d kernel: 3x3x3 weights only")
     return _launch(counter, x, weight.permute(2, 3, 4, 0, 1), scale,
                    offset, residual, out_dtype, kd=3, k=3, stride=2,
-                   relu=relu, transposed=True)
+                   relu=relu, transposed=True, route=route)
 
 
 def conv3d_pair_bn_act_plain(x, w1, s1, o1, w2, s2, o2, *, relu=True):

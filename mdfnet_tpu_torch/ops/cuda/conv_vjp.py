@@ -9,9 +9,9 @@ conv kernels of ``conv_kernel.py``:
 - forward: K2 (conv3d), K3 (transposed conv3d) or K4 (conv2d) with scale 1,
   offset 0 and no ReLU; train-mode BatchNorm needs the batch statistics OF
   the conv output, so BN and ReLU stay outside (``models/layers.py``);
-  K2's and K4's launches, the input gradients' too, take the kernel that
-  ``conv_kernel.conv_route`` gives (the tensor cores for bf16 with Ci, Co
-  multiples of 8);
+  K2's, K3's and K4's launches, the input gradients' too, take the kernel
+  that ``conv_kernel.conv_route`` gives (the tensor cores for bf16 with Ci,
+  Co multiples of 8);
 - d_input of a stride-1 conv: the same conv with the weight flipped in
   space and its (Co, Ci) axes swapped, ``(Co, Ci, k..) -> (Ci, Co, k..)``;
 - d_input of a stride-2 conv3d: the transposed conv (K3) with the conv's own

@@ -1,9 +1,9 @@
 // Direct convolutions with a fused folded-BN / bias epilogue (K2, K3, K4 and
-// the launches of K5) on the CUDA cores. Since the tensor-core kernel
-// (conv_tc.cu) took the bf16 convs with Ci and Co multiples of 8, this one
-// serves the rest (ops/cuda/conv_kernel.py conv_route): the f32 convs, Co =
-// 1 (ProbConv, refine's tail), Ci in {1, 3} (the trunk's and refine's
-// heads), and every transposed conv.
+// the launches of K5) on the CUDA cores. Since the tensor-core kernels
+// (conv_tc.cu) took the bf16 convs and transposed convs with Ci and Co
+// multiples of 8, this one serves the rest (ops/cuda/conv_kernel.py
+// conv_route): the f32 convs, Co = 1 (ProbConv, refine's tail), Ci in {1, 3}
+// (the trunk's and refine's heads), and the f32 transposed convs.
 //
 // Replaces:
 //   K2 mdfnet_tpu/ops/pallas/conv3d_kernel.py:577 conv3d_bn_relu

@@ -44,6 +44,30 @@
 // residual straight from the accumulator registers. No pipelining across
 // tiles yet: the loads of one block overlap the products of the others on
 // the same SM.
+//
+// trconv_tc_kernel, on the same core, replaces
+//   K3 mdfnet_tpu/ops/pallas/conv3d_kernel.py:741 trconv3d_bn_relu:
+// ConvTranspose3d(k3, s2, p1, output_padding 1) from bf16 NDHWC input, the
+// same epilogue (the residual after the ReLU), bf16 or f32 output.
+// Along each axis output 2i + 0 takes tap k = 1 at input i, and 2i + 1 takes
+// k = 2 at i and k = 0 at i + 1. So each output parity (pd, ph, pw) is a
+// stride-1 GEMM over the coarse (input) voxels with its own 1-8 taps, whose
+// input tile needs a halo of one voxel at the far end of each axis only (zero
+// outside the volume). The two w parities of a (pd, ph) pair are stacked on
+// N = 2 Co: at w offset 0 the even parity takes k = 1 and the odd one k = 2,
+// at w offset 1 the odd one takes k = 0 and the even one a zero weight. A
+// GEMM row then holds the output of one coarse voxel for fine w = 2i and 2i
+// + 1, which lie next to each other in memory (2 Co channels), so the
+// epilogue stores whole 8-row runs of 16 consecutive fine w per warp, and
+// loads the residual the same way. What bounds it: the bytes, ~90% of them
+// the output and the residual (8x the input's voxels); the products are
+// 36 Ci Co per coarse voxel (27 of them non-zero) on the tensor cores. One
+// block owns a coarse tile TD x 8*BH x 8 and reads its input once for all
+// four (pd, ph) GEMMs; no dilated input and no interleave pass exist. Where
+// such tiles would leave the card's SMs short of work (the small volumes of
+// the stage-1 and -2 U-Nets), 2 or 4 blocks share a tile, each running half
+// or one of its GEMMs (the ones with more taps scheduled first), so the
+// short launches are not bound by one block's latency.
 
 #include <atomic>
 
@@ -359,6 +383,20 @@ __global__ void __launch_bounds__(kThreads) conv_tc_kernel(const TcArgs a) {
   }
 }
 
+// Once per kernel instantiation (Transposed, N, TO) and device: allow the
+// most shared memory a block may take (a launch still takes only the bytes
+// it asks for).
+template <bool Transposed, int N, typename TO>
+cudaError_t allow_max_smem(const void* kernel, int device) {
+  static std::atomic<bool> opted_in[kMaxDevices];
+  const bool known = device >= 0 && device < kMaxDevices;
+  if (known && opted_in[device].load()) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess && known) opted_in[device].store(true);
+  return err;
+}
+
 template <int N, typename TO>
 cudaError_t launch(const TcArgs& a, int device, cudaStream_t stream) {
   const size_t smem = smem_bytes(a, N);
@@ -366,15 +404,8 @@ cudaError_t launch(const TcArgs& a, int device, cudaStream_t stream) {
       a.Qs % 2 || a.Q / 2 * 8 > kTableBytes)
     return cudaErrorInvalidValue;
   auto kernel = conv_tc_kernel<N, TO>;
-  // once per instantiation and device: allow the most shared memory a block
-  // may take (a launch still takes only the bytes it asks for)
-  static std::atomic<bool> opted_in[kMaxDevices];
-  if (device < 0 || device >= kMaxDevices || !opted_in[device].load()) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return err;
-    if (device >= 0 && device < kMaxDevices) opted_in[device].store(true);
-  }
+  const cudaError_t err = allow_max_smem<false, N, TO>((const void*)kernel, device);
+  if (err != cudaSuccess) return err;
   const int th = 8 * a.BH;
   const dim3 grid((unsigned)((a.Wo + 7) / 8), (unsigned)((a.Ho + th - 1) / th),
                   (unsigned)(a.Nb * a.dtiles));
@@ -389,6 +420,258 @@ cudaError_t dispatch(const TcArgs& a, int n, int device, cudaStream_t st) {
     case 16: return launch<16, TO>(a, device, st);
     case 32: return launch<32, TO>(a, device, st);
     case 64: return launch<64, TO>(a, device, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ------------------------------------------------- the transposed conv (K3)
+
+struct TrArgs {
+  const __nv_bfloat16* x;  // (Nb, Di, Hi, Wi, Ci)
+  const __nv_bfloat16* w;  // (Ci/8 * 18, 2 Co, 8) packed K chunks
+  const float* scale;      // (Co)
+  const float* offset;     // (Co)
+  const void* res;         // (Nb, 2Di, 2Hi, 2Wi, Co) or null, output type
+  void* y;                 // (Nb, 2Di, 2Hi, 2Wi, Co)
+  int Nb, Di, Hi, Wi, Ci, Co, relu;
+  int TD, BH;     // coarse tile TD x 8*BH x 8; TD * BH = 2 * MB
+  int groups;     // blocks per tile (1, 2 or 4), each runs 4 / groups of the GEMMs
+  int whole;      // 1: the weights of a block's GEMMs in shared memory at once;
+                  // 0: one GEMM's at a time
+  int dtiles;     // tiles along D
+};
+
+// The four (pd, ph) GEMMs, p = 2 pd + ph, have (pd + 1)(ph + 1) input offsets
+// (od, oh) each; a K step is one offset and one 8-channel chunk c, both w
+// offsets (its two K chunks, 16 bytes apart in the tile). Steps run GEMM by
+// GEMM, within one c-major: step s of GEMM p is c = s / taps, offset t = s %
+// taps, (od, oh) = (t / (ph + 1), t % (ph + 1)). GEMM p's first step (p = 4:
+// the count of all):
+__host__ __device__ constexpr int tr_first_step(int p, int nch) {
+  return nch * (p == 0 ? 0 : p == 1 ? 1 : p == 2 ? 3 : p == 3 ? 5 : 9);
+}
+
+// GEMM p, chunk c and offset t of K step s (global). The wrapper packs the
+// weights c-major, 18 chunks per c: GEMM p's from 2 tr_first_step(p, 1) =
+// 0, 2, 6, 10 on, offset t's two chunks (ow = 0, 1) at 2t there
+// (ops/cuda/conv_kernel.py pack_trconv_tc_weight).
+__device__ __forceinline__ void tr_step(int s, int nch, int& p, int& c, int& t) {
+  p = s < tr_first_step(1, nch) ? 0 : s < tr_first_step(2, nch) ? 1
+      : s < tr_first_step(3, nch) ? 2 : 3;
+  const int taps = ((p >> 1) + 1) * ((p & 1) + 1);
+  const int si = s - tr_first_step(p, nch);
+  c = si / taps;
+  t = si % taps;
+}
+
+struct TrGeometry {
+  int nch, Hin, row, a_rows;
+  __host__ __device__ explicit TrGeometry(const TrArgs& a) {
+    nch = a.Ci >> 3;
+    Hin = 8 * a.BH + 1;
+    row = nch * 9;  // rows of one (d, h): 9 w per chunk
+    a_rows = (a.TD + 1) * Hin * row;
+  }
+};
+
+__host__ __device__ inline int tr_weight_rows(const TrArgs& a, int n) {
+  return (a.whole ? 18 : 8) * (a.Ci >> 3) * n;
+}
+
+size_t tr_smem_bytes(const TrArgs& a, int n) {
+  const TrGeometry g(a);
+  return kTableBytes + 16 * ((size_t)g.a_rows + tr_weight_rows(a, n)) +
+         2 * 64 * stage_stride(n) * sizeof(float);
+}
+
+// Copy the weights of global K steps [s0, s0 + steps) to shared memory as
+// B's core matrices, (2 steps, N, 8) rows of 16 bytes; a row of a channel >=
+// 2 Co or of the even w parity at w offset 1 (no tap) is zero-filled.
+template <int N>
+__device__ __forceinline__ void load_tr_weights(uint32_t dst, const TrArgs& a, int nch, int s0,
+                                                int steps) {
+  const int n2 = 2 * a.Co;
+  for (int r = threadIdx.x; r < 2 * steps * N; r += kThreads) {
+    const int ql = r / N, col = r % N, ow = ql & 1;
+    int p, c, t;
+    tr_step(s0 + (ql >> 1), nch, p, c, t);
+    const int q = c * 18 + 2 * (tr_first_step(p, 1) + t) + ow;
+    const bool in = col < n2 && (ow == 0 || col >= a.Co);
+    cp_async16(dst + 16 * r, in ? a.w + ((size_t)q * n2 + col) * 8 : a.w, in ? 16 : 0);
+  }
+}
+
+template <int N, typename TO>
+__global__ void __launch_bounds__(kThreads) trconv_tc_kernel(const TrArgs a) {
+  constexpr int MB = Tile<N>::MB;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint64_t* table = reinterpret_cast<uint64_t*>(smem);
+  const TrGeometry g(a);
+  const uint32_t tile_a = smem_u32(smem + kTableBytes);
+  const uint32_t tile_w = tile_a + 16u * g.a_rows;
+  const int nsteps = tr_first_step(4, g.nch);
+
+  const int tile_h = 8 * a.BH;
+  const int w0 = blockIdx.x * 8, h0 = blockIdx.y * tile_h;
+  // this block's GEMMs [p_lo, p_hi): the blocks of the later GEMMs, which
+  // have more taps, come first in the grid, so that a launch's last wave
+  // holds the cheapest GEMM's blocks
+  const int tiles_z = a.Nb * a.dtiles, z = blockIdx.z % tiles_z;
+  const int p_lo = 4 / a.groups * (a.groups - 1 - (int)blockIdx.z / tiles_z);
+  const int p_hi = p_lo + 4 / a.groups;
+  const int n = z / a.dtiles, d0 = (z % a.dtiles) * a.TD;
+
+  // 1. the coarse input tile and its far-end halo, [d][h][chunk][w] rows of
+  //    16 bytes; zero outside the volume
+  const __nv_bfloat16* xb = a.x + (size_t)n * a.Di * a.Hi * a.Wi * a.Ci;
+  const int vectors = (a.TD + 1) * g.Hin * 9 * g.nch;
+  for (int v = threadIdx.x; v < vectors; v += kThreads) {
+    const int c = v % g.nch;
+    int r = v / g.nch;
+    const int lw = r % 9;
+    r /= 9;
+    const int lh = r % g.Hin, ld = r / g.Hin;
+    const int id = d0 + ld, ih = h0 + lh, iw = w0 + lw;
+    const bool in = id < a.Di && ih < a.Hi && iw < a.Wi;
+    const __nv_bfloat16* src =
+        in ? xb + (((size_t)id * a.Hi + ih) * a.Wi + iw) * a.Ci + c * 8 : a.x;
+    cp_async16(tile_a + 16 * ((ld * g.Hin + lh) * g.row + c * 9 + lw), src, in ? 16 : 0);
+  }
+  // 2. the weights (of all the block's GEMMs, or of its first), one A
+  //    descriptor per K step: its w offsets 0 and 1 are one row apart (LBO 1)
+  const int s_lo = tr_first_step(p_lo, g.nch);
+  load_tr_weights<N>(tile_w, a, g.nch, s_lo,
+                     tr_first_step(a.whole ? p_hi : p_lo + 1, g.nch) - s_lo);
+  for (int s = threadIdx.x; s < nsteps; s += kThreads) {
+    int p, c, t;
+    tr_step(s, g.nch, p, c, t);
+    const int od = t / ((p & 1) + 1), oh = t % ((p & 1) + 1);
+    table[s] = descriptor(tile_a + 16 * ((od * g.Hin + oh) * g.row + c * 9), 1, g.row);
+  }
+  cp_async_wait_all();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  uint32_t base[MB];
+#pragma unroll
+  for (int i = 0; i < MB; ++i) {
+    const int b = wg * MB + i, bd = b / a.BH, bh = b % a.BH;
+    base[i] = (uint32_t)((bd * g.Hin + 8 * bh) * g.row);
+  }
+  const uint64_t desc_w = descriptor(tile_w, N, 8);
+  constexpr int SS = stage_stride(N);
+  float* stage = reinterpret_cast<float*>(smem + kTableBytes +
+                                          16 * ((size_t)g.a_rows + tr_weight_rows(a, N))) +
+                 wg * 64 * SS;
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int n2 = 2 * a.Co, vecs = n2 / 8;  // 8-channel vectors per GEMM row
+  const int Do = 2 * a.Di, Ho = 2 * a.Hi, Wo = 2 * a.Wi;
+  TO* y = static_cast<TO*>(a.y);
+  const TO* res = static_cast<const TO*>(a.res);
+
+  for (int p = p_lo; p < p_hi; ++p) {
+    const int pd = p >> 1, ph = p & 1;
+    const int s_begin = tr_first_step(p, g.nch), s_end = tr_first_step(p + 1, g.nch);
+    if (!a.whole && p > p_lo) {
+      __syncthreads();  // both warpgroups are done with the previous weights
+      load_tr_weights<N>(tile_w, a, g.nch, s_begin, s_end - s_begin);
+      cp_async_wait_all();
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
+    const int s_w = a.whole ? s_lo : s_begin;  // the step whose weights lead tile_w
+    // 3. this GEMM's products, flushed into `total` every kFlush K steps
+    float acc[MB][N / 2], total[MB][N / 2];
+#pragma unroll
+    for (int i = 0; i < MB; ++i)
+#pragma unroll
+      for (int j = 0; j < N / 2; ++j) acc[i][j] = total[i][j] = 0.0f;
+    for (int s0 = s_begin; s0 < s_end; s0 += kFlush) {
+      const int s1 = min(s0 + kFlush, s_end);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      for (int s = s0; s < s1; ++s) {
+        const uint64_t da = table[s];
+        const uint64_t db = desc_w + (uint64_t)(2 * N * (s - s_w));
+#pragma unroll
+        for (int i = 0; i < MB; ++i) Wgmma<N>::mma(acc[i], da + base[i], db, s > s0);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < MB; ++i)
+#pragma unroll
+        for (int j = 0; j < N / 2; ++j) total[i][j] += acc[i][j];
+    }
+    // 4. epilogue of output parities (pd, ph, 0) and (pd, ph, 1), one M
+    //    block at a time per warpgroup, as conv_tc_kernel's: column col is
+    //    channel col % Co of w parity col / Co, and a row's 2 Co channels
+    //    are fine w 2i and 2i + 1, consecutive in memory
+#pragma unroll
+    for (int i = 0; i < MB; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = warp * 16 + half * 8 + lane / 4;
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          const int col = 8 * j + 2 * (lane % 4);
+          if (col >= n2) continue;
+          const int co = col < a.Co ? col : col - a.Co;
+          float v0 = total[i][4 * j + 2 * half] * a.scale[co] + a.offset[co];
+          float v1 = total[i][4 * j + 2 * half + 1] * a.scale[co + 1] + a.offset[co + 1];
+          if (a.relu) {
+            v0 = fmaxf(v0, 0.0f);
+            v1 = fmaxf(v1, 0.0f);
+          }
+          *reinterpret_cast<float2*>(stage + r * SS + col) = make_float2(v0, v1);
+        }
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+      const int b = wg * MB + i, bd = b / a.BH, bh = b % a.BH;
+      const int d = d0 + bd;
+      for (int v = t; v < 64 * vecs; v += 128) {
+        const int r = v / vecs, c8 = 8 * (v % vecs);
+        const int h = h0 + 8 * bh + r / 8, w = w0 + r % 8;
+        if (d >= a.Di || h >= a.Hi || w >= a.Wi) continue;
+        const size_t pos =
+            ((((size_t)n * Do + 2 * d + pd) * Ho + 2 * h + ph) * Wo + 2 * w) * a.Co + c8;
+        float val[8];
+        mdf::load8(stage + r * SS + c8, val);
+        if (res) {
+          float rv[8];
+          mdf::load8(res + pos, rv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) val[e] += rv[e];
+        }
+        mdf::store8(y + pos, val);
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+    }
+  }
+}
+
+template <int N, typename TO>
+cudaError_t tr_launch(const TrArgs& a, int device, cudaStream_t stream) {
+  const size_t smem = tr_smem_bytes(a, N);
+  if (smem > (size_t)kMaxSmem || 2 * Tile<N>::MB != a.TD * a.BH || 2 * a.Co > N ||
+      tr_first_step(4, a.Ci >> 3) * 8 > kTableBytes || 4 % a.groups)
+    return cudaErrorInvalidValue;
+  auto kernel = trconv_tc_kernel<N, TO>;
+  const cudaError_t err = allow_max_smem<true, N, TO>((const void*)kernel, device);
+  if (err != cudaSuccess) return err;
+  const int tile_h = 8 * a.BH;
+  const dim3 grid((unsigned)((a.Wi + 7) / 8), (unsigned)((a.Hi + tile_h - 1) / tile_h),
+                  (unsigned)(a.Nb * a.dtiles * a.groups));
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename TO>
+cudaError_t tr_dispatch(const TrArgs& a, int n, int device, cudaStream_t st) {
+  switch (n) {
+    case 16: return tr_launch<16, TO>(a, device, st);
+    case 32: return tr_launch<32, TO>(a, device, st);
+    case 64: return tr_launch<64, TO>(a, device, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -414,6 +697,30 @@ extern "C" int mdf_conv_tc(const void* x, const void* w, const void* scale, cons
   switch (dtypes) {
     case MDF_BF16_BF16: return dispatch<__nv_bfloat16>(a, n, device, st);
     case MDF_BF16_F32: return dispatch<float>(a, n, device, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The transposed conv (K3); returns cudaGetLastError() after the launch.
+// ``w`` holds the packed (Ci/8 * 18, 2 Co, 8) weights; ``n`` is 2 Co padded
+// to the kernel's N (16, 32 or 64); ``groups`` blocks share a coarse tile,
+// each running 4 / groups of its GEMMs; ``whole`` keeps a block's weights
+// in shared memory at once (else one GEMM's at a time).
+extern "C" int mdf_trconv_tc(const void* x, const void* w, const void* scale, const void* offset,
+                             const void* res, void* y, int Nb, int Di, int Hi, int Wi, int Ci,
+                             int Co, int n, int relu, int td, int bh, int groups, int whole,
+                             int dtypes, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (Ci % 8 || Co % 8 || 2 * Co > n || groups < 1) return cudaErrorInvalidValue;
+  const TrArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+                 static_cast<const float*>(scale), static_cast<const float*>(offset),
+                 res, y, Nb, Di, Hi, Wi, Ci, Co, relu, td, bh, groups, whole,
+                 (Di + td - 1) / td};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtypes) {
+    case MDF_BF16_BF16: return tr_dispatch<__nv_bfloat16>(a, n, device, st);
+    case MDF_BF16_F32: return tr_dispatch<float>(a, n, device, st);
     default: return cudaErrorInvalidValue;
   }
 }

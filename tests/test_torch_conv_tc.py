@@ -1,9 +1,10 @@
 """The tensor-core (tc) route of the conv kernels on the CPU: its plain
-mirror (``conv_tc_plain``, which consumes the packed bf16 weights in the tc
-kernel's K order) vs the plain conv and the TPU kernels in Pallas interpret
-mode, at every (KD, K, stride, Ci, Co) class the model sends there; the
-input gradients' flipped and swapped weights vs ``jax.vjp`` of the Pallas
-VJPs; and the route rule on the default model.
+mirrors (``conv_tc_plain`` and, for the transposed conv, ``trconv_tc_plain``,
+which consume the packed bf16 weights in the tc kernels' K order) vs the
+plain conv and the TPU kernels in Pallas interpret mode, at every (KD, K,
+stride, Ci, Co) class the model sends there; the input gradients' flipped
+and swapped weights vs ``jax.vjp`` of the Pallas VJPs; and the route rule
+on the default model.
 
 Inputs are rounded to bf16 (the kernel's operands) and computed in f32, so
 the tolerance (3e-4, the Pallas tests' own) covers the order of the sums
@@ -18,7 +19,8 @@ import torch
 
 from mdfnet_tpu.ops.pallas.conv2d_kernel import conv2d_fused
 from mdfnet_tpu.ops.pallas.conv2d_vjp import conv2d_train as jax_conv2d_train
-from mdfnet_tpu.ops.pallas.conv3d_kernel import conv3d_bn_relu
+from mdfnet_tpu.ops.pallas.conv3d_kernel import (conv3d_bn_relu,
+                                                 trconv3d_bn_relu)
 from mdfnet_tpu.ops.pallas.conv3d_vjp import (conv3d_train as jax_conv3d_train,
                                               trconv3d_train as
                                               jax_trconv3d_train)
@@ -29,7 +31,9 @@ from mdfnet_tpu_torch.models.registry import build_model
 from mdfnet_tpu_torch.ops.cuda import conv_kernel
 from mdfnet_tpu_torch.ops.cuda.conv_kernel import (_conv_plain, conv_route,
                                                    conv_tc_plain,
-                                                   pack_tc_weight, tc_plan)
+                                                   pack_tc_weight,
+                                                   pack_trconv_tc_weight,
+                                                   tc_plan, trconv_tc_plain)
 
 ATOL = 3e-4
 # (KD, K, stride, Ci, Co): every class of the default model's bf16 eval
@@ -46,6 +50,11 @@ TC_CLASSES = [
     (1, 1, 1, 16, 64), (1, 1, 1, 32, 64), (1, 1, 1, 64, 16),
     (1, 1, 1, 64, 32), (1, 1, 1, 64, 64),
     (1, 3, 1, 24, 24)]
+# (Ci, Co) of the transposed convs on the tc kernel: the model's eval and
+# train forwards and the stride-2 convs' input gradients (Ci = 64, 32, 16
+# to Co = 32, 16, 8), and Ci = 8, 16, 64 crossed with Co = 8, 16, 32
+TR_CLASSES = sorted({(ci, co) for ci in (8, 16, 64) for co in (8, 16, 32)}
+                    | {(32, 16)})
 
 
 def _bf16(a):
@@ -73,26 +82,33 @@ def _mirror(x, w, scale, offset, *, stride, relu=True, residual=None,
 
 
 def _model_tc_classes():
-    """The classes the default bf16 model sends to the tc kernel: its
-    convs (eval and train forward), the stride-1 convs' input gradients
-    (a conv from Co to Ci) and the transposed convs' (a stride-2 conv from
-    their Co to their Ci)."""
+    """The classes (KD, K, stride, Ci, Co, transposed) the default bf16
+    model sends to the tc kernel: its convs and transposed convs (eval and
+    train forward), the stride-1 convs' input gradients (a conv from Co to
+    Ci), the transposed convs' (a stride-2 conv from their Co to their Ci)
+    and the stride-2 conv3ds' (a transposed conv from their Co to their
+    Ci)."""
     model = build_model(compute_dtype="bfloat16", device="cpu")
     classes = set()
     for m in (model.Backbone, *model.Regular, model.Refine):
-        for kd, k, s, ci, co in conv_classes(m):
-            classes.add((kd, k, s, ci, co))
-            if s == 1:
-                classes.add((kd, k, 1, co, ci))
-        for t in m.modules():
-            if isinstance(t, ConvTranspose3dWeight):
-                ci_t, co_t = t.weight.shape[:2]
-                classes.add((3, 3, 2, co_t, ci_t))
+        for kd, k, s, ci, co, tr in conv_classes(m):
+            classes.add((kd, k, s, ci, co, tr))
+            if tr:
+                classes.add((3, 3, 2, co, ci, False))
+            elif s == 1:
+                classes.add((kd, k, 1, co, ci, False))
+            elif kd == 3:
+                classes.add((3, 3, 2, co, ci, True))
+        assert len([t for t in m.modules()
+                    if isinstance(t, ConvTranspose3dWeight)]) == \
+            sum(c[-1] for c in conv_classes(m))
     return {c for c in classes if conv_route(torch.bfloat16, *c) == "tc"}
 
 
 def test_classes_cover_the_model():
-    assert _model_tc_classes() <= set(TC_CLASSES)
+    assert _model_tc_classes() <= (
+        {(*c, False) for c in TC_CLASSES}
+        | {(3, 3, 2, ci, co, True) for ci, co in TR_CLASSES})
 
 
 @pytest.mark.parametrize("kd,k,stride,ci,co", TC_CLASSES)
@@ -152,6 +168,57 @@ def test_mirror_matches_pallas(kd, k, stride, ci, co):
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
+def _tr_mirror(x, w, scale, offset, *, relu=True, residual=None,
+               out_dtype=torch.float32):
+    """trconv_tc_plain on the (Ci, Co, 3, 3, 3) weight packed as the
+    wrapper packs it."""
+    ci, co = w.shape[:2]
+    packed = pack_trconv_tc_weight(w.permute(2, 3, 4, 0, 1))
+    assert packed.dtype == torch.bfloat16 and packed.shape == (
+        18 * ci // 8, 2 * co, 8)
+    return trconv_tc_plain(x, packed, scale, offset, relu=relu,
+                           residual=residual, out_dtype=out_dtype)
+
+
+def _tr_operands(rng, shape, ci, co):
+    x = _bf16(rng.randn(*shape, ci).astype(np.float32))
+    w = _bf16((rng.randn(ci, co, 3, 3, 3) * 0.2).astype(np.float32))
+    scale = torch.from_numpy((0.5 + rng.rand(co)).astype(np.float32))
+    offset = torch.from_numpy(rng.randn(co).astype(np.float32))
+    res = torch.from_numpy(rng.randn(
+        shape[0], *(2 * e for e in shape[1:]), co).astype(np.float32))
+    return x, w, scale, offset, res
+
+
+@pytest.mark.parametrize("ci,co", TR_CLASSES)
+def test_trconv_mirror_matches_plain_conv(ci, co):
+    """The transposed conv's mirror at odd D/H/W (ragged coarse tiles, the
+    far-end halo), a residual after the ReLU and an f32 output."""
+    rng = np.random.RandomState(ci * 5 + co)
+    x, w, scale, offset, res = _tr_operands(rng, (2, 3, 5, 7), ci, co)
+    got = _tr_mirror(x, w, scale, offset, residual=res)
+    want = _conv_plain(x, w, scale, offset, stride=2, relu=True,
+                       residual=res, out_dtype=torch.float32, transposed=True)
+    assert got.shape == want.shape == (2, 6, 10, 14, co)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("ci,co", [(64, 32), (32, 16), (16, 8), (8, 16)])
+def test_trconv_mirror_matches_pallas(ci, co):
+    """vs the TPU kernel (``trconv3d_bn_relu``, interpret mode) plus the
+    skip, which the Pallas kernel leaves to its caller."""
+    rng = np.random.RandomState(60 + ci + co)
+    x, w, scale, offset, res = _tr_operands(rng, (1, 3, 4, 5), ci, co)
+    kern = w.permute(2, 3, 4, 1, 0).numpy()     # JAX: (*k, O, I)
+    pallas = trconv3d_bn_relu(jnp.asarray(x[0].numpy().transpose(0, 1, 3, 2)),
+                              jnp.asarray(kern), jnp.asarray(scale.numpy()),
+                              jnp.asarray(offset.numpy()), interpret=True)
+    want = np.asarray(pallas).transpose(0, 1, 3, 2)[None] + res.numpy()
+    got = _tr_mirror(x, w, scale, offset, residual=res).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
 def _dhcw(a):   # (B, D, H, W, C) <-> (B, D, H, C, W)
     return np.ascontiguousarray(np.swapaxes(a, -1, -2))
 
@@ -159,6 +226,9 @@ def _dhcw(a):   # (B, D, H, W, C) <-> (B, D, H, C, W)
 @pytest.mark.parametrize("kind,shape,ci,co", [
     ("conv3d", (2, 5, 6, 9), 16, 32),     # d_input: a conv 32 -> 16
     ("conv3d", (1, 4, 5, 7), 8, 16),
+    # d_input of a stride-2 conv: the transposed conv 32 -> 16, cropped
+    ("conv3d_s2", (2, 5, 6, 9), 16, 32),
+    ("conv3d_s2", (1, 4, 7, 6), 32, 64),
     ("trconv3d", (1, 3, 4, 5), 32, 16),   # d_input: a stride-2 conv 16 -> 32
     ("trconv3d", (2, 3, 3, 4), 16, 8),
     ("conv2d", (2, 11, 13), 8, 8),
@@ -166,8 +236,10 @@ def _dhcw(a):   # (B, D, H, W, C) <-> (B, D, H, C, W)
 def test_mirror_input_gradient_matches_jax_vjp(kind, shape, ci, co):
     """The input gradients that K8 sends to the tc kernel, on the weights
     conv_vjp.py gives it: a stride-1 conv's weight flipped in space with
-    (Co, Ci) swapped, and the transposed conv's own (Ci, Co) weight read as
-    a stride-2 conv's (out, in); vs ``jax.vjp`` of the Pallas VJPs."""
+    (Co, Ci) swapped, the transposed conv's own (Ci, Co) weight read as a
+    stride-2 conv's (out, in), and a stride-2 conv's own (Co, Ci) weight
+    read as the transposed conv's (in, out), its output cropped to the
+    input; vs ``jax.vjp`` of the Pallas VJPs."""
     rng = np.random.RandomState(ci + 3 * co)
     x = rng.randn(*shape, ci).astype(np.float32)
     nk = 2 if kind == "conv2d" else 3
@@ -175,6 +247,9 @@ def test_mirror_input_gradient_matches_jax_vjp(kind, shape, ci, co):
         # JAX stores a transposed conv's weight as (*k, O, I)
         kern = _bf16((rng.randn(3, 3, 3, co, ci) * 0.1).astype(np.float32))
         out = [2 * e for e in shape[1:]]
+    elif kind == "conv3d_s2":
+        kern = _bf16((rng.randn(3, 3, 3, ci, co) * 0.1).astype(np.float32))
+        out = [(e + 1) // 2 for e in shape[1:]]
     else:
         kern = _bf16((rng.randn(*(3,) * nk, ci, co) * 0.1)
                      .astype(np.float32))
@@ -186,6 +261,10 @@ def test_mirror_input_gradient_matches_jax_vjp(kind, shape, ci, co):
     if kind == "trconv3d":
         got = _mirror(ct, w, ones, zeros, stride=2, relu=False)
         jax_fn = (lambda a, k_: jax_trconv3d_train(a, k_, True))
+    elif kind == "conv3d_s2":
+        d, h, w_ = shape[1:]
+        got = _tr_mirror(ct, w, ones, zeros, relu=False)[:, :d, :h, :w_]
+        jax_fn = (lambda a, k_: jax_conv3d_train(a, k_, 2, True))
     else:
         flip = tuple(range(2, w.dim()))
         got = _mirror(ct, w.transpose(0, 1).flip(flip), ones, zeros,
@@ -201,21 +280,24 @@ def test_mirror_input_gradient_matches_jax_vjp(kind, shape, ci, co):
 
 
 def test_default_model_routes():
-    """One bf16 eval forward of the default model: 45 tc launches (22 of
-    K2's 25, 7 of K4's 8, 16 of K5's 18) and a direct remainder of Co = 1
-    (three ProbConvs, refine's tail) and Ci in {3, 1} (the trunk's and
-    refine's heads); in f32 every conv is direct."""
+    """One bf16 eval forward of the default model: 53 tc launches (22 of
+    K2's 25, all 8 of K3's, 7 of K4's 8, 16 of K5's 18) and a direct
+    remainder of Co = 1 (three ProbConvs, refine's tail) and Ci in {3, 1}
+    (the trunk's and refine's heads); in f32 every conv is direct."""
     model = build_model(compute_dtype="bfloat16", device="cpu")
     routes = eval_conv_routes(model)
-    assert collections.Counter(routes) == {"tc": 45, "direct": 6}
+    assert collections.Counter(routes) == {"tc": 53, "direct": 6}
     per_part = {
         "Backbone": conv_classes(model.Backbone),
         "Regular": [c for r in model.Regular for c in conv_classes(r)],
         "Refine": conv_classes(model.Refine)}
     tc = {name: sum(conv_route(torch.bfloat16, *c) == "tc" for c in cl)
           for name, cl in per_part.items()}
-    assert tc == {"Backbone": 15, "Regular": 22, "Refine": 8}
-    direct = sorted(c for cl in per_part.values() for c in cl
+    assert tc == {"Backbone": 15, "Regular": 30, "Refine": 8}
+    transposed = sorted(c for c in per_part["Regular"] if c[-1])
+    assert transposed == [(3, 3, 2, 16, 8, True)] * 2 + [
+        (3, 3, 2, 32, 16, True)] * 3 + [(3, 3, 2, 64, 32, True)] * 3
+    direct = sorted(c[:5] for cl in per_part.values() for c in cl
                     if conv_route(torch.bfloat16, *c) == "direct")
     assert direct == [(1, 3, 1, 1, 8), (1, 3, 1, 3, 8), (1, 3, 1, 8, 1),
                       (3, 3, 1, 8, 1), (3, 3, 1, 8, 1), (3, 3, 1, 16, 1)]
@@ -231,7 +313,14 @@ def test_default_model_routes():
     ((torch.bfloat16, 1, 3, 1, 8, 12), "direct"),
     ((torch.bfloat16, 1, 3, 1, 8, 128), "direct"),
     ((torch.bfloat16, 3, 3, 2, 64, 64), "direct"),    # no tile fits
-    ((torch.bfloat16, 3, 3, 2, 32, 16), "direct")])
+    ((torch.bfloat16, 3, 3, 2, 32, 16), "direct"),
+    # the transposed conv: bf16, Ci and Co multiples of 8, Co <= 32
+    ((torch.bfloat16, 3, 3, 2, 32, 16, True), "tc"),
+    ((torch.bfloat16, 3, 3, 2, 64, 32, True), "tc"),
+    ((torch.bfloat16, 3, 3, 2, 8, 8, True), "tc"),
+    ((torch.float32, 3, 3, 2, 32, 16, True), "direct"),
+    ((torch.bfloat16, 3, 3, 2, 64, 64, True), "direct"),
+    ((torch.bfloat16, 3, 3, 2, 12, 8, True), "direct")])
 def test_route_rule(args, route):
     assert conv_route(*args) == route
 
@@ -245,6 +334,22 @@ def test_plans_fit_and_pack_in_the_kernel_order():
         assert plan.smem <= 227 * 1024
         assert plan.td * plan.bh == 2 * conv_kernel._TC_MB[plan.n]
         assert plan.q % plan.q_stage == 0 and plan.q % 2 == 0
+    def padded(d, h, td, bh):
+        return -(-d // td) * td * -(-h // (8 * bh)) * 8 * bh
+    for (ci, co), (d, h) in zip(TR_CLASSES * 3, [(0, 0)] * len(TR_CLASSES)
+                                + [(1, 74)] * 10 + [(3, 37)] * 10):
+        plan = tc_plan(3, 3, 2, ci, co, True, d, h)
+        assert plan.smem <= 227 * 1024 and plan.n >= 2 * co
+        mblocks = 2 * conv_kernel._TC_MB[plan.n]
+        assert plan.td * plan.bh == mblocks
+        assert plan.q == 18 * ci // 8 and plan.q_stage in (plan.q, 8 * ci // 8)
+        # the tile pads D x H least
+        assert padded(d, h, plan.td, plan.bh) == min(
+            padded(d, h, t, mblocks // t) for t in (1, 2, 4, 8)
+            if t <= mblocks)
+    # blocks per coarse tile: the fewest that give 132 SMs two blocks each
+    assert [conv_kernel.trconv_tc_groups(t, 132)
+            for t in (780, 264, 263, 132, 35)] == [1, 1, 2, 2, 4]
     w = torch.randn(16, 16, 3, 5, 5)[:, :, :1]       # (Co, Ci, 1, 5, 5)
     packed = pack_tc_weight(_kio(w), kd=1, k=5, stride=2)
     assert packed.shape == (50, 16, 8) and packed.is_contiguous()
@@ -254,6 +359,20 @@ def test_plans_fit_and_pack_in_the_kernel_order():
         torch.testing.assert_close(
             packed[q].float(), w[:, 8 * c:8 * c + 8, 0, kh, kw]
             .to(torch.bfloat16).float(), rtol=0, atol=0)
+    # the transposed conv: chunk 18c + j, even w parity then odd, per the
+    # kernel's GEMM order; GEMM (1, 1) at offsets (od, oh, ow) = (1, 0, 1)
+    # is chunk 10 + 2 * 2 + 1: k = (0, 2, 0) for the odd parity, none for
+    # the even one
+    wt = torch.randn(16, 8, 3, 3, 3)
+    packed = pack_trconv_tc_weight(wt.permute(2, 3, 4, 0, 1))
+    assert packed.shape == (36, 16, 8) and packed.is_contiguous()
+    for c, j, pw, k in ((0, 0, 0, (1, 1, 1)), (1, 0, 1, (1, 1, 2)),
+                        (1, 15, 1, (0, 2, 0)), (0, 11, 1, (2, 2, 0)),
+                        (1, 2, 1, (1, 2, 2)), (0, 5, 1, (1, 0, 0))):
+        torch.testing.assert_close(
+            packed[18 * c + j, 8 * pw:8 * pw + 8].float(),
+            wt[8 * c:8 * c + 8, :, k[0], k[1], k[2]].T.to(torch.bfloat16)
+            .float(), rtol=0, atol=0)
 
 
 def test_cpu_route_override_takes_the_plain_version():

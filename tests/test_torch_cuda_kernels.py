@@ -103,16 +103,51 @@ def test_conv3d(dtype, stride, ci, co):
                                                plain=p), dtype)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("ci,co", [(32, 16), (64, 32), (16, 8)])
-def test_trconv3d(dtype, ci, co):
-    x = torch.randn(1, 3, 5, 7, ci).cuda().to(dtype)
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "direct"),
+                                         (torch.bfloat16, "direct"),
+                                         (torch.bfloat16, "tc")])
+@pytest.mark.parametrize("ci,co,shape", [
+    (32, 16, (1, 3, 5, 7)), (64, 32, (1, 3, 5, 7)), (16, 8, (1, 3, 5, 7)),
+    (32, 16, (2, 5, 11, 21)), (8, 8, (1, 9, 3, 10)), (16, 24, (1, 2, 9, 9))])
+def test_trconv3d(dtype, ci, co, shape, route):
+    """Both routes (the tc kernel takes bf16 input only); odd extents and H
+    not a multiple of 8 (ragged coarse tiles, the far-end halo); each
+    launch counts once, under ``conv_tc`` too on the tc route."""
+    x = torch.randn(*shape, ci).cuda().to(dtype)
     w = (torch.randn(ci, co, 3, 3, 3) * 0.1).cuda().to(dtype)
     sc, off = torch.rand(co).cuda() + 0.5, torch.randn(co).cuda() * 0.1
-    skip = torch.randn(1, 6, 10, 14, co).cuda().to(dtype)
-    _agree(lambda p: conv_kernel.trconv3d_bn_act(x, w, sc, off,
-                                                 residual=skip, plain=p),
-           dtype)
+    skip = torch.randn(shape[0], *(2 * e for e in shape[1:]), co).cuda() \
+        .to(dtype)
+    assert conv_kernel.conv_route(dtype, 3, 3, 2, ci, co, True) == (
+        "tc" if dtype == torch.bfloat16 else "direct")
+    before = dict(conv_kernel.LAUNCHES)
+    _agree(lambda p: conv_kernel.trconv3d_bn_act(
+        x, w, sc, off, residual=skip, plain=p, route=route), dtype)
+    assert conv_kernel.LAUNCHES["trconv3d_bn_act"] == \
+        before["trconv3d_bn_act"] + 1
+    assert conv_kernel.LAUNCHES["conv_tc"] == \
+        before["conv_tc"] + (route == "tc")
+
+
+@pytest.mark.parametrize("out", ["bf16", "f32+res"])
+@pytest.mark.parametrize("ci,co", [(32, 16), (64, 32), (16, 8)])
+def test_trconv_tc_matches_its_mirror(ci, co, out):
+    """The tc transposed conv vs ``trconv_tc_plain`` on the packed weights,
+    the plain mirror of its K order; the f32 output at the f32 tolerance."""
+    x = torch.randn(2, 3, 9, 13, ci).cuda().to(torch.bfloat16)
+    w = (torch.randn(ci, co, 3, 3, 3) * 0.1).cuda().to(torch.bfloat16)
+    sc, off = torch.rand(co).cuda() + 0.5, torch.randn(co).cuda() * 0.3
+    out_dtype = torch.float32 if out == "f32+res" else torch.bfloat16
+    res = (torch.randn(2, 6, 18, 26, co).cuda().to(out_dtype)
+           if out == "f32+res" else None)
+    packed = conv_kernel.pack_trconv_tc_weight(w.permute(2, 3, 4, 0, 1))
+    got = conv_kernel.trconv3d_bn_act(x, w, sc, off, residual=res,
+                                      out_dtype=out_dtype)
+    ref = conv_kernel.trconv_tc_plain(x, packed, sc, off, relu=True,
+                                      residual=res, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= REL_TOL[out_dtype] * ref.float().abs().max().item()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -268,8 +303,8 @@ def test_conv_tc_routes_and_failures():
 
 
 def test_eval_forward_tc_launches_follow_the_rule():
-    """A small bf16 eval forward launches the tc kernel once per conv that
-    the rule sends there (45 at the default widths)."""
+    """A small bf16 eval forward launches the tc kernel once per conv and
+    transposed conv that the rule sends there (53 at the default widths)."""
     model = build_model(ModelConfig(compute_dtype="bfloat16"), device="cuda")
     h, w, v = 64, 96, 3
     k = torch.tensor([[1.8 * w, 0, w / 2], [0, 1.8 * w, h / 2], [0, 0, 1]])
@@ -280,7 +315,7 @@ def test_eval_forward_tc_launches_follow_the_rule():
           k.repeat(1, v, 1, 1).cuda(), torch.tensor([[425.0, 935.0]]).cuda())
     torch.cuda.synchronize()
     assert conv_kernel.LAUNCHES["conv_tc"] - before == \
-        eval_conv_routes(model).count("tc") == 45
+        eval_conv_routes(model).count("tc") == 53
 
 
 def _sweep(h, w, d, v, stress):
@@ -380,8 +415,8 @@ def _dgrad_counters(kind, stride, wshape, dtype, counter):
     elif stride == 1:
         conv = (3 if kind == "conv3d" else 1, wshape[-1], 1, wshape[0],
                 wshape[1])
-    else:
-        return {counter}
+    else:   # the conv's (Co, Ci) weight read as the transposed conv's
+        conv = (3, 3, 2, wshape[0], wshape[1], True)
     tc = conv_kernel.conv_route(dtype, *conv) == "tc"
     return {counter} | ({"conv_tc"} if tc else set())
 

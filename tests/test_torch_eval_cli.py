@@ -3,8 +3,10 @@ the same tree and the same reference-schema .pth."""
 import os
 
 import numpy as np
+import pytest
 from PIL import Image
 
+import mdfnet_tpu.cli.eval as jax_cli
 from _torch_port_helpers import depth_error, jax_model_and_port, scene_args
 from mdfnet_tpu.cli.eval import main as jax_eval_main
 from mdfnet_tpu.config import ModelConfig
@@ -19,7 +21,7 @@ def _tree(root):
                   for d, _, files in os.walk(root) for f in files)
 
 
-def test_eval_cli_matches_jax_cli(tmp_path):
+def test_eval_cli_matches_jax_cli(tmp_path, monkeypatch):
     data = tmp_path / "data"
     write_dtu_eval_tree(str(data / "dtu1600x1200"), scans=(9,), nviews=3,
                         height=64, width=96)
@@ -29,8 +31,24 @@ def test_eval_cli_matches_jax_cli(tmp_path):
 
     common = ["-p", ckpt, "--root", str(data), "--scans", "9"]
     jax_out, port_out = str(tmp_path / "jax"), str(tmp_path / "port")
+    jax_stats = {}
+
+    def jax_run_eval(*args, **kwargs):
+        jax_stats.update(run_eval(*args, **kwargs))
+        return jax_stats
+    run_eval = jax_cli.run_eval
+    monkeypatch.setattr(jax_cli, "run_eval", jax_run_eval)
     jax_eval_main(common + ["-o", jax_out])
     stats = port_eval_main(common + ["-o", port_out, "--device", "cpu"])
+
+    # run_eval's keys: the JAX package's, and the port's first-map latency
+    assert set(stats) == set(jax_stats) | {"first_map_sec"}
+    assert stats["views_per_sec"] == pytest.approx(1 / stats["sec_per_view"])
+    assert stats["device_views_per_sec"] == stats["views_per_sec"]
+    assert stats["sec_per_view"] == stats["device_sec_per_view"]
+    assert stats["n_coverage_fallbacks"] == jax_stats[
+        "n_coverage_fallbacks"] == 0
+    assert stats["coverage_fallback_rate"] == 0.0
 
     files = _tree(port_out)
     assert files == _tree(jax_out) and len(files) == 9   # 3 views x 3 files
