@@ -2,27 +2,37 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gate-spread   # the bf16 step gate's readings
+    python3 chip_smoke.py --k1-device-ms ROOT   # K1's device time, ROOT's
 
 ``--gate-spread`` reads the bf16 step gate's metrics over equally correct
 summation orders and over the injected faults (gate_spread), from which
 STEP_BOUNDS_BF16 were set, and writes them to build/gate_spread.json.
+``--k1-device-ms ROOT`` times K1 at the three DTU eval stages with the
+package of the checkout at ROOT (k1_device_ms), to hold two commits'
+kernels side by side in one call.
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device  — needs CUDA; prints the card's name and power limit;
   2. build   — compiles the hand-written kernels (ops/cuda/csrc) with nvcc;
+     the tc kernels', K1's and the co1 kernel's registers (none may spill),
+     K1's MUFU instructions in the SASS;
   3. kernels — each kernel vs its plain PyTorch version at the DTU stage
      shapes, bf16 and f32, with times from CUDA events, its bound (the
-     least time the card could take for the same work) and, where one
-     PyTorch call computes the same function, that call's time; the bf16
-     cases of K2-K5 also on the direct kernel, which the tensor-core (tc)
-     route must beat by 3x for K2, K3 and K4 in device time; how near the
-     exact (f64) sums the tc kernels' f32 sums come beside the direct
-     kernel's (K2, K3, K4);
+     least time the card could take for the same work; K1's also on the
+     special-function units) and, where one PyTorch call computes the same
+     function, that call's time; the bf16 cases of K2-K5 also on the direct
+     kernel, which the tensor-core (tc) route must beat by 3x for K2, K3
+     and K4 in device time, and the Co = 1 convs (the ProbConvs, refine's
+     tail) on the co1 kernel beside the direct kernel, which it must beat
+     by 3x at the stage-2 ProbConv; K1's device time at the three stages,
+     and K1 on stress cameras at stage 0 (f32); how near the exact (f64)
+     sums the tc kernels' f32 sums come beside the direct kernel's (K2, K3,
+     K4);
   4. forward — the CoreNet eval forward at 1600x1184, 5 views, B=1, bf16
      convs, seeded random weights with a sharpened posterior: every kernel's
-     launch counter must move, the tc kernel must launch once for each conv
-     and transposed conv that the route rule sends to it (and the direct
-     kernel for the rest),
+     launch counter must move, the tc, co1 and direct kernels must each
+     launch once for each conv and transposed conv that the route rule
+     sends to it,
      and the output must agree with the plain f32
      forward on the card: depth (median <= 0.4%, p95 <= 3% of the depth
      range, the bounds of tools/check_fused_oracle.py), confidence, and each
@@ -66,6 +76,7 @@ The line before the last is one JSON object with every kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``.
 """
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -114,15 +125,21 @@ _SRC = "mdfnet_tpu_torch/ops/cuda/csrc/"
 # dense bf16 rate of the tensor cores; the f32 elementwise work of K1, K6,
 # K7 and K9 over 67 TFLOP/s, the f32 rate of the CUDA cores
 PEAK_BYTES_PER_S, PEAK_BF16_TC_PER_S, PEAK_F32_PER_S = 3.35e12, 989e12, 67e12
+# K1 also needs the special-function units (MUFU): 16 results per SM and
+# clock, 132 SMs at the H100 SXM's 1.98 GHz boost clock
+PEAK_MUFU_PER_S = 16 * 132 * 1.98e9
 CONV_KERNELS = {"conv3d_bn_act", "trconv3d_bn_act", "conv2d_bn_act",
                 "conv2d_chain", "conv3d_pair_bn_act", "conv3d_train",
-                "trconv3d_train", "conv2d_train"}
+                "trconv3d_train", "conv2d_train", "conv_co1"}
 # K2-K5 (and K8's input gradients) run their bf16 convs with Ci, Co
 # multiples of 8 on the tc kernel, the rest on the direct kernel
 _TC = dict(source=_SRC + "conv_tc.cu", direct_source=_SRC + "conv_bn_act.cu")
 # tc vs direct at K2's, K3's and K4's main-path shapes, at least, in device
 # time
 TC_SPEEDUP = 3.0
+# the Co = 1 kernel vs the direct kernel at the stage-2 ProbConv, at least,
+# in device time
+CO1_SPEEDUP = 3.0
 KERNELS = {   # wrapper name -> its CUDA source and the TPU kernel it replaces
     "rowsweep_aggregate": dict(
         source=_SRC + "rowsweep_aggregate.cu",
@@ -135,6 +152,11 @@ KERNELS = {   # wrapper name -> its CUDA source and the TPU kernel it replaces
         **_TC, replaces="mdfnet_tpu/ops/pallas/conv2d_kernel.py:242"),
     "conv2d_chain": dict(
         **_TC, replaces="mdfnet_tpu/ops/pallas/conv2d_kernel.py:654"),
+    # K2 (and K4) at Co = 1: the ProbConvs and refine's tail, whichever
+    # wrapper launched them (conv_kernel.LAUNCHES["conv_co1"])
+    "conv_co1": dict(
+        source=_SRC + "conv_co1.cu", direct_source=_SRC + "conv_bn_act.cu",
+        replaces="mdfnet_tpu/ops/pallas/conv3d_kernel.py:577"),
 }
 # on no model path (as in the JAX package); its launches are the pair phase's
 PAIR_KERNEL = {"conv3d_pair_bn_act": dict(
@@ -260,15 +282,20 @@ def device_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(name: str, nbytes: float, ops: float) -> dict:
+def bound(name: str, nbytes: float, ops: float, mufu: float = 0.0) -> dict:
     """The least time the card could take for kernel ``name``'s work, which
     moves ``nbytes`` (each input read once, each output written once) and
-    does ``ops`` at the peak rate of their type."""
+    does ``ops`` at the peak rate of their type, ``mufu`` of them on the
+    special-function units (their time beside the others', where given)."""
     peak = PEAK_BF16_TC_PER_S if name in CONV_KERNELS else PEAK_F32_PER_S
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / peak * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    t_ops = max(ops / peak, mufu / PEAK_MUFU_PER_S) * 1e3
+    out = {"bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if mufu:
+        out.update(ops_bound_ms=ops / peak * 1e3,
+                   mufu_bound_ms=mufu / PEAK_MUFU_PER_S * 1e3)
+    return out
 
 
 def size(*tensors) -> int:
@@ -292,6 +319,15 @@ def aggregate_ops(points: int, n_src: int, g: int, stats: bool) -> int:
     return points * (3 * g + n_src * per_source + (0 if stats else g))
 
 
+# K1's special-function operations in their least form: each exact sigmoid
+# is an exp and a reciprocal, each division a reciprocal; q's G sigmoids
+# once per pixel, per (pixel, plane, source) p's G sigmoids, the weight's
+# sigmoid and the projection's two divisions, per voxel one reciprocal of
+# the weight sum.
+def aggregate_mufu(pixels: int, points: int, n_src: int, g: int) -> int:
+    return pixels * 2 * g + points * (n_src * (2 * g + 4) + 1)
+
+
 def cl(x):
     """Channels-last (NHWC / NDHWC) data as the NCHW / NCDHW view cuDNN takes
     in its channels-last memory format."""
@@ -311,14 +347,67 @@ def dtu_scene():
                             tilt=0.05, focal=1.8 * WIDTH)
 
 
+def k1_inputs(gen, scene, dt):
+    """K1's arguments at the three DTU eval stages (S = 4 sources; stage 0
+    uniform planes, stages 1-2 per-pixel planes), drawn from ``gen``."""
+    from mdfnet_tpu_torch import geometry
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(DEV)
+
+    intr = torch.from_numpy(scene.intrinsics)[None].to(DEV)
+    extr = torch.from_numpy(scene.extrinsics)[None].to(DEV)
+    stages = []
+    for stage, (d, g) in enumerate(zip(NDEPTHS, NGROUPS)):
+        h, w = HEIGHT >> (3 - stage), WIDTH >> (3 - stage)
+        ref_proj, src_projs = geometry.projection_matrices(
+            intr, extr, stage, num_stages=4)
+        if stage == 0:
+            hyp = torch.linspace(*DEPTH_RANGE, d).reshape(1, d, 1, 1)
+        else:
+            hyp = 560.0 + torch.arange(d).reshape(1, d, 1, 1) * 4.0 \
+                + torch.rand(1, 1, h, w, generator=gen) * 40.0
+        src = rnd(1, NVIEWS - 1, h, w, g).to(dt)
+        ref = rnd(1, h, w, g).to(dt)
+        k0 = rnd(g, scale=0.3)
+        sc = [torch.tensor(v).to(DEV) for v in (0.9, 0.1, 1.2, -0.2)]
+        hyp = hyp.expand(1, d, *hyp.shape[2:]).contiguous().to(DEV)
+        stages.append((src, ref, src_projs, ref_proj, hyp, k0, *sc))
+    return stages
+
+
+def k1_stress_inputs(scene):
+    """K1's arguments at the DTU stage-0 shape (48 planes, 148x200, G =
+    32, f32) on stress cameras: the scene's cameras with source view i
+    turned by i x 20 degrees about its y axis, planes from 0.2x the near to
+    5x the far depth (their own generator)."""
+    from mdfnet_tpu_torch import geometry
+    gen = torch.Generator().manual_seed(7)
+    d, g, h, w = NDEPTHS[0], NGROUPS[0], HEIGHT >> 3, WIDTH >> 3
+    extr = torch.from_numpy(scene.extrinsics).clone()
+    for i in range(NVIEWS):
+        c, sn = math.cos(math.radians(20.0 * i)), math.sin(math.radians(20.0 * i))
+        yaw = torch.tensor([[c, 0, sn, 0], [0, 1, 0, 0], [-sn, 0, c, 0],
+                            [0, 0, 0, 1]], dtype=extr.dtype)
+        extr[i] = yaw @ extr[i]
+    ref_proj, src_projs = geometry.projection_matrices(
+        torch.from_numpy(scene.intrinsics)[None].to(DEV), extr[None].to(DEV),
+        0, num_stages=4)
+    hyp = torch.linspace(0.2 * DEPTH_RANGE[0], 5.0 * DEPTH_RANGE[1], d)
+    return (torch.randn(1, NVIEWS - 1, h, w, g, generator=gen).to(DEV),
+            torch.randn(1, h, w, g, generator=gen).to(DEV), src_projs,
+            ref_proj, hyp.reshape(1, d, 1, 1).to(DEV),
+            (torch.randn(g, generator=gen) * 0.3).to(DEV),
+            *(torch.tensor(v).to(DEV) for v in (0.9, 0.1, 1.2, -0.2)))
+
+
 def kernel_cases(gen, scene):
     """(kernel name, dtype, callable(plain) -> tensor, meta) at DTU stage
     shapes; the first case of each kernel is its timed, main-path shape,
     whose meta gives the bytes its inputs hold, its operations and the
     PyTorch call timed beside it (None where there is none)."""
     import torch.nn.functional as F
-    from mdfnet_tpu_torch import geometry
-    from mdfnet_tpu_torch.ops.cuda.aggregate_kernel import rowsweep_aggregate
+    from mdfnet_tpu_torch.ops.cuda import aggregate_kernel
     from mdfnet_tpu_torch.ops.cuda.conv_kernel import (
         conv2d_bn_act, conv2d_chain, conv3d_bn_act, conv3d_pair_bn_act,
         trconv3d_bn_act)
@@ -326,38 +415,54 @@ def kernel_cases(gen, scene):
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(DEV)
 
-    intr = torch.from_numpy(scene.intrinsics)[None].to(DEV)
-    extr = torch.from_numpy(scene.extrinsics)[None].to(DEV)
     # (h, w) at stage s = 0, 1, 2 (1/8, 1/4, 1/2 resolution)
     hw = [(HEIGHT >> (3 - s), WIDTH >> (3 - s)) for s in range(3)]
     (h8, w8), (h4, w4), (h2, w2) = hw
+    # the Co = 1 cases beyond those drawn in place (stage-1 and stage-0
+    # ProbConvs) take their own generator, which keeps the other cases'
+    # inputs as they were
+    gen_co1 = torch.Generator().manual_seed(11)
     cases = []
     for dt in (torch.bfloat16, torch.float32):
-        # K1 — stage 0 (uniform planes), stages 1-2 (per-pixel planes); S=4
-        for stage, ((h, w), d, g) in enumerate(zip(hw, NDEPTHS, NGROUPS)):
-            ref_proj, src_projs = geometry.projection_matrices(
-                intr, extr, stage, num_stages=4)
-            if stage == 0:
-                hyp = torch.linspace(*DEPTH_RANGE, d).reshape(1, d, 1, 1)
-            else:
-                hyp = 560.0 + torch.arange(d).reshape(1, d, 1, 1) * 4.0 \
-                    + torch.rand(1, 1, h, w, generator=gen) * 40.0
-            src = rnd(1, NVIEWS - 1, h, w, g).to(dt)
-            ref = rnd(1, h, w, g).to(dt)
-            k0 = rnd(g, scale=0.3)
-            sc = [torch.tensor(v).to(DEV) for v in (0.9, 0.1, 1.2, -0.2)]
-            hyp = hyp.expand(1, d, *hyp.shape[2:]).contiguous().to(DEV)
+        # K1 — stage 0 (uniform planes), stages 1-2 (per-pixel planes); S=4;
+        # device time of K1's kernel alone (kernel_device_ms)
+        for a in k1_inputs(gen, scene, dt):
+            src, ref, hyp = a[0], a[1], a[4]
+            b, d, h, w, g = src.shape[0], hyp.shape[1], *ref.shape[1:]
             meta = dict(in_bytes=size(src, ref, hyp), library=None,
-                        ops=aggregate_ops(d * h * w, NVIEWS - 1, g, False))
-            cases.append(("rowsweep_aggregate", dt, lambda p, a=(
-                src, ref, src_projs, ref_proj, hyp, k0, *sc):
-                rowsweep_aggregate(*a, plain=p), meta))
+                        ops=aggregate_ops(d * h * w, NVIEWS - 1, g, False),
+                        mufu=aggregate_mufu(h * w, d * h * w, NVIEWS - 1, g),
+                        kernel="rowsweep_aggregate_kernel")
+            cases.append(("rowsweep_aggregate", dt, lambda p, a=a:
+                          aggregate_kernel.rowsweep_aggregate(*a, plain=p),
+                          meta))
 
         def epi(co):
             return rnd(co, scale=0.2).abs() + 0.5, rnd(co, scale=0.1)
 
-        # K2 — stage-0 U-Net conv01_0 (stride 1) and conv12_0 (stride 2),
-        # stage-2 ProbConv (Co = 1); the yardstick is cuDNN's conv alone
+        def co1_meta(x, wt, e, conv):
+            """The Co = 1 kernel's case meta: cuDNN's conv alone as the
+            yardstick, the direct kernel beside it."""
+            nd = x.dim() - 2
+            lib = F.conv3d if nd == 3 else F.conv2d
+            return dict(in_bytes=size(x, wt),
+                        ops=conv_ops(x.numel() // x.shape[-1], 3 ** nd,
+                                     x.shape[-1], 1),
+                        library=lambda x=x, wt=cl_weight(wt): lib(
+                            cl(x), wt, padding=1),
+                        direct=lambda x=x, wt=wt, e=e: conv(
+                            x, wt, *e, relu=False, out_dtype=torch.float32,
+                            route="direct"))
+
+        def co1_case(x, wt, e, conv):
+            return ("conv_co1", dt, lambda p, x=x, wt=wt, e=e: conv(
+                x, wt, *e, relu=False, out_dtype=torch.float32, plain=p),
+                co1_meta(x, wt, e, conv))
+
+        # K2 — stage-0 U-Net conv01_0 (stride 1) and conv12_0 (stride 2);
+        # the yardstick is cuDNN's conv alone. Then the stage-2 ProbConv
+        # (Co = 1, f32 out) on the co1 kernel, which must beat the direct
+        # kernel by CO1_SPEEDUP in device time
         for shape, co, s in (((1, NDEPTHS[0], h8, w8, NGROUPS[0]), 16, 1),
                              ((1, NDEPTHS[0], h8, w8, 16), 32, 2),
                              ((1, NDEPTHS[2], h2, w2, 8), 1, 1)):
@@ -366,15 +471,17 @@ def kernel_cases(gen, scene):
             out_vox = shape[0] * -(-shape[1] // s) * -(-shape[2] // s) \
                 * -(-shape[3] // s)
             e = epi(co)
+            if co == 1:
+                case = co1_case(x, wt, e, conv3d_bn_act)
+                case[3]["speedup"] = CO1_SPEEDUP
+                cases.append(case)
+                continue
             meta = dict(in_bytes=size(x, wt),
                         ops=conv_ops(out_vox, 27, shape[-1], co),
                         library=lambda x=x, wt=cl_weight(wt), s=s: F.conv3d(
-                            cl(x), wt, stride=s, padding=1))
-            if co > 1:
-                meta["direct"] = (lambda x=x, wt=wt, s=s, e=e: conv3d_bn_act(
-                    x, wt, *e, stride=s, route="direct"))
-            else:   # ProbConv takes the direct kernel: its device time
-                meta["device"] = True
+                            cl(x), wt, stride=s, padding=1),
+                        direct=lambda x=x, wt=wt, s=s, e=e: conv3d_bn_act(
+                            x, wt, *e, stride=s, route="direct"))
             cases.append(("conv3d_bn_act", dt, lambda p, x=x, wt=wt, co=co,
                           s=s, e=e: conv3d_bn_act(
                               x, wt, *e, stride=s, relu=co > 1, plain=p),
@@ -415,11 +522,10 @@ def kernel_cases(gen, scene):
         cases.append(("conv2d_bn_act", dt, lambda p, x=x, wt=w1, r=r1,
                       e=epi(64): conv2d_bn_act(x, wt, *e, relu=False,
                                                residual=r, plain=p), None))
+        # refine's C -> 1 tail on the co1 kernel
         xt = rnd(1, HEIGHT, WIDTH, 8).to(dt)
         wt1 = rnd(1, 8, 3, 3, scale=0.2).to(dt)
-        cases.append(("conv2d_bn_act", dt, lambda p, x=xt, wt=wt1, e=epi(1):
-                      conv2d_bn_act(x, wt, *e, relu=False,
-                                    out_dtype=torch.float32, plain=p), None))
+        cases.append(co1_case(xt, wt1, epi(1), conv2d_bn_act))
         # K5 — the full-res backbone trunk (3->8, 8->8, 8->16 5x5 stride 2)
         # and refine's half-res stack (Res skips, 0.1 scale); the yardstick
         # is the same three cuDNN convs in a row
@@ -458,6 +564,19 @@ def kernel_cases(gen, scene):
                           + (False, False),
                           residuals=(None, None, 0, None, 2, None, 4, 0,
                                      None), plain=p), None))
+        # the stage-1 and stage-0 ProbConvs on the co1 kernel
+        for shape in ((1, NDEPTHS[1], h4, w4, 8),
+                      (1, NDEPTHS[0], h8, w8, 16)):
+            x = torch.randn(*shape, generator=gen_co1).to(DEV, dt)
+            wt = (torch.randn(1, shape[-1], 3, 3, 3, generator=gen_co1)
+                  * 0.1).to(DEV, dt)
+            e = (torch.rand(1, generator=gen_co1).to(DEV) + 0.5,
+                 torch.randn(1, generator=gen_co1).to(DEV) * 0.1)
+            cases.append(co1_case(x, wt, e, conv3d_bn_act))
+    # K1 on stress cameras at DTU stage 0 (f32, the f32 tolerance)
+    cases.append(("rowsweep_aggregate", torch.float32, lambda p, a=(
+        k1_stress_inputs(scene)): aggregate_kernel.rowsweep_aggregate(
+            *a, plain=p), None))
     # K10 — the stage-0 U-Net's stride-1 pairs at DTU eval: conv01
     # (32->16->16), conv12_1/2 (32->32->32), conv232_1/2 (64->64->64); the
     # yardstick is the same two cuDNN convs in a row. Its own generator
@@ -498,18 +617,23 @@ def kernel_cases(gen, scene):
 
 def time_case(name, fn, meta, got) -> dict:
     """A timed bf16 case: wall ms per call of back-to-back calls, the plain
-    version's, the bound and the library call's; device time (a CUDA
-    graph's replay) where the case asks for it or has a direct route, and
-    then the direct kernel's too."""
+    version's, the bound and the library call's; device time where the
+    case has a direct route (a CUDA graph's replay, the direct kernel's
+    too) or names its kernel (``kernel``: that kernel's own time in a
+    profile, kernel_device_ms)."""
     case = {"ms": cuda_ms(lambda: fn(False)),
             "plain_ms": cuda_ms(lambda: fn(True), iters=3),
-            **bound(name, meta["in_bytes"] + size(got), meta["ops"]),
+            **bound(name, meta["in_bytes"] + size(got), meta["ops"],
+                    meta.get("mufu", 0)),
             "library_ms": (cuda_ms(meta["library"]) if meta["library"]
                            else None)}
-    if "direct" in meta or meta.get("device"):
-        case["device_ms"] = device_ms(lambda: fn(False))
-        case["library_device_ms"] = device_ms(meta["library"])
+    if "kernel" in meta:
+        case["device_ms"] = kernel_device_ms(lambda: fn(False),
+                                             meta["kernel"])
     if "direct" in meta:
+        case["device_ms"] = device_ms(lambda: fn(False))
+        if meta["library"]:
+            case["library_device_ms"] = device_ms(meta["library"])
         case["direct_ms"] = cuda_ms(meta["direct"])
         case["direct_device_ms"] = device_ms(meta["direct"])
     return case
@@ -521,7 +645,8 @@ def check_kernels(scene):
     JSON entry carries its main-path (first) case's numbers, and every
     timed case under "cases"; the tc route must beat the direct kernel by
     TC_SPEEDUP in device time at every timed case of K2, K3 and K4 that
-    has both routes."""
+    has both routes, the co1 kernel by CO1_SPEEDUP at the stage-2
+    ProbConv."""
     gen = torch.Generator().manual_seed(0)
     report = {}
     for name, dt, fn, meta in kernel_cases(gen, scene):
@@ -546,22 +671,25 @@ def check_kernels(scene):
                 {"shape": list(got.shape), **case})
             line += (f"; {case['ms']:.3f} ms vs plain "
                      f"{case['plain_ms']:.3f} ms, bound "
-                     f"{case['bound_ms']:.3f} ms ({case['bound_by']}), "
-                     f"library {case['library_ms']} ms")
+                     f"{case['bound_ms']:.3f} ms ({case['bound_by']}"
+                     + (f": operations {case['ops_bound_ms']:.3f}, MUFU "
+                        f"{case['mufu_bound_ms']:.3f}" if "mufu_bound_ms"
+                        in case else "")
+                     + f"), library {case['library_ms']} ms")
             if "direct_ms" in case:
                 # both routes, and the library call, by wall time per call
                 # (events around back-to-back calls, as "ms") and by device
                 # time (a CUDA graph's replay): the wrapper's host work can
                 # exceed a short kernel's; the 3x gate is on device time
-                line += (f"; routes: tc {case['ms']:.3f} ms, direct "
-                         f"{case['direct_ms']:.3f} ms; device time: tc "
+                route = "co1" if name == "conv_co1" else "tc"
+                line += (f"; routes: {route} {case['ms']:.3f} ms, direct "
+                         f"{case['direct_ms']:.3f} ms; device time: {route} "
                          f"{case['device_ms']:.3f} ms, direct "
                          f"{case['direct_device_ms']:.3f} ms ("
                          f"{case['direct_device_ms'] / case['device_ms']:.2f}"
                          f"x), library {case['library_device_ms']:.3f} ms")
             elif "device_ms" in case:
-                line += (f"; device time {case['device_ms']:.3f} ms, library "
-                         f"{case['library_device_ms']:.3f} ms")
+                line += f"; device time {case['device_ms']:.3f} ms"
         if dt == torch.bfloat16 and meta and "beside" in meta:
             line += (f"; {cuda_ms(lambda: fn(False)):.3f} ms vs two K2 "
                      f"launches {cuda_ms(meta['beside']):.3f} ms")
@@ -574,6 +702,11 @@ def check_kernels(scene):
                 >= TC_SPEEDUP * case.get("device_ms", 0.0),
                 f"{name} {tuple(got.shape)}: the tc kernel is not "
                 f"{TC_SPEEDUP}x faster than the direct kernel")
+        require(not case or "speedup" not in meta
+                or case["direct_device_ms"]
+                >= meta["speedup"] * case["device_ms"],
+                f"{name} {tuple(got.shape)}: not {meta and meta.get('speedup')}"
+                f"x faster than the direct kernel")
     return report
 
 
@@ -626,21 +759,21 @@ def tc_sums() -> None:
 
 def route_table(traced: list, what: str) -> None:
     """Each distinct conv and transposed conv that a traced run launched
-    (conv_kernel.TRACE), at its own shape, timed on both kernels (seeded
-    random bf16 inputs): device time (device_ms, no host between launches)
-    and wall time per call of back-to-back calls (cuda_ms, interleaved_ms's
-    medians: the wrapper's host work where it exceeds the kernel's), and on
-    the tc route the wall time of the weight packing alone; the rule's
-    choice beside the other route, the run's conv time summed over its
-    launches on each route, and the classes that are slower on the rule's
-    route."""
+    (conv_kernel.TRACE), at its own shape, timed on each kernel that takes
+    it (seeded random bf16 inputs): device time (device_ms, no host between
+    launches) and wall time per call of back-to-back calls (cuda_ms,
+    interleaved_ms's medians: the wrapper's host work where it exceeds the
+    kernel's), and on the tc route the wall time of the weight packing
+    alone; the rule's choice beside the other routes, the run's conv time
+    summed over its launches on the rule's routes and on the direct
+    kernel, and the classes that are slower on the rule's route."""
     from mdfnet_tpu_torch.ops.cuda import conv_kernel
     gen = torch.Generator().manual_seed(4)
     counts = {}
     for route, *key in traced:
         counts.setdefault(tuple(key), [route, 0])[1] += 1
     rows, slower = [], []
-    total = {(r, t): 0.0 for r in ("tc", "direct") for t in ("dev", "wall")}
+    total = {(r, t): 0.0 for r in ("rule", "direct") for t in ("dev", "wall")}
     for (kd, k, s, shape, co, tr), (route, n) in counts.items():
         x = torch.randn(*shape, generator=gen).to(DEV, torch.bfloat16)
         wshape = (shape[-1], co) if tr else (co, shape[-1])
@@ -660,8 +793,9 @@ def route_table(traced: list, what: str) -> None:
             pack = (lambda w_kio=w.permute(*range(2, w.dim()), 1, 0):
                     conv_kernel.pack_tc_weight(w_kio, kd=kd, k=k, stride=s))
         fns = {r: (lambda r=r: conv(x, w, one, zero, stride=s, route=r))
-               for r in ("tc", "direct") if r == "direct"
-               or conv_kernel.tc_plan(kd, k, s, shape[-1], co, tr)}
+               for r in ("tc", "co1", "direct") if r in (route, "direct")
+               or r == "tc" and conv_kernel.tc_plan(kd, k, s, shape[-1], co,
+                                                    tr)}
         ms = {r: {"dev": device_ms(fn, iters=5)} for r, fn in fns.items()}
         walls = interleaved_ms({r: lambda fn=fn: cuda_ms(fn) for r, fn in (
             {**fns, "pack": pack} if "tc" in fns else fns).items()})
@@ -669,14 +803,13 @@ def route_table(traced: list, what: str) -> None:
             v["wall"] = walls[r]
         if "tc" in ms:
             ms["tc"]["pack"] = walls["pack"]
-        for (r, t) in total:
-            total[r, t] += n * ms.get(r, ms["direct"])[t]
-        other = "direct" if route == "tc" else "tc"
+        for t in ("dev", "wall"):
+            total["rule", t] += n * ms[route][t]
+            total["direct", t] += n * ms["direct"][t]
         name = (f"{'tr ' if tr else ''}{kd}x{k}x{k}/s{s} {shape[-1]}->{co} "
                 f"{tuple(shape[:-1])}")
-        if other in ms:
-            slower += [f"{name} by {t}" for t in ("dev", "wall")
-                       if ms[route][t] > ms[other][t]]
+        slower += [f"{name} by {t}" for other in ms if other != route
+                   for t in ("dev", "wall") if ms[route][t] > ms[other][t]]
         rows.append(f"{name} x{n} {route}: " + ", ".join(
             f"{r} {v['dev']:.3f} (wall {v['wall']:.3f}"
             + (f", pack {v['pack']:.3f})" if "pack" in v else ")")
@@ -685,8 +818,8 @@ def route_table(traced: list, what: str) -> None:
     print(f"route table ({what}; conv, input shape, launches per run, the "
           f"rule's route: device ms per launch on each kernel, wall ms per "
           f"call): " + "; ".join(rows) + "; the run's convs on the rule's "
-          f"routes ~{total['tc', 'dev']:.2f} ms device, "
-          f"~{total['tc', 'wall']:.2f} ms wall; all direct "
+          f"routes ~{total['rule', 'dev']:.2f} ms device, "
+          f"~{total['rule', 'wall']:.2f} ms wall; all direct "
           f"~{total['direct', 'dev']:.2f} ms device, "
           f"~{total['direct', 'wall']:.2f} ms wall; slower on the rule's "
           f"route: {slower or 'none'}", flush=True)
@@ -758,21 +891,22 @@ def forward_phase(build_s, scene):
           if k in conv_kernel.TC_LAUNCHES}
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the main path never launched: {launches}")
-    # the tc kernel once per conv and transposed conv that the rule sends
-    # to it, from the model's layers; the direct kernel still serves the
-    # rest (Co = 1 in ProbConv and refine's tail, Ci = 3 and 1 in the
-    # chains' heads), and none of the transposed convs
+    # each kernel once per conv and transposed conv that the rule sends to
+    # it, from the model's layers: the tc kernel, the co1 kernel (the
+    # ProbConvs, refine's tail) and the direct kernel (the chains' Ci = 3
+    # and 1 heads), none of the transposed convs on the direct kernel
     routes = eval_conv_routes(model)
-    require(conv_kernel.LAUNCHES["conv_tc"] == routes.count("tc") > 0,
-            f"tc launches {conv_kernel.LAUNCHES['conv_tc']}, the rule gives "
-            f"{routes.count('tc')}")
-    require(all(launches[k] > tc[k] for k in tc if k != "trconv3d_bn_act")
-            and launches["trconv3d_bn_act"] == tc["trconv3d_bn_act"],
-            f"the direct kernel served none of a wrapper's convs, or a "
-            f"transposed conv: {launches}, tc {tc}")
-    print(f"routes: {routes.count('tc')} tc launches per forward as the rule "
-          f"gives for the model's {len(routes)} convs and transposed convs; "
-          f"tc per wrapper {tc}", flush=True)
+    ran = {"tc": conv_kernel.LAUNCHES["conv_tc"],
+           "co1": conv_kernel.LAUNCHES["conv_co1"]}
+    ran["direct"] = sum(launches[k] for k in tc) - ran["tc"] - ran["co1"]
+    rule = {r: routes.count(r) for r in ran}
+    require(ran == rule and min(rule.values()) > 0,
+            f"launches by route {ran}, the rule gives {rule}")
+    require(launches["trconv3d_bn_act"] == tc["trconv3d_bn_act"],
+            f"a transposed conv left the tc kernel: {launches}, tc {tc}")
+    print(f"routes: {rule} launches per forward, as the rule gives for the "
+          f"model's {len(routes)} convs and transposed convs; tc per wrapper "
+          f"{tc}", flush=True)
 
     times = []
     torch.cuda.reset_peak_memory_stats()
@@ -1192,7 +1326,8 @@ def train_kernel_cases(gen, batch):
                 ("rowsweep_aggregate_with_wsum", dt, wsum,
                  lambda p, f=wsum: cuda_ms(lambda: f(p)),
                  dict(nbytes=size(src, ref, hyp, k0) + points * (g + 1) * 4,
-                      library=None, ops=aggregate_ops(points, s, g, False))
+                      library=None, ops=aggregate_ops(points, s, g, False),
+                      mufu=aggregate_mufu(b * h * w, points, s, g))
                  if first else None)]
     return cases
 
@@ -1220,7 +1355,8 @@ def check_train_kernels(batch):
             # wall per call of back-to-back calls, mostly the host's time
             entry.update(interleaved_ms({"ms": lambda: timer(False),
                                          "plain_ms": lambda: timer(True)}))
-            entry.update(bound(name, meta["nbytes"], meta["ops"]))
+            entry.update(bound(name, meta["nbytes"], meta["ops"],
+                               meta.get("mufu", 0)))
             entry["library_ms"] = (cuda_ms(meta["library"])
                                    if meta["library"] else None)
             line += (f"; {entry['ms']:.3f} ms vs plain "
@@ -1777,6 +1913,63 @@ def _kernel_name(mangled: str) -> str:
     return mangled
 
 
+def kernel_device_ms(fn, kernel: str, iters: int = 10) -> float:
+    """Mean device time per call of ``fn`` of the kernels whose name holds
+    ``kernel`` (torch.profiler, CUPTI), over ``iters`` calls after one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key)
+    require(us > 0, f"no {kernel} kernel in the trace")
+    return us / iters / 1e3
+
+
+def k1_device_ms(root: str) -> None:
+    """K1's own device time at the three DTU eval stages (bf16, the kernel
+    phase's inputs), by kernel_device_ms, and a digest of each stage's
+    output bytes, for the package of the checkout at ``root`` (say a parent
+    commit's ``git archive``, whose kernels build under its own build/):
+    one line ``K1_DEVICE_MS {...}``. Run it for two checkouts in one call
+    to compare them on one card; equal digests mean equal bits."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from mdfnet_tpu_torch.ops.cuda import aggregate_kernel
+    require(aggregate_kernel.__file__.startswith(root + os.sep),
+            f"{aggregate_kernel.__file__} is not under {root}")
+    gen = torch.Generator().manual_seed(0)
+    ms, digests = [], []
+    for a in k1_inputs(gen, dtu_scene(), torch.bfloat16):
+        ms.append(kernel_device_ms(
+            lambda a=a: aggregate_kernel.rowsweep_aggregate(*a),
+            "rowsweep_aggregate_kernel"))
+        out = aggregate_kernel.rowsweep_aggregate(*a).cpu().numpy()
+        digests.append(hashlib.sha256(out.tobytes()).hexdigest()[:16])
+    print("K1_DEVICE_MS " + json.dumps({"root": root, "stages_ms": ms,
+                                        "digests": digests}), flush=True)
+
+
+def sass_mufu(lib_path) -> dict:
+    """K1's special-function instructions in the library's SASS (cuobjdump
+    -sass), per instantiation: (MUFU.EX2, MUFU.RCP) in the code, each
+    counted once wherever it sits (the per-plane loop or not)."""
+    from mdfnet_tpu_torch.ops.cuda import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for block in sass.split("Function : ")[1:]:
+        name = _kernel_name(block.split("\n", 1)[0].strip())
+        if name.startswith("rowsweep_aggregate_kernel"):
+            out[name] = (block.count("MUFU.EX2"), block.count("MUFU.RCP"))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1786,6 +1979,9 @@ def main():
         return
     if sys.argv[1:] == ["--gate-spread"]:
         gate_spread()
+        return
+    if sys.argv[1:2] == ["--k1-device-ms"] and len(sys.argv) == 3:
+        k1_device_ms(sys.argv[2])
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1819,6 +2015,21 @@ def main():
     require(len(tc) == 8 and len(tr) == 6
             and not any(v[1] for v in (*tc.values(), *tr.values())),
             f"the tc kernels' instantiations spill or are missing: {tc} {tr}")
+    # K1 (3 G x 2 dtypes x eval/train) and the co1 kernel (3 dtype pairs x
+    # KD 1, 3 x 8 or 16 channels a stage): registers, spills; K1's MUFU
+    # instructions in the SASS
+    k1 = {k: v for k, v in kern.items()
+          if k.startswith("rowsweep_aggregate_kernel")}
+    co1 = {k: v for k, v in kern.items() if k.startswith("conv_co1_kernel")}
+    print("build: K1 and the co1 kernel (registers, spill store bytes): "
+          + ", ".join(f"{k} {v}" for k, v in {**k1, **co1}.items())
+          + "; K1's MUFU instructions (static, EX2 + RCP): "
+          + ", ".join(f"{k} {v}" for k, v in sass_mufu(lib_path).items()),
+          flush=True)
+    require(len(k1) == 12 and len(co1) == 12
+            and not any(v[1] for v in (*k1.values(), *co1.values())),
+            f"K1's or the co1 kernel's instantiations spill or are missing: "
+            f"{k1} {co1}")
 
     def entry(name, info, report, launches, tc_launches=None):
         info = dict(info)

@@ -37,8 +37,10 @@ def projection_matrices(intrinsics: torch.Tensor, extrinsics: torch.Tensor,
 def relative_transforms(src_projs: torch.Tensor,
                         ref_proj: torch.Tensor) -> torch.Tensor:
     """src_proj @ ref_proj^-1 for every source: (B, S, 4, 4) from
-    src_projs (B, S, 4, 4) and ref_proj (B, 4, 4), in f32."""
-    inv = torch.linalg.inv(ref_proj.float())
+    src_projs (B, S, 4, 4) and ref_proj (B, 4, 4), in f32. ``inv_ex``
+    leaves the factorisation's status unchecked, as ``jnp.linalg.inv``
+    does, so a CUDA call does not wait for the device."""
+    inv = torch.linalg.inv_ex(ref_proj.float()).inverse
     return src_projs.float() @ inv[:, None]
 
 

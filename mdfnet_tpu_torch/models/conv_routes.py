@@ -31,7 +31,8 @@ def conv_classes(module: nn.Module
 
 
 def eval_conv_routes(model: nn.Module) -> list[str]:
-    """The route ("tc" or "direct") of every conv launch of one eval forward
+    """The route ("tc", "co1" or "direct") of every conv launch of one eval
+    forward
     of a CoreNet on the card, in its compute dtype: each conv and
     transposed conv of the backbone, the U-Nets and refine runs once (the
     chains' layers one launch each)."""

@@ -4,8 +4,8 @@
 The depth is normalised to [0, 1] by the scene range; the half-res stack
 (conv0, 3 Res blocks, conv1 + skip, conv2_0) is ONE conv chain (K5) with the
 Res blocks' 0.1 scale and the skip adds in the epilogue, as in the TPU path
-(``refine.py:111-145``); PixelShuffle(2) follows, then the C->1 conv (K4, f32
-out) and the de-normalisation.
+(``refine.py:111-145``); PixelShuffle(2) follows, then the C->1 conv (K4 at
+Co = 1, on the co1 kernel, f32 out) and the de-normalisation.
 
 Train (JAX ``refine.py:174-210``) runs one differentiable conv per layer
 (``conv2d_train``): conv0, the Res blocks ``v + 0.1 * conv(relu(conv(v)))``,

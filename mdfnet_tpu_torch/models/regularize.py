@@ -5,7 +5,7 @@ Volumes are channels-last (B, D, H, W, G). Stage 0 uses the 3-scale net,
 stages 1-2 the 4-scale nets. Every conv runs on the 3D conv kernel (K2), every
 upsampling block on the transposed-conv kernel (K3) with its skip add fused
 into the epilogue, and the final bias-free 3x3x3 conv to one channel
-(ProbConv) on K2 with Co = 1 and an f32 output. The softmax over D is f32.
+(ProbConv) on the Co = 1 kernel (``csrc/conv_co1.cu``) with an f32 output. The softmax over D is f32.
 
 Train (JAX ``_dhcw_train_path``, ``regularize.py:225-255`` and :361) runs the
 same graph on the differentiable convs of ``ops/cuda/conv_vjp.py`` (K8) with

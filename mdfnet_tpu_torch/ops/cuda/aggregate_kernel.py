@@ -7,16 +7,19 @@ Port of ``mdfnet_tpu/ops/pallas/aggregate_kernel.py:427``
 affine) and ``:604`` (``rowsweep_stats``) for the C/G == 2 configuration,
 where the group softmax collapses to sigmoids of channel-pair differences:
 ``softmax([a, b]) == [sigmoid(a-b), sigmoid(b-a)]``, so only the G difference
-channels are warped. The kernels (``csrc/rowsweep_aggregate.cu``,
-``csrc/rowsweep_stats.cu``) share one device function for the chain of a
-(pixel, plane, source) and have no source window, so unlike the TPU kernels
-they need no coverage contract: they are exact for any camera.
+channels are warped. The kernels (``csrc/rowsweep_aggregate.cu``, where a
+group of G / 8 lanes shares a pixel (:func:`aggregate_plan`), and
+``csrc/rowsweep_stats.cu``, one thread per voxel) round the coordinate chain
+of a (pixel, plane, source) alike and have no source window, so unlike the
+TPU kernels they need no coverage contract: they are exact for any camera.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``plain=True`` asks for the plain version explicitly (used to compare
 the two on the card).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +34,29 @@ LAUNCHES = {"rowsweep_aggregate": 0, "rowsweep_aggregate_with_wsum": 0,
 _GROUPS = (8, 16, 32)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 2}   # input -> f32 output codes
 _STATS_BLOCK = 256          # threads per block of csrc/rowsweep_stats.cu
+_AGG_BLOCK = 128            # threads per block of csrc/rowsweep_aggregate.cu
+_AGG_PLANES = 8             # planes per lane group there, at most
+
+
+class AggregatePlan(NamedTuple):
+    """K1's launch (csrc/rowsweep_aggregate.cu): a group of ``lanes`` lanes
+    per pixel, each owning 8 of its G channels; a block covers ``pixels``
+    consecutive pixels of the flattened H x W and a run of ``planes``
+    planes; ``blocks`` blocks in all."""
+    lanes: int
+    pixels: int
+    planes: int
+    blocks: int
+
+
+def aggregate_plan(b: int, d: int, h: int, w: int, g: int) -> AggregatePlan:
+    """K1's launch plan for a (B, D, H, W, G) volume; the kernel checks that
+    ``planes`` and ``blocks`` are its own."""
+    lanes = g // 8
+    pixels = _AGG_BLOCK // lanes
+    planes = min(_AGG_PLANES, d)
+    return AggregatePlan(lanes, pixels, planes,
+                         b * -(-d // planes) * -(-(h * w) // pixels))
 
 
 def depth_weight_folded(sim: torch.Tensor, k0, bn_scale, bn_offset, k1,
@@ -149,8 +175,10 @@ def _launch_aggregate(src_diffs, ref_diffs, src_projs, ref_proj, depth_hypos,
         build.check_operand(t, tname)
     device, stream = build.launch_context(src_diffs)
     lib = build.load_library()
-    common = (b, n_src, d, h, w, g, int(per_pixel), _DTYPES[src_diffs.dtype],
-              w / (w - 1.0), h / (h - 1.0), device, stream)
+    plan = aggregate_plan(b, d, h, w, g)
+    common = (b, n_src, d, h, w, g, int(per_pixel), plan.planes, plan.blocks,
+              _DTYPES[src_diffs.dtype], w / (w - 1.0), h / (h - 1.0), device,
+              stream)
     if train:
         err = lib.mdf_rowsweep_aggregate_train(
             src_diffs.data_ptr(), ref_diffs.data_ptr(), rel.data_ptr(),

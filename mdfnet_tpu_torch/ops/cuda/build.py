@@ -31,13 +31,14 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points (csrc/*.cu): pointers and the stream are c_void_p
 SIGNATURES = {
-    "mdf_rowsweep_aggregate": [_P] * 6 + [_I] * 8 + [_F, _F, _I, _P],
-    "mdf_rowsweep_aggregate_train": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
+    "mdf_rowsweep_aggregate": [_P] * 6 + [_I] * 10 + [_F, _F, _I, _P],
+    "mdf_rowsweep_aggregate_train": [_P] * 8 + [_I] * 10 + [_F, _F, _I, _P],
     "mdf_rowsweep_stats": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _P],
     "mdf_conv_bn_act": [_P] * 6 + [_I] * 16 + [_P],
     "mdf_trconv_bn_act": [_P] * 6 + [_I] * 10 + [_P],
     "mdf_conv_tc": [_P] * 6 + [_I] * 20 + [_P],
     "mdf_trconv_tc": [_P] * 6 + [_I] * 14 + [_P],
+    "mdf_conv_co1": [_P] * 6 + [_I] * 13 + [_P],
     "mdf_conv3d_pair": [_P] * 8 + [_I] * 11 + [_P],
     "mdf_sample_2d": [_P] * 4 + [_I] * 7 + [_P],
     "mdf_splat_keys": [_P] * 3 + [_I] * 5 + [_P],

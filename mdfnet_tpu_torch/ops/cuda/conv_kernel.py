@@ -18,15 +18,18 @@ chain in shared memory is later work. The pair (K10, ``csrc/conv3d_pair.cu``)
 is two stride-1 conv3d layers in one launch whose intermediate volume stays
 in shared memory; as in the JAX package, no model path runs it.
 
-On the card a conv takes one of two kernels, by one static rule
+On the card a conv takes one of three kernels, by one static rule
 (:func:`conv_route`): a bf16 conv with Ci and Co multiples of 8 (Co <= 64;
 Co <= 32 for the transposed conv) runs on the tensor cores
 (``csrc/conv_tc.cu``, an implicit GEMM on wgmma with the input tile and its
 halo in shared memory, weights packed by :func:`pack_tc_weight`, or for the
-transposed conv by :func:`pack_trconv_tc_weight`); every other conv, the
-f32 ones, Co = 1 and Ci in {1, 3}, runs on the direct kernels of
-``csrc/conv_bn_act.cu`` (f32 FMA on the CUDA cores). There is no fallback
-between them: a launch that fails raises.
+transposed conv by :func:`pack_trconv_tc_weight`); a 3x3(x3) stride-1 conv
+to Co = 1 with Ci a multiple of 8 (the ProbConvs, refine's tail), bf16 or
+f32, on ``csrc/conv_co1.cu`` (a per-voxel reduction over a shared-memory
+tile, :func:`co1_plan`); every other conv, the f32 ones with Co > 1 and Ci
+in {1, 3}, runs on the direct kernels of ``csrc/conv_bn_act.cu`` (f32 FMA
+on the CUDA cores). There is no fallback between them: a launch that fails
+raises.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``plain=True`` asks for the plain version explicitly.
@@ -43,17 +46,19 @@ from mdfnet_tpu_torch.ops.cuda import build, exact_cuda_math
 
 # kernel launches since the last reset (the main-path check reads them); the
 # chain counts each of its layer launches. ``conv_tc`` counts the launches
-# that took the tc route (csrc/conv_tc.cu), whichever wrapper made them; the
-# wrapper's own counter counts them too. The ``*_dgrad`` counters are the
+# that took the tc route (csrc/conv_tc.cu), ``conv_co1`` those that took the
+# co1 route (csrc/conv_co1.cu), whichever wrapper made them; the wrapper's
+# own counter counts them too. The ``*_dgrad`` counters are the
 # launches that compute an input gradient for the training convolutions
 # (ops/cuda/conv_vjp.py, which passes ``counter=``): K2 or K3 for
 # conv3d_train, K2 at stride 2 for trconv3d_train, K4 for conv2d_train.
 LAUNCHES = {"conv3d_bn_act": 0, "trconv3d_bn_act": 0, "conv2d_bn_act": 0,
             "conv2d_chain": 0, "conv3d_dgrad": 0, "trconv3d_dgrad": 0,
-            "conv2d_dgrad": 0, "conv3d_pair_bn_act": 0, "conv_tc": 0}
+            "conv2d_dgrad": 0, "conv3d_pair_bn_act": 0, "conv_tc": 0,
+            "conv_co1": 0}
 # the tc-route launches among each wrapper counter's (their sum is
 # LAUNCHES["conv_tc"])
-TC_LAUNCHES = {k: 0 for k in LAUNCHES if k != "conv_tc"}
+TC_LAUNCHES = {k: 0 for k in LAUNCHES if k not in ("conv_tc", "conv_co1")}
 # None, or a list to which every conv launch appends (route, kd, k, stride,
 # x's (N, D, H, W, Ci) shape, Co, transposed): what a run sends to which
 # kernel
@@ -66,6 +71,9 @@ _PAIR_MID_VOXELS = 4 * 10 * 18   # csrc/conv3d_pair.cu's tile with its halo
 # bytes of its table of K-step descriptors
 _TC_MB = {8: 4, 16: 4, 32: 2, 64: 2}
 _TC_TABLE = 1024
+# csrc/conv_co1.cu: threads per block, tile width (w), outputs per thread
+# (along w), 16-byte words per staged row of the tile
+_CO1_THREADS, _CO1_TW, _CO1_COLS, _CO1_ROW = 256, 32, 4, 36
 _DTYPES = {(torch.float32, torch.float32): 0,
            (torch.bfloat16, torch.bfloat16): 1,
            (torch.bfloat16, torch.float32): 2}
@@ -323,17 +331,51 @@ def _trconv_tc_plan(ci: int, co: int, depth: int,
     return None
 
 
+class Co1Plan(NamedTuple):
+    """The Co = 1 kernel's tile for one conv class (see :func:`co1_plan`)."""
+    td: int         # output tile td x th x tw voxels
+    th: int
+    tw: int
+    channels: int   # input channels per stage (a multiple of 8 dividing Ci)
+    smem: int       # bytes of shared memory per block
+
+
+@functools.lru_cache(maxsize=None)
+def co1_plan(kd: int, ci: int, itemsize: int) -> Co1Plan | None:
+    """csrc/conv_co1.cu's tile for a KD x 3 x 3 stride-1 conv to Co = 1
+    from Ci channels of ``itemsize`` bytes, or None where it takes none (Ci
+    not a multiple of 8, KD not 1 or 3). 256 threads own td x th x 32
+    outputs, 4 along w each (KD = 3: 4 x 8 x 32; KD = 1: 1 x 32 x 32); the
+    block holds the weights (f32) and the tile's input with its one-voxel
+    halo (rows of 34 voxels padded to 36) for 16 channels at a time where
+    16 divides Ci, else 8. With Ci <= 16 (one stage) the kernel sums in the
+    direct kernel's order and gives its bits."""
+    if ci <= 0 or ci % 8 or kd not in (1, 3):
+        return None
+    td = 4 if kd == 3 else 1
+    th = _CO1_THREADS // (_CO1_TW // _CO1_COLS) // td
+    cs = 16 if ci % 16 == 0 else 8
+    words = (td + kd - 1) * (th + 2) * _CO1_ROW
+    smem = -(-kd * 9 * ci * 4 // 16) * 16 + words * cs * itemsize
+    return Co1Plan(td, th, _CO1_TW, cs, smem) if smem <= _MAX_SMEM else None
+
+
 def conv_route(dtype: torch.dtype, kd: int, k: int, stride: int, ci: int,
                co: int, transposed: bool = False) -> str:
     """Which kernel a conv (``transposed``: the 3x3x3 stride-2 transposed
     conv) launches on the card: "tc" (csrc/conv_tc.cu, wgmma on the tensor
     cores) for a bf16 input with Ci % 8 == 0, Co % 8 == 0, Co <= 64 (32
-    transposed) and a tile that fits in shared memory; "direct"
-    (csrc/conv_bn_act.cu, f32 FMA) for the rest: f32, Co = 1 (ProbConv,
-    refine's tail), Ci in {1, 3} (the trunk's and refine's heads)."""
+    transposed) and a tile that fits in shared memory; "co1"
+    (csrc/conv_co1.cu) for a 3x3(x3) stride-1 conv to Co = 1 with Ci % 8
+    == 0, bf16 or f32 (ProbConv, refine's tail); "direct"
+    (csrc/conv_bn_act.cu, f32 FMA) for the rest: f32 with Co > 1, Ci in
+    {1, 3} (the trunk's and refine's heads)."""
     if dtype == torch.bfloat16 and tc_plan(kd, k, stride, ci, co,
                                            transposed):
         return "tc"
+    if (co == 1 and k == 3 and stride == 1 and not transposed
+            and co1_plan(kd, ci, dtype.itemsize)):
+        return "co1"
     return "direct"
 
 
@@ -361,11 +403,11 @@ def _padded(v: torch.Tensor, cop: int) -> torch.Tensor:
 def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
             stride, relu, transposed=False, route=None):
     """Launch the conv (or transposed conv) kernel on (N, D, H, W, Ci) and
-    count the launch under ``LAUNCHES[counter]`` (and ``"conv_tc"`` on the
-    tc route).
+    count the launch under ``LAUNCHES[counter]`` (and ``"conv_tc"`` or
+    ``"conv_co1"`` on those routes).
 
     ``w_kio``: (*taps, Ci, Co) weights in any float dtype. ``route``: None
-    follows :func:`conv_route`; "tc" or "direct" forces one."""
+    follows :func:`conv_route`; "tc", "co1" or "direct" forces one."""
     n, di, hi, wi, ci = x5.shape
     co = w_kio.shape[-1]
     if (x5.dtype, out_dtype) not in _DTYPES:
@@ -400,6 +442,15 @@ def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
              else pack_tc_weight(w_kio, kd=kd, k=k, stride=stride))
         # the kernel reads the first Co entries only
         s, o = scale.float().contiguous(), offset.float().contiguous()
+    elif route == "co1":
+        plan = co1_plan(kd, ci, x5.element_size())
+        if plan is None or co != 1 or k != 3 or stride != 1 or transposed:
+            raise ValueError(f"conv co1 kernel: no tile for {x5.dtype} "
+                             f"kd={kd} k={k} stride={stride} Ci={ci} Co={co}"
+                             f"{' (transposed)' if transposed else ''}")
+        w = w_kio.float().reshape(-1).contiguous()
+        s = scale.float().reshape(1).contiguous()
+        o = offset.float().reshape(1).contiguous()
     elif route == "direct":
         if 27 * ci * _COB * 4 > _MAX_SMEM:
             raise ValueError(f"conv kernel: Ci={ci} exceeds the shared "
@@ -433,6 +484,11 @@ def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
             *ptrs, n, di, hi, wi, ci, do, ho, wo, co, cop, kd, k, stride,
             int(relu), plan.td, plan.bh, plan.q, plan.q_stage, dtypes,
             device, stream)
+    elif route == "co1":
+        name = "conv_co1"
+        err = lib.mdf_conv_co1(*ptrs, n, di, hi, wi, ci, kd, int(relu),
+                               plan.td, plan.th, plan.tw, plan.channels,
+                               dtypes, device, stream)
     elif transposed:
         name = "trconv_bn_act"
         err = lib.mdf_trconv_bn_act(*ptrs, n, di, hi, wi, ci, co, cop,
@@ -446,6 +502,8 @@ def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
     if route == "tc":
         LAUNCHES["conv_tc"] += 1
         TC_LAUNCHES[counter] += 1
+    elif route == "co1":
+        LAUNCHES["conv_co1"] += 1
     LAUNCHES[counter] += 1
     if TRACE is not None:
         TRACE.append((route, kd, k, stride, tuple(x5.shape), co, transposed))
@@ -473,8 +531,8 @@ def conv2d_bn_act(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
     """2D conv (K4). x (N, H, W, Ci); weight (Co, Ci, k, k), k in {1, 3, 5};
     stride 1 or 2, padding (k-1)//2. Returns (N, ceil(H/s), ceil(W/s), Co)
     in ``out_dtype`` (default x.dtype). A launch counts under
-    ``LAUNCHES[counter]``. ``route`` ("tc" or "direct") overrides
-    :func:`conv_route`, to compare the two kernels."""
+    ``LAUNCHES[counter]``. ``route`` ("tc", "co1" or "direct") overrides
+    :func:`conv_route`, to compare the kernels."""
     out_dtype = out_dtype or x.dtype
     if plain or not x.is_cuda:
         return _conv_plain(x, weight, scale, offset, stride=stride, relu=relu,
@@ -601,7 +659,7 @@ def conv2d_chain(x: torch.Tensor, weights, scales, offsets, *,
             j's output after this layer's ReLU (Res-block skips).
         final_stride: stride of the LAST layer (1 or 2); the others are 1.
         route: None follows :func:`conv_route` per layer; "direct" runs
-            every layer on the direct kernel (to compare the two).
+            every layer on the direct kernel (to compare the kernels).
     Returns:
         The last layer's output, in x's dtype.
     """

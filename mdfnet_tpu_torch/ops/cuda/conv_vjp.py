@@ -11,7 +11,9 @@ conv kernels of ``conv_kernel.py``:
   the conv output, so BN and ReLU stay outside (``models/layers.py``);
   K2's, K3's and K4's launches, the input gradients' too, take the kernel
   that ``conv_kernel.conv_route`` gives (the tensor cores for bf16 with Ci,
-  Co multiples of 8);
+  Co multiples of 8; the co1 kernel for a stride-1 conv to Co = 1, such as
+  ProbConv's forward, whose input gradient, Ci = 1, takes the direct
+  kernel);
 - d_input of a stride-1 conv: the same conv with the weight flipped in
   space and its (Co, Ci) axes swapped, ``(Co, Ci, k..) -> (Ci, Co, k..)``;
 - d_input of a stride-2 conv3d: the transposed conv (K3) with the conv's own

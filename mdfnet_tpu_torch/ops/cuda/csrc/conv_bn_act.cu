@@ -1,9 +1,11 @@
 // Direct convolutions with a fused folded-BN / bias epilogue (K2, K3, K4 and
 // the launches of K5) on the CUDA cores. Since the tensor-core kernels
 // (conv_tc.cu) took the bf16 convs and transposed convs with Ci and Co
-// multiples of 8, this one serves the rest (ops/cuda/conv_kernel.py
-// conv_route): the f32 convs, Co = 1 (ProbConv, refine's tail), Ci in {1, 3}
-// (the trunk's and refine's heads), and the f32 transposed convs.
+// multiples of 8, and conv_co1.cu the 3x3(x3) stride-1 convs to Co = 1
+// (ProbConv, refine's tail), this one serves the rest (ops/cuda/
+// conv_kernel.py conv_route): the f32 convs with Co > 1, Ci in {1, 3} (the
+// trunk's and refine's heads, ProbConv's input gradient), and the f32
+// transposed convs; route="direct" still forces it, as a yardstick.
 //
 // Replaces:
 //   K2 mdfnet_tpu/ops/pallas/conv3d_kernel.py:577 conv3d_bn_relu
@@ -32,9 +34,9 @@
 // channels (grid.y walks the chunks); the block stages its chunk of the
 // weights (taps x Ci x 8, f32, <= 55 KB at Ci = 64) in shared memory, where
 // every thread of a warp reads the same address (a broadcast). Input channels
-// are read 8 at a time with 16-byte loads when Ci % 8 == 0. Co = 1 (ProbConv,
-// refine's tail) is a reduction, not a GEMM: it runs correctly on the same
-// kernel with 7 of the 8 accumulators idle. The transposed conv gathers only
+// are read 8 at a time with 16-byte loads when Ci % 8 == 0. A conv to Co = 1
+// forced here runs correctly with 7 of the 8 accumulators idle (conv_co1.cu
+// is its kernel). The transposed conv gathers only
 // the taps where (o + pad - k) is even: blockIdx.z is the output parity
 // phase, so all threads of a block run the same 1..8 taps without divergence.
 

@@ -138,19 +138,9 @@ size_t smem_bytes(const TcArgs& a, int n) {
   return kTableBytes + (tile > stage ? tile : stage);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
+using mdf::cp_async16;
+using mdf::cp_async_wait_all;
+using mdf::smem_u32;
 
 // wgmma matrix descriptor, no swizzle: start, LBO and SBO in 16-byte units
 __device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lbo, uint32_t sbo) {

@@ -13,25 +13,45 @@
 // w = sigmoid(k1 relu(bn_s (k0 . sim) + bn_o) + b1); output
 // sum_s w sim / sum_s w as (B, D, H, W, G) f32.
 //
-// What bounds it on the H100: not DRAM — the sources are a few MB per stage
-// and served by L1/L2 (the four bilinear taps are G contiguous values,
-// channels-last, one to four 16-byte loads each), and the (B, D, H, W, G)
-// f32 output is ~180 MB at DTU stage 0 — nor the special-function units
-// (G sigmoids per pixel, plane and source). Each thread keeps 3G floats in
-// registers (209 registers at G = 32), which caps occupancy at two 128-thread
-// blocks per SM, so the kernel is latency bound: 0.84-1.02 ms at DTU stage 0
-// on an H100 (700 W), ~0.2 TB/s of output.
+// What bounds it on the H100: not DRAM. The sources are a few MB per stage
+// and stay in L2; the f32 output is ~180 MB at DTU stage 0 (0.06 ms at
+// 3.35 TB/s). The f32 operations (~4.2 GFLOP at stage 0, 0.063 ms at
+// 67 TFLOP/s) and the special-function units are: each sigmoid is one
+// MUFU.EX2 and one MUFU.RCP, each division one more MUFU.RCP, at 16 per SM
+// and clock. Per (pixel, plane) this design issues 2G + 2L per source (G
+// sigmoids, the weight's sigmoid on each of the L lanes of the pixel's
+// group), 2L per L sources (one projection per lane), G final divisions
+// and 2G / planes for q: ~344 at G = 32 (L = 4) with 4 sources and runs of
+// 8 planes, ~0.12 ms at stage 0 on 132 SMs at 1.98 GHz. Each exact sigmoid
+// and division also costs a dozen other instructions (the exp's range
+// reduction, the reciprocal's corrections), so instruction issue comes
+// before the MUFU bound. The first version (one thread per voxel, 3G
+// floats of registers, two blocks per SM) was latency bound at
+// 0.84-1.02 ms there.
 //
-// Design: one thread per (b, d, h, w); the projection is computed once per
-// (pixel, plane, source); q, the similarities and the accumulators live in
-// registers (G templated). There is no source window, so unlike the TPU
-// kernel (whose DMA window imposes a coverage contract) it is exact for any
-// camera. Coordinates follow mdfnet_tpu/geometry.py reference_grid_coords and
-// the gather warp's tap rounding (mdfnet_tpu/ops/sample.py): the coordinate
-// chain uses non-contracted multiplies/adds so it rounds like the unfused
-// reference. One difference: a NaN coordinate (z == 0) samples zeros here.
-// The chain per (pixel, plane, source) is mdf::sweep_similarity (common.cuh),
-// which the stats kernel (rowsweep_stats.cu) shares.
+// Design: a lane group of L = G / 8 lanes shares a pixel and each lane owns
+// 8 of its channels, so a bilinear tap is one 16-byte (bf16) or two
+// (f32) loads per lane, G contiguous values per group, and q, the
+// similarities and the accumulators are 8 floats per lane (at G = 8 a lane
+// is a whole pixel). A block of 128 threads covers
+// 128 / L consecutive pixels of the flattened H x W (neighbours in w, rows
+// wrapping), so a warp's output stores are one contiguous run, and walks a
+// run of up to 8 planes for them, computing q once per run. Per plane the
+// group's lanes project the pixel into L sources at once (lane l into
+// source l), and shuffles hand each source's taps to the whole group: the
+// projection and its two divisions run once per (pixel, plane, source),
+// not on every lane. The field k0 . sim passes from lane to lane in channel
+// order (group_field), one FMA per term, so every rounding of the chain is
+// mdf::sweep_similarity's, which the stats kernel (rowsweep_stats.cu, one
+// thread per voxel) runs: the kernel gives the bits of the one-thread
+// version it replaced, and the batch statistics describe exactly the field
+// it normalises. The coordinate chain keeps the non-contracted multiplies
+// and adds (common.cuh: sweep_taps), so it rounds like the
+// unfused reference (mdfnet_tpu/geometry.py reference_grid_coords, the
+// gather warp's tap rounding in mdfnet_tpu/ops/sample.py). There is no
+// source window, so unlike the TPU kernel (whose DMA window imposes a
+// coverage contract) it is exact for any camera. One difference: a NaN
+// coordinate (z == 0) samples zeros here.
 //
 // The train instantiation (TRAIN = true) reads a per-source-view BN affine
 // bn = [bn_s[S], bn_o[S]] instead of the two scalars in params, and also
@@ -42,9 +62,45 @@
 namespace {
 
 constexpr int kBlock = 128;
+constexpr int kMinBlocks = 5;   // per SM: 20 warps, at most 96 registers a thread
+constexpr int kCh = 8;          // channels per lane
+
+// The launch plan, which ops/cuda/aggregate_kernel.py aggregate_plan
+// mirrors: L lanes per pixel, P pixels per block; block i covers pixel tile
+// i % tiles, plane run (i / tiles) % runs and item i / (tiles * runs).
+template <int G> struct Plan {
+  static constexpr int L = G / kCh;
+  static constexpr int P = kBlock / L;
+};
+
+// The pre-BN field k0 . sim of a lane group's pixel, summed over g = 0 ..
+// G - 1 in order with one FMA per term, as mdf::sweep_similarity sums it:
+// the chain passes from lane to lane (lane l holds channels kCh l ..
+// kCh l + kCh - 1), each lane continuing it over its own channels in turn,
+// and every lane of the group gets the result. The statistics of the stats
+// kernel (rowsweep_stats.cu) therefore describe exactly the field
+// normalised here.
+template <int L>
+__device__ __forceinline__ float group_field(const float* sim, const float* k0) {
+  float s = 0.0f;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    float t = s;
+#pragma unroll
+    for (int i = 0; i < kCh; ++i) t = fmaf(sim[i], k0[i], t);
+    s = L > 1 ? __shfl_sync(0xffffffffu, t, l, L) : t;
+  }
+  return s;
+}
+
+// lane k's value of the group's L lanes
+template <int L, typename V>
+__device__ __forceinline__ V from_lane(V v, int k) {
+  return L > 1 ? __shfl_sync(0xffffffffu, v, k, L) : v;
+}
 
 template <typename T, int G, bool TRAIN>
-__global__ void __launch_bounds__(kBlock) rowsweep_aggregate_kernel(
+__global__ void __launch_bounds__(kBlock, kMinBlocks) rowsweep_aggregate_kernel(
     const T* __restrict__ src,         // (B, S, H, W, G) source pair diffs
     const T* __restrict__ ref,         // (B, H, W, G) reference pair diffs
     const float* __restrict__ rel,     // (B, S, 4, 4) src_proj @ inv(ref_proj)
@@ -53,69 +109,107 @@ __global__ void __launch_bounds__(kBlock) rowsweep_aggregate_kernel(
     const float* __restrict__ bn,      // TRAIN: [bn_s[S], bn_o[S]]
     float* __restrict__ out,           // (B, D, H, W, G)
     float* __restrict__ wsum_out,      // TRAIN: (B, D, H, W)
-    int B, int S, int D, int H, int W, int hypo_per_pixel, float sx, float sy) {
-  const long long total = (long long)B * D * H * W;
-  const long long p = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (p >= total) return;
-  const int w = (int)(p % W);
-  long long r = p / W;
-  const int h = (int)(r % H);
-  r /= H;
-  const int d = (int)(r % D);
-  const int b = (int)(r / D);
+    int S, int D, int H, int W, int hypo_per_pixel, int planes, float sx, float sy) {
+  constexpr int L = Plan<G>::L, P = Plan<G>::P;
+  const int HW = H * W;
+  const int tiles = (HW + P - 1) / P, runs = (D + planes - 1) / planes;
+  const int tile = blockIdx.x % tiles;
+  const int run = (blockIdx.x / tiles) % runs;
+  const int b = blockIdx.x / tiles / runs;
 
-  const float hyp = hypo_per_pixel ? hypos[p] : hypos[(long long)b * D + d];
+  const int lane = threadIdx.x % L, c0 = kCh * lane;   // channels c0 .. c0 + kCh - 1
+  const int pixel = tile * P + threadIdx.x / L;
+  const bool live = pixel < HW;   // the others compute a copy and store nothing
+  const int pix = live ? pixel : HW - 1;
+  const float xf = (float)(pix % W), yf = (float)(pix / W);
+
+  float q[kCh], k0[kCh];
+  mdf::ldg8(ref + ((long long)b * HW + pix) * G + c0, q);
+#pragma unroll
+  for (int i = 0; i < kCh; ++i) {
+    q[i] = mdf::sigmoid(q[i]);
+    k0[i] = __ldg(params + 4 + c0 + i);
+  }
   const float k1 = params[2], b1 = params[3];
-  const float* k0 = params + 4;
+  const T* srcb = src + (long long)b * S * HW * G + c0;
+  const float* relb = rel + (long long)b * S * 16;
 
-  float q[G], acc[G], sim[G];
-  mdf::load_q<T, G>(ref + (((long long)b * H + h) * W + w) * G, q);
+  const int d_end = min(D, (run + 1) * planes);
+  for (int d = run * planes; d < d_end; ++d) {
+    const long long voxel = ((long long)b * D + d) * HW + pix;
+    const float hyp = __ldg(hypo_per_pixel ? hypos + voxel : hypos + (long long)b * D + d);
+    float acc[kCh] = {};
+    float wsum = 0.0f;
+    for (int s0 = 0; s0 < S; s0 += L) {
+      // the group's L lanes project the pixel into L sources at once, lane
+      // l into source s0 + l; each tap set then goes to the whole group
+      const mdf::Taps mine =
+          mdf::sweep_taps(relb + min(s0 + lane, S - 1) * 16, xf, yf, hyp, H, W, sx, sy);
+      const int ns = min(L, S - s0);
+      for (int k = 0; k < ns; ++k) {
+        const int s = s0 + k;
+        const int x0 = from_lane<L>(mine.x0, k), y0 = from_lane<L>(mine.y0, k);
+        const float wx = from_lane<L>(mine.wx, k), wy = from_lane<L>(mine.wy, k);
+        const bool vx0 = x0 >= 0, vx1 = x0 + 1 < W;
+        const bool vy0 = y0 >= 0, vy1 = y0 + 1 < H;
+        const T* row0 = srcb + (long long)s * HW * G + ((long long)y0 * W + x0) * G;
+        const T* row1 = row0 + (long long)W * G;
+        float v00[kCh] = {}, v01[kCh] = {}, v10[kCh] = {}, v11[kCh] = {};
+        if (vy0 && vx0) mdf::ldg8(row0, v00);
+        if (vy0 && vx1) mdf::ldg8(row0 + G, v01);
+        if (vy1 && vx0) mdf::ldg8(row1, v10);
+        if (vy1 && vx1) mdf::ldg8(row1 + G, v11);
+        float sim[kCh];
 #pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = 0.0f;
-  float wsum = 0.0f;
-  const float xf = (float)w, yf = (float)h;
-
-  for (int s = 0; s < S; ++s) {
-    const float sfield = mdf::sweep_similarity<T, G>(
-        src + ((long long)b * S + s) * H * W * G, rel + ((long long)b * S + s) * 16, xf, yf,
-        hyp, H, W, sx, sy, q, k0, sim);
-    const float bn_s = TRAIN ? bn[s] : params[0];
-    const float bn_o = TRAIN ? bn[S + s] : params[1];
-    const float act = fmaxf(sfield * bn_s + bn_o, 0.0f);
-    const float wgt = mdf::sigmoid(act * k1 + b1);
+        for (int i = 0; i < kCh; ++i) {
+          const float top = v00[i] * (1.0f - wx) + v01[i] * wx;
+          const float bot = v10[i] * (1.0f - wx) + v11[i] * wx;
+          const float pv = mdf::sigmoid(top * (1.0f - wy) + bot * wy);
+          sim[i] = pv * q[i] + (1.0f - pv) * (1.0f - q[i]);
+        }
+        const float sfield = group_field<L>(sim, k0);
+        const float bn_s = TRAIN ? bn[s] : params[0];
+        const float bn_o = TRAIN ? bn[S + s] : params[1];
+        const float act = fmaxf(sfield * bn_s + bn_o, 0.0f);
+        const float wgt = mdf::sigmoid(act * k1 + b1);
 #pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] += wgt * sim[g];
-    wsum += wgt;
+        for (int i = 0; i < kCh; ++i) acc[i] += wgt * sim[i];
+        wsum += wgt;
+      }
+    }
+    if (live) {
+      float v[kCh];
+#pragma unroll
+      for (int i = 0; i < kCh; ++i) v[i] = acc[i] / wsum;
+      mdf::store8(out + voxel * G + c0, v);
+      if (TRAIN && c0 == 0) wsum_out[voxel] = wsum;
+    }
   }
-
-  float* op = out + p * G;
-#pragma unroll
-  for (int g0 = 0; g0 < G; g0 += 8) {
-    float v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = acc[g0 + j] / wsum;
-    mdf::store8(op + g0, v);
-  }
-  if (TRAIN) wsum_out[p] = wsum;
 }
 
 struct Args {
   const void *src, *ref, *rel, *hypos, *params, *bn;
   void *out, *wsum;
-  int B, S, D, H, W, hypo_per_pixel;
+  int B, S, D, H, W, hypo_per_pixel, planes, blocks;
   float sx, sy;
 };
 
 template <typename T, int G, bool TRAIN>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const long long total = (long long)a.B * a.D * a.H * a.W;
-  const unsigned grid = (unsigned)((total + kBlock - 1) / kBlock);
-  rowsweep_aggregate_kernel<T, G, TRAIN><<<grid, kBlock, 0, stream>>>(
+  constexpr int P = Plan<G>::P;
+  if (a.planes < 1) return cudaErrorInvalidValue;
+  // the wrapper's plan must be this kernel's
+  const long long hw = (long long)a.H * a.W;
+  const long long blocks =
+      (long long)a.B * ((a.D + a.planes - 1) / a.planes) * ((hw + P - 1) / P);
+  if (blocks != a.blocks || blocks > 0x7fffffffLL || hw > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  rowsweep_aggregate_kernel<T, G, TRAIN><<<(unsigned)blocks, kBlock, 0, stream>>>(
       static_cast<const T*>(a.src), static_cast<const T*>(a.ref),
       static_cast<const float*>(a.rel), static_cast<const float*>(a.hypos),
       static_cast<const float*>(a.params), static_cast<const float*>(a.bn),
-      static_cast<float*>(a.out), static_cast<float*>(a.wsum), a.B, a.S, a.D, a.H, a.W,
-      a.hypo_per_pixel, a.sx, a.sy);
+      static_cast<float*>(a.out), static_cast<float*>(a.wsum), a.S, a.D, a.H, a.W,
+      a.hypo_per_pixel, a.planes, a.sx, a.sy);
   return cudaGetLastError();
 }
 
@@ -142,16 +236,18 @@ cudaError_t dispatch(const Args& a, int G, int dtypes, cudaStream_t st) {
 
 }  // namespace
 
-// Each entry returns cudaGetLastError() after the launch (0 on success).
+// Each entry returns cudaGetLastError() after the launch (0 on success);
+// planes and blocks are the wrapper's launch plan, checked against the
+// kernel's.
 extern "C" int mdf_rowsweep_aggregate(const void* src, const void* ref, const void* rel,
                                       const void* hypos, const void* params, void* out,
                                       int B, int S, int D, int H, int W, int G,
-                                      int hypo_per_pixel, int dtypes, float sx, float sy,
-                                      int device, void* stream) {
+                                      int hypo_per_pixel, int planes, int blocks, int dtypes,
+                                      float sx, float sy, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Args a{src, ref, rel, hypos, params, nullptr, out, nullptr,
-               B, S, D, H, W, hypo_per_pixel, sx, sy};
+               B, S, D, H, W, hypo_per_pixel, planes, blocks, sx, sy};
   return dispatch<false>(a, G, dtypes, static_cast<cudaStream_t>(stream));
 }
 
@@ -160,12 +256,13 @@ extern "C" int mdf_rowsweep_aggregate_train(const void* src, const void* ref, co
                                             const void* hypos, const void* params,
                                             const void* bn, void* out, void* wsum, int B,
                                             int S, int D, int H, int W, int G,
-                                            int hypo_per_pixel, int dtypes, float sx,
-                                            float sy, int device, void* stream) {
+                                            int hypo_per_pixel, int planes, int blocks,
+                                            int dtypes, float sx, float sy, int device,
+                                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Args a{src, ref, rel, hypos, params, bn, out, wsum,
-               B, S, D, H, W, hypo_per_pixel, sx, sy};
+               B, S, D, H, W, hypo_per_pixel, planes, blocks, sx, sy};
   return dispatch<true>(a, G, dtypes, static_cast<cudaStream_t>(stream));
 }
 

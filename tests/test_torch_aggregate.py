@@ -144,3 +144,43 @@ def test_cpu_wrapper_takes_plain_version():
     torch.testing.assert_close(rowsweep_aggregate(*args, *scalars),
                                rowsweep_aggregate_plain(*args, *scalars))
     assert aggregate_kernel.LAUNCHES == before
+
+
+def _plan_voxels(plan, b, d, h, w):
+    """The flat (b, d, h, w) index of every voxel that K1's lane groups
+    store under ``plan``, one entry per store, by the kernel's own
+    decomposition (csrc/rowsweep_aggregate.cu): block i covers pixel tile
+    i % tiles, plane run (i / tiles) % runs and item i / (tiles * runs);
+    its group j the pixel tile * pixels + j (stored if < H W) and planes
+    run * planes .. (< D)."""
+    hw = h * w
+    tiles, runs = -(-hw // plan.pixels), -(-d // plan.planes)
+    blk = np.arange(plan.blocks)[:, None, None]
+    grp = np.arange(plan.pixels)[None, :, None]
+    j = np.arange(plan.planes)[None, None, :]
+    pix = blk % tiles * plan.pixels + grp
+    plane = blk // tiles % runs * plan.planes + j
+    item = blk // tiles // runs
+    live = np.broadcast_to((pix < hw) & (plane < d) & (item < b),
+                           (plan.blocks, plan.pixels, plan.planes))
+    flat = (item * d + plane) * hw + pix
+    return np.broadcast_to(flat, live.shape)[live]
+
+
+@pytest.mark.parametrize("b,d,h,w,g", [
+    (1, 48, 148, 200, 32), (1, 24, 296, 400, 16), (1, 8, 592, 800, 8),
+    (4, 48, 64, 80, 32), (2, 11, 13, 37, 8), (2, 11, 13, 37, 16),
+    (2, 11, 13, 37, 32), (1, 3, 1, 5, 32)])
+def test_aggregate_plan_covers_every_voxel_once(b, d, h, w, g):
+    """K1's launch plan (csrc/rowsweep_aggregate.cu) at the DTU eval stage
+    shapes, DTU train stage 0 and extents its pixel tiles and plane runs do
+    not divide: G / 8 lanes a pixel, 128 threads a block, and every (b, d,
+    h, w) stored by exactly one lane group."""
+    from mdfnet_tpu_torch.ops.cuda.aggregate_kernel import aggregate_plan
+    plan = aggregate_plan(b, d, h, w, g)
+    assert plan.lanes * 8 == g and plan.lanes * plan.pixels == 128
+    assert plan.planes == min(d, 8)
+    flat = _plan_voxels(plan, b, d, h, w)
+    counts = np.bincount(flat, minlength=b * d * h * w)
+    assert counts.shape == (b * d * h * w,) and (counts == 1).all()
+

@@ -119,6 +119,39 @@ def test_conv2d_out_f32_and_residual():
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
+@pytest.mark.parametrize("kd,ci", [(3, 16), (3, 8), (1, 8)])
+def test_co1_route_matches_pallas(kd, ci):
+    """The convs to Co = 1 that the co1 kernel takes (the ProbConvs,
+    refine's tail; no ReLU, f32 out): with ``route="co1"`` a CPU tensor
+    runs the plain version, held to the Pallas conv (conv3d_bn_relu or
+    conv2d_fused at Co = 1) in interpret mode."""
+    rng = np.random.RandomState(60 + ci + kd)
+    shape = (1, 4, 6, 10) if kd == 3 else (1, 12, 20)
+    x = rng.randn(*shape, ci).astype(np.float32)
+    k = (rng.randn(*(3,) * (3 if kd == 3 else 2), ci, 1) * 0.2
+         ).astype(np.float32)
+    scale, offset = np.ones(1, np.float32), rng.randn(1).astype(np.float32)
+    conv = conv3d_bn_act if kd == 3 else conv2d_bn_act
+    before = dict(conv_kernel.LAUNCHES)
+    got = conv(*to_torch(x, _torch_weight(k), scale, offset), relu=False,
+               out_dtype=torch.float32, route="co1").numpy()
+    assert conv_kernel.LAUNCHES == before
+    if kd == 3:
+        pallas = conv3d_bn_relu(jnp.asarray(x[0].transpose(0, 1, 3, 2)),
+                                jnp.asarray(k), jnp.asarray(scale),
+                                jnp.asarray(offset), relu=False,
+                                interpret=True)
+        want = np.asarray(pallas).transpose(0, 1, 3, 2)[None]
+    else:
+        pallas = conv2d_fused(jnp.asarray(x.transpose(0, 1, 3, 2)),
+                              jnp.asarray(k), jnp.asarray(scale),
+                              jnp.asarray(offset), th=4, relu=False,
+                              interpret=True)
+        want = np.asarray(pallas).transpose(0, 1, 3, 2)
+    assert got.shape == want.shape == shape + (1,)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
 @pytest.mark.parametrize("final_stride", [1, 2])
 def test_chain_matches_pallas(final_stride):
     """Res-style chain: conv-ReLU, conv x0.1 + skip of layer 0, then a last

@@ -281,12 +281,13 @@ def test_mirror_input_gradient_matches_jax_vjp(kind, shape, ci, co):
 
 def test_default_model_routes():
     """One bf16 eval forward of the default model: 53 tc launches (22 of
-    K2's 25, all 8 of K3's, 7 of K4's 8, 16 of K5's 18) and a direct
-    remainder of Co = 1 (three ProbConvs, refine's tail) and Ci in {3, 1}
-    (the trunk's and refine's heads); in f32 every conv is direct."""
+    K2's 25, all 8 of K3's, 7 of K4's 8, 16 of K5's 18), 4 on the co1
+    kernel (Co = 1: three ProbConvs, refine's tail) and a direct remainder
+    of Ci in {3, 1} (the trunk's and refine's heads); in f32 every conv is
+    direct but the four to Co = 1."""
     model = build_model(compute_dtype="bfloat16", device="cpu")
     routes = eval_conv_routes(model)
-    assert collections.Counter(routes) == {"tc": 53, "direct": 6}
+    assert collections.Counter(routes) == {"tc": 53, "co1": 4, "direct": 2}
     per_part = {
         "Backbone": conv_classes(model.Backbone),
         "Regular": [c for r in model.Regular for c in conv_classes(r)],
@@ -297,18 +298,21 @@ def test_default_model_routes():
     transposed = sorted(c for c in per_part["Regular"] if c[-1])
     assert transposed == [(3, 3, 2, 16, 8, True)] * 2 + [
         (3, 3, 2, 32, 16, True)] * 3 + [(3, 3, 2, 64, 32, True)] * 3
-    direct = sorted(c[:5] for cl in per_part.values() for c in cl
-                    if conv_route(torch.bfloat16, *c) == "direct")
-    assert direct == [(1, 3, 1, 1, 8), (1, 3, 1, 3, 8), (1, 3, 1, 8, 1),
-                      (3, 3, 1, 8, 1), (3, 3, 1, 8, 1), (3, 3, 1, 16, 1)]
+    def routed(route):
+        return sorted(c[:5] for cl in per_part.values() for c in cl
+                      if conv_route(torch.bfloat16, *c) == route)
+    assert routed("direct") == [(1, 3, 1, 1, 8), (1, 3, 1, 3, 8)]
+    assert routed("co1") == [(1, 3, 1, 8, 1), (3, 3, 1, 8, 1),
+                             (3, 3, 1, 8, 1), (3, 3, 1, 16, 1)]
     f32 = build_model(device="cpu")
-    assert set(eval_conv_routes(f32)) == {"direct"}
+    assert collections.Counter(eval_conv_routes(f32)) == {"direct": 55,
+                                                          "co1": 4}
 
 
 @pytest.mark.parametrize("args,route", [
     ((torch.bfloat16, 3, 3, 1, 32, 16), "tc"),
     ((torch.float32, 3, 3, 1, 32, 16), "direct"),
-    ((torch.bfloat16, 3, 3, 1, 16, 1), "direct"),
+    ((torch.bfloat16, 3, 3, 1, 16, 1), "co1"),
     ((torch.bfloat16, 1, 3, 1, 3, 8), "direct"),
     ((torch.bfloat16, 1, 3, 1, 8, 12), "direct"),
     ((torch.bfloat16, 1, 3, 1, 8, 128), "direct"),
@@ -323,6 +327,39 @@ def test_default_model_routes():
     ((torch.bfloat16, 3, 3, 2, 12, 8, True), "direct")])
 def test_route_rule(args, route):
     assert conv_route(*args) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kd", [1, 3])
+@pytest.mark.parametrize("ci", [8, 16, 24, 32, 64])
+def test_route_rule_sends_every_co1_conv_to_the_co1_kernel(dtype, kd, ci):
+    """Every K = 3 stride-1 conv to Co = 1 with Ci a multiple of 8 takes
+    the co1 kernel, bf16 or f32; Ci in {1, 3}, another K or stride, or a
+    transposed conv does not."""
+    assert conv_route(dtype, kd, 3, 1, ci, 1) == "co1"
+    for args in ((kd, 3, 1, 3, 1), (kd, 3, 1, 1, 1), (kd, 3, 2, ci, 1),
+                 (1, 5, 1, ci, 1), (1, 1, 1, ci, 1)):
+        assert conv_route(dtype, *args) == "direct"
+    assert conv_route(dtype, 3, 3, 2, ci, 1, True) == "direct"
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("kd", [1, 3])
+def test_co1_plans_fit(kd, itemsize):
+    """The co1 kernel's tile (csrc/conv_co1.cu: 256 threads, 4 outputs
+    each along w, a w tile of 32) fits the 227 KB a block may hold for
+    every Ci up to 64, f32 or bf16; its channels per stage (8 or 16)
+    divide Ci, and every Ci <= 16 (all the model's convs to Co = 1) goes
+    in one stage, where the kernel sums in the direct kernel's order."""
+    for ci in range(8, 65, 8):
+        plan = conv_kernel.co1_plan(kd, ci, itemsize)
+        assert plan.smem <= 227 * 1024
+        assert (plan.td, plan.th, plan.tw) == ((4, 8, 32) if kd == 3
+                                               else (1, 32, 32))
+        assert plan.td * plan.th * plan.tw == 256 * 4
+        assert plan.channels in (8, 16) and ci % plan.channels == 0
+        assert (plan.channels == ci) == (ci <= 16)
+    assert conv_kernel.co1_plan(kd, 12, itemsize) is None
 
 
 def test_plans_fit_and_pack_in_the_kernel_order():
@@ -385,4 +422,10 @@ def test_cpu_route_override_takes_the_plain_version():
         got = conv_kernel.conv3d_bn_act(x, w, ones, zeros, route=route)
         torch.testing.assert_close(got, conv_kernel.conv3d_bn_act(
             x, w, ones, zeros))
+    w1 = torch.randn(1, 16, 3, 3, 3)
+    for route in ("co1", "direct"):
+        got = conv_kernel.conv3d_bn_act(x, w1, ones[:1], zeros[:1],
+                                        route=route)
+        torch.testing.assert_close(got, conv_kernel.conv3d_bn_act(
+            x, w1, ones[:1], zeros[:1]))
     assert conv_kernel.LAUNCHES == before

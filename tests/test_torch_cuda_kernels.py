@@ -82,6 +82,25 @@ def test_rowsweep_aggregate(dtype, g, per_pixel, stress):
     assert aggregate_kernel.LAUNCHES["rowsweep_aggregate"] == before + 1
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("planes", ["uniform", "per-pixel", "stress"])
+@pytest.mark.parametrize("g", [8, 16, 32])
+def test_rowsweep_aggregate_lane_groups(dtype, g, planes):
+    """K1's lane groups (G / 8 lanes a pixel) at extents that its pixel
+    tiles (128 / (G / 8) pixels of the flattened H x W) and plane runs (8)
+    do not divide, 2 items: uniform and per-pixel planes, and the stress
+    cameras (20 degrees between views, planes from 40 to 5000)."""
+    args = _aggregate_args(dtype, g, planes == "per-pixel",
+                           planes == "stress", d=11, h=13, w=37)
+    plan = aggregate_kernel.aggregate_plan(2, 11, 13, 37, g)
+    assert (13 * 37) % plan.pixels and 11 % plan.planes
+    sc = [torch.tensor(v).cuda() for v in (0.9, 0.1, 1.2, -0.2)]
+    before = aggregate_kernel.LAUNCHES["rowsweep_aggregate"]
+    _agree(lambda p: aggregate_kernel.rowsweep_aggregate(*args, *sc, plain=p),
+           dtype)
+    assert aggregate_kernel.LAUNCHES["rowsweep_aggregate"] == before + 1
+
+
 def test_rowsweep_aggregate_rejects_unsupported_groups():
     ref_proj, src_projs = _cameras(8, 16, 2)
     args = (torch.randn(1, 1, 8, 16, 12).cuda(),
@@ -270,15 +289,18 @@ def test_conv_tc_matches_its_mirror(kd, k, stride, ci, co):
 
 
 def test_conv_tc_routes_and_failures():
-    """The rule keeps f32, Co = 1 and Ci = 3 on the direct kernel; forcing
-    the tc route where it has no tile raises before any launch, and a
-    launch the kernel refuses (an N it has no instantiation for) returns
-    an error that the wrapper's check raises."""
+    """The rule keeps f32 with Co > 1 and Ci = 3 on the direct kernel and
+    sends Co = 1 to the co1 kernel; forcing the tc or co1 route where it
+    has no tile raises before any launch, and a launch the kernel refuses
+    (an N it has no instantiation for) returns an error that the wrapper's
+    check raises."""
     from mdfnet_tpu_torch.ops.cuda import build
     for args in ((torch.float32, 3, 3, 1, 32, 16),
-                 (torch.bfloat16, 3, 3, 1, 16, 1),
                  (torch.bfloat16, 1, 3, 1, 3, 8)):
         assert conv_kernel.conv_route(*args) == "direct"
+    for args in ((torch.bfloat16, 3, 3, 1, 16, 1),
+                 (torch.float32, 1, 3, 1, 8, 1)):
+        assert conv_kernel.conv_route(*args) == "co1"
     before = dict(conv_kernel.LAUNCHES)
     x = torch.randn(1, 9, 9, 3).cuda().to(torch.bfloat16)
     w = torch.randn(8, 3, 3, 3).cuda().to(torch.bfloat16)
@@ -288,6 +310,10 @@ def test_conv_tc_routes_and_failures():
     with pytest.raises(ValueError):
         conv_kernel.conv2d_bn_act(x.float(), w.float(), ones, zeros,
                                   route="tc")
+    for wrong in (w, w[:1]):      # Co = 8; Ci = 3
+        with pytest.raises(ValueError):
+            conv_kernel.conv2d_bn_act(x, wrong, ones[:wrong.shape[0]],
+                                      zeros[:wrong.shape[0]], route="co1")
     assert conv_kernel.LAUNCHES == before
     x8 = torch.randn(1, 9, 9, 8).cuda().to(torch.bfloat16)
     lib = build.load_library()
@@ -300,22 +326,105 @@ def test_conv_tc_routes_and_failures():
     assert err != 0
     with pytest.raises(RuntimeError):
         build.check(err, "conv_tc")
+    # the co1 kernel refuses a tile that is not its own
+    x8 = x8[:, None]
+    w1 = torch.randn(9 * 8).cuda()
+    y1 = torch.empty(1, 1, 9, 9).cuda()
+    err = lib.mdf_conv_co1(x8.data_ptr(), w1.data_ptr(), ones.data_ptr(),
+                           zeros.data_ptr(), None, y1.data_ptr(), 1, 1, 9, 9,
+                           8, 1, 0, 1, 16, 32, 8, 2, x8.device.index,
+                           torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 def test_eval_forward_tc_launches_follow_the_rule():
     """A small bf16 eval forward launches the tc kernel once per conv and
-    transposed conv that the rule sends there (53 at the default widths)."""
+    transposed conv that the rule sends there (53 at the default widths),
+    and the co1 kernel once per conv to Co = 1 (the three ProbConvs,
+    refine's tail)."""
     model = build_model(ModelConfig(compute_dtype="bfloat16"), device="cuda")
     h, w, v = 64, 96, 3
     k = torch.tensor([[1.8 * w, 0, w / 2], [0, 1.8 * w, h / 2], [0, 0, 1]])
     e = torch.eye(4).repeat(v, 1, 1)
     e[:, 0, 3] = -torch.arange(v) * 12.0
-    before = conv_kernel.LAUNCHES["conv_tc"]
+    before = dict(conv_kernel.LAUNCHES)
     model(torch.rand(1, v, h, w, 3).cuda(), e[None].cuda(),
           k.repeat(1, v, 1, 1).cuda(), torch.tensor([[425.0, 935.0]]).cuda())
     torch.cuda.synchronize()
-    assert conv_kernel.LAUNCHES["conv_tc"] - before == \
-        eval_conv_routes(model).count("tc") == 53
+    routes = eval_conv_routes(model)
+    assert conv_kernel.LAUNCHES["conv_tc"] - before["conv_tc"] == \
+        routes.count("tc") == 53
+    assert conv_kernel.LAUNCHES["conv_co1"] - before["conv_co1"] == \
+        routes.count("co1") == 4
+
+
+CO1_SHAPES = {3: (2, 5, 11, 37), 1: (2, 37, 45)}   # odd extents, 2 items
+
+
+@pytest.mark.parametrize("io", ["bf16->bf16", "bf16->f32", "f32->f32"])
+@pytest.mark.parametrize("kd,ci", [(3, 8), (3, 16), (3, 32), (1, 8),
+                                   (1, 16), (1, 32)])
+def test_conv_co1(kd, ci, io):
+    """The Co = 1 kernel vs the plain conv at odd extents (ragged tiles in
+    every axis), with a ReLU and a residual; every input/output dtype pair
+    it takes."""
+    x_dt, out_dt = [{"bf16": torch.bfloat16, "f32": torch.float32}[t]
+                    for t in io.split("->")]
+    shape = CO1_SHAPES[kd]
+    x = torch.randn(*shape, ci).cuda().to(x_dt)
+    w = (torch.randn((1, ci) + (3,) * (3 if kd == 3 else 2)) * 0.2) \
+        .cuda().to(x_dt)
+    sc, off = torch.rand(1).cuda() + 0.5, torch.randn(1).cuda() * 0.3
+    res = torch.randn(*shape, 1).cuda().to(out_dt)
+    conv = conv_kernel.conv3d_bn_act if kd == 3 else conv_kernel.conv2d_bn_act
+    assert conv_kernel.conv_route(x_dt, kd, 3, 1, ci, 1) == "co1"
+    before = dict(conv_kernel.LAUNCHES)
+    _agree(lambda p: conv(x, w, sc, off, residual=res, out_dtype=out_dt,
+                          plain=p), out_dt)
+    assert conv_kernel.LAUNCHES["conv_co1"] == before["conv_co1"] + 1
+    assert conv_kernel.LAUNCHES["conv_tc"] == before["conv_tc"]
+
+
+@pytest.mark.parametrize("io", ["bf16->bf16", "bf16->f32", "f32->f32"])
+@pytest.mark.parametrize("kd,ci", [(3, 8), (3, 16), (1, 8), (1, 16)])
+def test_conv_co1_gives_the_direct_kernels_bits(kd, ci, io):
+    """With Ci <= 16 the co1 kernel sums each output in the direct
+    kernel's order, (kd, kh, kw, channel), and applies its epilogue term
+    for term: the two outputs are equal, bit for bit (ReLU, residual).
+    The f32 step gate's per-parameter bound reads a new summation order
+    as a fault, so the order is held here until that bound comes from a
+    spread of correct orders."""
+    x_dt, out_dt = [{"bf16": torch.bfloat16, "f32": torch.float32}[t]
+                    for t in io.split("->")]
+    shape = CO1_SHAPES[kd]
+    x = torch.randn(*shape, ci).cuda().to(x_dt)
+    w = (torch.randn((1, ci) + (3,) * (3 if kd == 3 else 2)) * 0.2) \
+        .cuda().to(x_dt)
+    sc, off = torch.rand(1).cuda() + 0.5, torch.randn(1).cuda() * 0.3
+    res = torch.randn(*shape, 1).cuda().to(out_dt)
+    conv = conv_kernel.conv3d_bn_act if kd == 3 else conv_kernel.conv2d_bn_act
+    got, direct = (conv(x, w, sc, off, residual=res, out_dtype=out_dt,
+                        route=r) for r in ("co1", "direct"))
+    torch.cuda.synchronize()
+    assert torch.equal(got, direct)
+
+
+@pytest.mark.parametrize("kd,ci,dtype", [(3, 64, torch.float32),
+                                         (3, 64, torch.bfloat16),
+                                         (1, 24, torch.float32)])
+def test_conv_co1_channel_stages(kd, ci, dtype):
+    """Where the tile holds fewer channels than Ci, they go through in
+    stages (co1_plan): no ReLU, an f32 output, against the plain conv."""
+    plan = conv_kernel.co1_plan(kd, ci, dtype.itemsize)
+    assert plan.channels < ci
+    shape = CO1_SHAPES[kd]
+    x = torch.randn(*shape, ci).cuda().to(dtype)
+    w = (torch.randn((1, ci) + (3,) * (3 if kd == 3 else 2)) * 0.1) \
+        .cuda().to(dtype)
+    sc, off = torch.ones(1).cuda(), torch.randn(1).cuda()
+    conv = conv_kernel.conv3d_bn_act if kd == 3 else conv_kernel.conv2d_bn_act
+    _agree(lambda p: conv(x, w, sc, off, relu=False, out_dtype=torch.float32,
+                          plain=p), torch.float32)
 
 
 def _sweep(h, w, d, v, stress):
@@ -554,6 +663,24 @@ def test_rowsweep_aggregate_with_wsum(dtype, g, per_pixel, stress):
     torch.cuda.synchronize()
     assert aggregate_kernel.LAUNCHES["rowsweep_aggregate_with_wsum"] == \
         before + 1
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype == torch.float32
+        err = (a - r).abs().max().item()
+        assert err <= REL_TOL[torch.float32] * r.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g", [8, 16, 32])
+def test_rowsweep_aggregate_with_wsum_lane_groups(dtype, g):
+    """K1's train instantiation at extents that its tiles and plane runs
+    do not divide, on the stress cameras."""
+    args = _aggregate_args(dtype, g, False, True, d=11, h=13, w=37)
+    bn = (torch.rand(3).cuda() + 0.5, torch.randn(3).cuda() * 0.2,
+          torch.tensor(1.2).cuda(), torch.tensor(-0.2).cuda())
+    got = aggregate_kernel.rowsweep_aggregate_with_wsum(*args, *bn)
+    ref = aggregate_kernel.rowsweep_aggregate_with_wsum(*args, *bn,
+                                                        plain=True)
+    torch.cuda.synchronize()
     for a, r in zip(got, ref):
         assert a.shape == r.shape and a.dtype == r.dtype == torch.float32
         err = (a - r).abs().max().item()
