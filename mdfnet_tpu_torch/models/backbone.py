@@ -67,13 +67,13 @@ class FPN4Scales(nn.Module):
         statistics."""
         if train:
             return self._train_forward(x, plain, vgroups)
-        v = _chain(x, [self.conv01[0], self.conv01[1], self.conv12[0]],
-                   final_stride=2, plain=plain)
-        x2 = _chain(v, self.conv12[1:], plain=plain)
+        trunk, c12, c23, c34 = self.eval_chains()
+        v = _chain(x, trunk[0], final_stride=2, plain=plain)
+        x2 = _chain(v, c12[0], plain=plain)
         v = self.conv23[0](x2, plain=plain)
-        x3 = _chain(v, self.conv23[1:], plain=plain)
+        x3 = _chain(v, c23[0], plain=plain)
         v = self.conv34[0](x3, plain=plain)
-        x4 = _chain(v, self.conv34[1:], plain=plain)
+        x4 = _chain(v, c34[0], plain=plain)
 
         y4 = self.out4(x4, plain=plain)
         x3 = self.lat3(x3, residual=_up2(x4), plain=plain)   # up2(x4) + lat3
@@ -81,6 +81,18 @@ class FPN4Scales(nn.Module):
         x2 = self.lat2(x2, residual=_up2(x3), plain=plain)   # up2(x3) + lat2
         y2 = self.out2(x2, plain=plain)
         return y4, y3, y2
+
+    def eval_chains(self) -> list:
+        """The eval forward's chains (K5), in order: (ConvBNReLU layers,
+        ReLU flags, residuals, final stride) each: the full-res pair with
+        the first stride-2 conv, then each scale's same-scale pair."""
+        def plain_chain(layers, final_stride=1):
+            return (list(layers), (True,) * len(layers),
+                    (None,) * len(layers), final_stride)
+        return [plain_chain([self.conv01[0], self.conv01[1], self.conv12[0]],
+                            2),
+                plain_chain(self.conv12[1:]), plain_chain(self.conv23[1:]),
+                plain_chain(self.conv34[1:])]
 
     def _train_forward(self, x, plain, vgroups):
         def run(block, v):

@@ -49,26 +49,34 @@ class RefineNet2(nn.Module):
             out = self._train_convs(x, plain)
             return dmin + out * (dmax - dmin)
 
-        c = self.conv1.weight.shape[0]
-        ones = torch.ones(c, device=depth.device)
-        layers = [self.conv0]
-        scales, relus, resid = [ones], [False], [None]
-        for i, res in enumerate(self.ress):
-            layers += [res.conv[0], res.conv[2]]
-            scales += [ones, ones * 0.1]        # 0.1 Res scale in the epilogue
-            relus += [True, False]
-            resid += [None, 2 * i]              # Res adds its own input
-        layers += [self.conv1, self.conv2[0]]
-        scales += [ones, torch.ones(4 * c, device=depth.device)]
-        relus += [False, False]
-        resid += [0, None]                      # conv1 + skip (conv0's output)
+        ((layers, relus, resid, _),) = self.eval_chains()
+        # the Res blocks' 0.1 scale in the epilogue of their second conv
+        second = {2 * i + 2 for i in range(len(self.ress))}
+        scales = [torch.full((m.weight.shape[0],), 0.1 if i in second
+                             else 1.0, device=depth.device)
+                  for i, m in enumerate(layers)]
         offsets = [torch.zeros_like(s) for s in scales]
         x = conv2d_chain(x, [m.weight.to(dtype) for m in layers], scales,
-                         offsets, relu_flags=tuple(relus),
-                         residuals=tuple(resid), plain=plain)
+                         offsets, relu_flags=relus, residuals=resid,
+                         plain=plain)
         x = pixel_shuffle_2x(x).contiguous()
         out = self.conv2[2](x, out_dtype=torch.float32, plain=plain)[..., 0]
         return dmin + out * (dmax - dmin)
+
+    def eval_chains(self) -> list:
+        """The eval forward's one chain (K5): (ConvND layers, ReLU flags,
+        residuals, final stride): conv0, each Res block's two convs (the
+        second adds the block's input), conv1 plus the skip of conv0's
+        output, conv2's first conv."""
+        layers, relus, resid = [self.conv0], [False], [None]
+        for i, res in enumerate(self.ress):
+            layers += [res.conv[0], res.conv[2]]
+            relus += [True, False]
+            resid += [None, 2 * i]              # Res adds its own input
+        layers += [self.conv1, self.conv2[0]]
+        relus += [False, False]
+        resid += [0, None]                      # conv1 + skip (conv0's output)
+        return [(layers, tuple(relus), tuple(resid), 1)]
 
     def _train_convs(self, x, plain):
         def conv(m, v):

@@ -39,6 +39,7 @@ SIGNATURES = {
     "mdf_conv_tc": [_P] * 6 + [_I] * 20 + [_P],
     "mdf_trconv_tc": [_P] * 6 + [_I] * 14 + [_P],
     "mdf_conv_co1": [_P] * 6 + [_I] * 13 + [_P],
+    "mdf_conv_chain": [_P] * 6 + [_I] * 8 + [_P],
     "mdf_conv3d_pair": [_P] * 8 + [_I] * 11 + [_P],
     "mdf_sample_2d": [_P] * 4 + [_I] * 7 + [_P],
     "mdf_splat_keys": [_P] * 3 + [_I] * 5 + [_P],

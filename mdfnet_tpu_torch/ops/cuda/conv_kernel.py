@@ -12,11 +12,16 @@ tensors (NHWC / NDHWC) and torch-layout weights, and compute
 with f32 accumulation; folded eval BN is ``scale = gamma / sqrt(var + eps)``,
 ``offset = beta - mean * scale``; a plain bias is ``scale = 1, offset = bias``.
 
-The chain (K5) runs its layers as consecutive launches of the K4 kernel, with
-the Res blocks' 0.1 scale and skip adds in that kernel's epilogue; fusing the
-chain in shared memory is later work. The pair (K10, ``csrc/conv3d_pair.cu``)
-is two stride-1 conv3d layers in one launch whose intermediate volume stays
-in shared memory; as in the JAX package, no model path runs it.
+The chain (K5) runs by a static rule (:func:`chain_route`) either on the
+chain kernel (``csrc/conv_chain.cu``: each launch several layers, each
+layer's output kept in shared memory for the next as a wgmma A tile, the
+halo recomputed at the tile edges, a Ci = 1 or 3 head gathered into a
+packed K = 16 / 48 GEMM; launches planned by :func:`chain_plan` at the
+chain's tile in CHAIN_FUSED), or as consecutive launches of the K4
+kernels, one per layer, with the Res blocks' 0.1 scale and skip adds in
+the epilogue. The pair (K10, ``csrc/conv3d_pair.cu``) is two stride-1 conv3d
+layers in one launch whose intermediate volume stays in shared memory; as
+in the JAX package, no model path runs it.
 
 On the card a conv takes one of three kernels, by one static rule
 (:func:`conv_route`): a bf16 conv with Ci and Co multiples of 8 (Co <= 64;
@@ -36,6 +41,7 @@ raises. ``plain=True`` asks for the plain version explicitly.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -44,8 +50,10 @@ import torch.nn.functional as F
 
 from mdfnet_tpu_torch.ops.cuda import build, exact_cuda_math
 
-# kernel launches since the last reset (the main-path check reads them); the
-# chain counts each of its layer launches. ``conv_tc`` counts the launches
+# kernel launches since the last reset (the main-path check reads them);
+# ``conv2d_chain`` counts the chain kernel's launches (csrc/conv_chain.cu,
+# one per segment), while a chain on the per-layer route counts its layers
+# under ``conv2d_bn_act``. ``conv_tc`` counts the launches
 # that took the tc route (csrc/conv_tc.cu), ``conv_co1`` those that took the
 # co1 route (csrc/conv_co1.cu), whichever wrapper made them; the wrapper's
 # own counter counts them too. The ``*_dgrad`` counters are the
@@ -56,9 +64,10 @@ LAUNCHES = {"conv3d_bn_act": 0, "trconv3d_bn_act": 0, "conv2d_bn_act": 0,
             "conv2d_chain": 0, "conv3d_dgrad": 0, "trconv3d_dgrad": 0,
             "conv2d_dgrad": 0, "conv3d_pair_bn_act": 0, "conv_tc": 0,
             "conv_co1": 0}
-# the tc-route launches among each wrapper counter's (their sum is
-# LAUNCHES["conv_tc"])
-TC_LAUNCHES = {k: 0 for k in LAUNCHES if k not in ("conv_tc", "conv_co1")}
+# the tc-route launches among each conv wrapper counter's (their sum is
+# LAUNCHES["conv_tc"]; the chain kernel is a route of its own)
+TC_LAUNCHES = {k: 0 for k in LAUNCHES
+               if k not in ("conv_tc", "conv_co1", "conv2d_chain")}
 # None, or a list to which every conv launch appends (route, kd, k, stride,
 # x's (N, D, H, W, Ci) shape, Co, transposed): what a run sends to which
 # kernel
@@ -360,6 +369,351 @@ def co1_plan(kd: int, ci: int, itemsize: int) -> Co1Plan | None:
     return Co1Plan(td, th, _CO1_TW, cs, smem) if smem <= _MAX_SMEM else None
 
 
+# csrc/conv_chain.cu: the most layers of one launch, the largest N of a
+# layer, the M blocks a warpgroup takes per pass (kMB), the ints of its
+# plan's header and of each layer's record (ChainPlan, ChainLayer there);
+# a launch's shared memory holds its plan's ints (to 128 bytes), the table
+# of K-step descriptors, the weights, then the buffers
+_CHAIN_MAX_LAYERS, _CHAIN_MAX_N, _CHAIN_MB = 12, 32, 2
+_CHAIN_HEADER, _CHAIN_LAYER = 18, 35
+# the most shared memory a launch of the chain kernel takes a block: two
+# blocks share an SM (its 228 KB, less 1 KB a block); a block that takes
+# more runs alone on its SM, which loses more than a smaller tile's halo
+# costs (PERF.md section 6)
+_CHAIN_SMEM = 113 * 1024
+
+def _ceil8(v: int) -> int:
+    return -(-v // 8) * 8
+
+
+def chain_outputs(stride: int, co: int) -> int:
+    """Outputs along w that one GEMM row of the chain kernel computes for a
+    layer: 2 for a stride-1 layer to 8 channels (N = 16: the two outputs'
+    channels side by side, from a window of k + 1 input columns), else 1."""
+    return 2 if stride == 1 and co == 8 else 1
+
+
+def head_chunks(k: int, ci: int, p: int = 1) -> int:
+    """K chunks (of 8) of a chain's packed head, k rows x (k + p - 1)
+    window columns x Ci channels (Ci = 1 or 3, p outputs a row): the
+    values padded to a whole, even number."""
+    q = -(-k * (k + p - 1) * ci // 8)
+    return q + q % 2
+
+
+def _window_weight(weight: torch.Tensor, p: int) -> torch.Tensor:
+    """(Co, Ci, k, k) -> (k, k + p - 1, Ci, p * Co): the weight of window
+    column kw' for output pp (kw' - pp the tap, zero outside the taps)."""
+    co, ci, k, _ = weight.shape
+    full = weight.new_zeros((k, k + p - 1, ci, p, co))
+    for pp in range(p):
+        full[:, pp:pp + k, :, pp] = weight.permute(2, 3, 1, 0)
+    return full.reshape(k, k + p - 1, ci, p * co)
+
+
+def pack_head_weight(weight: torch.Tensor, p: int = 1) -> torch.Tensor:
+    """(Co, Ci, k, k) weights of a chain's head (Ci = 1 or 3) as
+    csrc/conv_chain.cu takes them: (head_chunks, p * Co, 8) bf16, K value
+    8q + j = (kh * (k + p - 1) + kw') * Ci + c of a row's window, column
+    pp * Co + co for its pp-th output (:func:`_window_weight`), zero past
+    the window's values."""
+    co, ci, k, _ = weight.shape
+    taps = _window_weight(weight, p).reshape(-1, p * co)
+    q = head_chunks(k, ci, p)
+    taps = F.pad(taps.to(torch.bfloat16), (0, 0, 0, 8 * q - taps.shape[0]))
+    return taps.view(q, 8, p * co).permute(0, 2, 1).contiguous()
+
+
+def pack_chain_weight(weight: torch.Tensor, *, stride: int,
+                      p: int = 1) -> torch.Tensor:
+    """(Co, Ci, k, k) weights (Ci % 8 == 0) of a chain layer that reads a
+    buffer, as csrc/conv_chain.cu takes them: (k * Ci/8 * (k + p - 1),
+    p * Co, 8) bf16, chunk (kh * Ci/8 + c) * (k + p - 1) + slot holding
+    input channels 8c .. 8c + 7 of window column _slots(k + p - 1, 2)
+    [slot] (even columns first where the input splits w by parity: stride
+    2 or p = 2), columns as :func:`pack_head_weight`'s. With p = 1 it is
+    :func:`pack_tc_weight`'s order."""
+    co, ci, k, _ = weight.shape
+    nslot = k + p - 1
+    # (kh, kw', c, j, col) -> (kh, c, kw', col, j)
+    src = _window_weight(weight, p).reshape(k, nslot, ci // 8, 8, p * co) \
+        .permute(0, 2, 1, 4, 3)
+    order = _slot_index(nslot, 2 if stride * p == 2 else 1, weight.device)
+    return torch.index_select(src.to(torch.bfloat16), 2, order) \
+        .reshape(-1, p * co, 8)
+
+
+def chain_head_plain(x, packed, scale, offset, *, k, stride, relu,
+                     out_dtype, p=1):
+    """Plain version of the chain kernel's head on its own operands: x (N,
+    H, W, Ci), Ci = 1 or 3, gathered per group of p outputs along w into
+    the packed K order of :func:`pack_head_weight` (k rows x (k + p - 1)
+    window columns x Ci, zero-padded to 16 x chunks) and multiplied by the
+    packed weights in K steps of 16, summed in f32; then the epilogue."""
+    nb, hi, wi, ci = x.shape
+    pad, nslot = k // 2, k + p - 1
+    ho, wo = -(-hi // stride), -(-wi // stride)
+    g = -(-wo // p)
+    xp = F.pad(x.float(), (0, 0, pad, pad + stride * p * g, pad, pad))
+    cols = torch.cat([xp[:, kh:kh + stride * (ho - 1) + 1:stride,
+                         kw:kw + stride * p * (g - 1) + 1:stride * p]
+                      for kh in range(k) for kw in range(nslot)], -1)
+    w = packed.float()
+    q = w.shape[0]
+    cols = F.pad(cols, (0, 8 * q - cols.shape[-1]))
+    acc = torch.zeros((nb, ho, g, w.shape[1]), device=x.device)
+    for s in range(q // 2):
+        acc += cols[..., 16 * s:16 * s + 16] @ w[2 * s:2 * s + 2] \
+            .permute(0, 2, 1).reshape(16, -1)
+    acc = acc.reshape(nb, ho, g * p, -1)[:, :, :wo]
+    y = acc * scale.float() + offset.float()
+    if relu:
+        y = torch.relu(y)
+    return y.to(out_dtype)
+
+
+class ChainSegment(NamedTuple):
+    """One launch of the chain kernel: layers ``first`` .. ``last`` of the
+    chain over final tiles of ``th`` x ``tw`` outputs."""
+    first: int
+    last: int
+    th: int
+    tw: int
+    smem: int       # bytes of shared memory per block
+    regions: tuple  # per layer: (h, w) outputs computed, padded to 8 x 8
+    needs: tuple    # per layer: (h, w) outputs the later layers read
+    ints: tuple     # the plan as csrc/conv_chain.cu reads it
+
+
+def _chain_segment(specs, relus, residuals, final_stride, th, tw
+                   ) -> ChainSegment | None:
+    """The chain kernel's plan for ``specs`` ((k, Ci, Co) per layer; the
+    last at ``final_stride``, the others at 1) over th x tw final tiles, or
+    None where the kernel takes no such chain or it does not fit.
+
+    A block computes every layer over the region that the later layers
+    read (``needs``: the sum of the later pads, doubled by a stride-2 tail),
+    padded to whole M blocks of 8 rows x 8 GEMM rows along w, each of
+    chain_outputs(stride, Co) outputs (``regions``), each layer's output
+    into a shared-memory buffer (16-byte rows [h][chunk][w parity][w /
+    parity], split by parity where its reader has stride 2 or two outputs
+    a row) that the next layer's GEMM reads as its A; a buffer lives until
+    its last reader (the next layer, or a later layer that adds it as a
+    residual) and its bytes are then reused. The input tile is copied
+    once: by 8-channel chunks, or for a 3x3 head from 1 or 3 channels to 8
+    (two outputs a row) as raw rows from a 16-byte aligned w origin, from
+    which each M-block pass gathers the packed head A
+    (:func:`pack_head_weight`'s K order)."""
+    nl = len(specs)
+    ks = [s[0] for s in specs]
+    cis = [s[1] for s in specs]
+    cos = [s[2] for s in specs]
+    strides = [1] * (nl - 1) + [final_stride]
+    head = cis[0] in (1, 3)
+    outs = [chain_outputs(s, co) for s, co in zip(strides, cos)]
+    if (not 0 < nl <= _CHAIN_MAX_LAYERS or th % 8 or tw % (8 * outs[-1])
+            or not (head and ks[0] == 3 and cos[0] == 8
+                    or cis[0] % 8 == 0)
+            or any(k not in (1, 3, 5) for k in ks)
+            or any(co % 8 or not 0 < p * co <= _CHAIN_MAX_N
+                   for co, p in zip(cos, outs))
+            or any(cis[l] != cos[l - 1] for l in range(1, nl))
+            or final_stride not in (1, 2)):
+        return None
+    for m, j in enumerate(residuals):
+        if j is not None and not (0 <= j < m and cos[j] == cos[m]
+                                  and strides[m] == 1):
+            return None
+    need = [None] * nl
+    off = [0] * nl        # layer l's region starts off[l] before layer
+    need[-1] = (th, tw)   # nl-1's (times its stride), in its own grid
+    for l in range(nl - 2, -1, -1):
+        s, k = strides[l + 1], ks[l + 1]
+        need[l] = tuple(s * (e - 1) + k for e in need[l + 1])
+        off[l] = s * off[l + 1] + k // 2
+    region = [(_ceil8(h), -(-w // (8 * p)) * 8 * p)
+              for (h, w), p in zip(need, outs)]
+
+    def reads(l, ext):
+        return [strides[l] * (e - 1) + ks[l] for e in ext]
+    cx = strides[0] * off[0] + ks[0] // 2
+    xh, xw = reads(0, region[0])
+    ns = [next(v for v in _TC_MB if v >= p * co) for co, p in zip(cos, outs)]
+    qs = []
+    for l in range(nl):
+        q = (head_chunks(ks[0], cis[0], outs[0]) if l == 0 and head
+             else ks[l] * (ks[l] + outs[l] - 1) * cis[l] // 8)
+        qs.append((q + q % 2, q))
+    # occupants of the shared memory after the table and the weights:
+    # (bytes, the layer that writes it (-1: before layer 0), its last reader)
+    if head:
+        shift = -cx % 8
+        x_w = _ceil8(shift + xw)
+        x_geo = (0, 1, xh, x_w, shift)      # nch, par, hb, raw pixels a row
+        occupants = [(-(-xh * x_w * cis[0] * 2 // 16) * 16, -1, 0),
+                     (2 * _CHAIN_MB * qs[0][0] * 64 * 16, -1, 0)]
+    else:
+        par = strides[0] * outs[0]
+        wb = xw + xw % par
+        x_geo = (cis[0] // 8, par, xh, wb, 0)
+        occupants = [(xh * cis[0] // 8 * wb * 16, -1, 0)]
+    bufs = []
+    for l in range(nl - 1):
+        ext = [max(a, b) for a, b in zip(region[l], reads(l + 1,
+                                                          region[l + 1]))]
+        readers = [l + 1]
+        for m, j in enumerate(residuals):
+            if j == l:
+                ext = [max(e, r + off[l] - off[m])
+                       for e, r in zip(ext, region[m])]
+                readers.append(m)
+        par = strides[l + 1] * outs[l + 1]
+        ext[1] += ext[1] % par
+        bufs.append((cos[l] // 8, par, ext[0], ext[1]))
+        occupants.append((ext[0] * cos[l] // 8 * ext[1] * 16, l,
+                          max(readers)))
+    # each occupant takes a free slot (its last reader came before its
+    # writer): the smallest that holds it, else the largest, grown
+    slots, where = [], []
+    for nbytes, t, last in occupants:
+        free = [i for i, (_, lu) in enumerate(slots) if lu < t]
+        fit = [i for i in free if slots[i][0] >= nbytes]
+        if fit:
+            i = min(fit, key=lambda i: slots[i][0])
+        elif free:
+            i = max(free, key=lambda i: slots[i][0])
+            slots[i][0] = nbytes
+        else:
+            slots.append([nbytes, last])
+            i = len(slots) - 1
+        slots[i][1] = last
+        where.append(i)
+    weights = [-(-q * n * 16 // 128) * 128 for (q, _), n in zip(qs, ns)]
+    tab = [sum(q for q, _ in qs[:l]) // 2 for l in range(nl + 1)]
+    plan_bytes = -(-4 * (_CHAIN_HEADER + nl * _CHAIN_LAYER) // 128) * 128
+    w_start = plan_bytes + -(-tab[-1] * 8 // 128) * 128
+    pos = w_start + sum(weights)
+    slot_off = []
+    for size, _ in slots:
+        slot_off.append(pos)
+        pos += -(-size // 128) * 128
+    smem = pos
+    if smem > _CHAIN_SMEM:
+        return None
+    x_off = slot_off[where[0]]
+    pack_off = slot_off[where[1]] if head else 0
+    buf_off = [slot_off[i] for i in where[1 + head:]]
+
+    def geo(l):   # layer l's output buffer: off, nch, wb, par, hb
+        nch, par, hb, wb = bufs[l]
+        return (buf_off[l], nch, wb, par, hb)
+    ints = [nl, th, tw, final_stride, cx, int(head), cis[0], x_off,
+            x_geo[0], x_geo[3], x_geo[1], x_geo[2], x_geo[3], x_geo[4],
+            pack_off, smem, tab[-1], 0]
+    w_glob = so = 0
+    w_smem = w_start
+    for l in range(nl):
+        if l == 0 and head:
+            inp = (pack_off, 0, 0, 1, 0)
+        elif l == 0:
+            inp = (x_off, x_geo[0], x_geo[3], x_geo[1], x_geo[2])
+        else:
+            inp = geo(l - 1)
+        j = residuals[l]
+        rb = geo(j) if j is not None else (0,) * 5
+        out = geo(l) if l < nl - 1 else (0,) * 5
+        # the widest A row offset (stride x h rows) and K-step offset must
+        # fit a descriptor's 14 bits of 16-byte units
+        if strides[l] * inp[1] * inp[2] > 0x3FFF or \
+                ks[l] * inp[1] * inp[2] > 0x3FFF:
+            return None
+        ints += [ks[l], strides[l], cis[l], cos[l], ns[l], outs[l], *qs[l],
+                 int(relus[l]), -1 if j is None else j, *inp, *rb, *out,
+                 off[l], *need[l], *region[l],
+                 0 if j is None else off[j] - off[l], w_smem, w_glob, so,
+                 tab[l]]
+        w_smem += weights[l]
+        w_glob += qs[l][1] * outs[l] * cos[l] * 8
+        so += cos[l]
+    return ChainSegment(0, nl - 1, th, tw, smem, tuple(region),
+                        tuple(need), tuple(ints))
+
+
+def _crosses(residuals, cut: int) -> bool:
+    """Whether a residual skips over the cut before layer ``cut``."""
+    return any(j is not None and j < cut <= m
+               for m, j in enumerate(residuals))
+
+
+@functools.lru_cache(maxsize=None)
+def chain_plan(specs: tuple, relus: tuple, residuals: tuple,
+               final_stride: int, tile: tuple
+               ) -> tuple[ChainSegment, ...] | None:
+    """csrc/conv_chain.cu's launches for a chain of 2D convs: ``specs``
+    ((k, Ci, Co) per layer), ``relus``, ``residuals`` (None or an earlier
+    layer per layer) and the last layer's stride, over final tiles of
+    ``tile`` (h, w) outputs. From the first layer on, each launch is the
+    longest run of at least two layers that fits, ending before a layer
+    over which no residual skips (or at the end); a layer that starts no
+    such run is launched alone by :func:`conv_route`, and is in no
+    segment. None where no segment fits, or a layer left alone has a
+    residual skip over its end."""
+    def fits(lo, hi):
+        sub = [None if j is None else j - lo for j in residuals[lo:hi]]
+        fs = final_stride if hi == len(specs) else 1
+        seg = _chain_segment(specs[lo:hi], relus[lo:hi], sub, fs, *tile)
+        return seg and seg._replace(first=lo, last=hi - 1)
+
+    out, lo = [], 0
+    while lo < len(specs):
+        seg = next((g for hi in range(len(specs), lo + 1, -1)
+                    if hi == len(specs) or not _crosses(residuals, hi)
+                    for g in (fits(lo, hi),) if g), None)
+        if seg:
+            out.append(seg)
+            lo = seg.last + 1
+        elif lo + 1 == len(specs) or not _crosses(residuals, lo + 1):
+            lo += 1
+        else:
+            return None
+    return tuple(out) or None
+
+
+# The chains that run on the chain kernel, by (specs, ReLUs, residuals,
+# final stride), each with the final tile its plan takes (chain_plan): those
+# that it runs faster than the per-layer route on the H100 at DTU eval, at
+# the tile that ran them fastest (``python3 chip_smoke.py --chain-tiles``,
+# PERF.md section 6): the backbone trunk at 32 x 64, where the whole chain
+# does not fit two blocks to an SM, so its 3 -> 8 head and 8 -> 8 conv take
+# one launch and its 5x5 stride-2 conv the tc kernel; the 16-channel pair
+# at 16 x 32 (three blocks to an SM). Elsewhere the kernel's recomputed
+# halos (2.3x the positions through refine's nine layers; 2.25x on the
+# first layer of the 32-channel pair, whose blocks fit only two to an SM)
+# cost more than the intermediates' round trips through device memory that
+# it saves.
+CHAIN_FUSED = {
+    (((3, 3, 8), (3, 8, 8), (5, 8, 16)), (True,) * 3, (None,) * 3, 2):
+        (32, 64),
+    (((3, 16, 16),) * 2, (True,) * 2, (None,) * 2, 1): (16, 32),
+}
+
+
+def chain_route(dtype: torch.dtype, specs: tuple, relus: tuple,
+                residuals: tuple, final_stride: int = 1) -> str:
+    """How a chain of 2D convs runs on the card: "fused" for a bf16 chain
+    of CHAIN_FUSED that chain_plan takes at its tile (its segments on
+    csrc/conv_chain.cu, the layers' intermediates in shared memory, and
+    any layer that no segment takes by conv_route); "layers" (one K4
+    launch per layer, each by conv_route) for the rest: f32 chains, the
+    chains measured faster per layer, Co > 32 (the backbone's 64-channel
+    pair)."""
+    key = (specs, relus, residuals, final_stride)
+    if (dtype == torch.bfloat16 and key in CHAIN_FUSED
+            and chain_plan(*key, CHAIN_FUSED[key])):
+        return "fused"
+    return "layers"
+
+
 def conv_route(dtype: torch.dtype, kd: int, k: int, stride: int, ci: int,
                co: int, transposed: bool = False) -> str:
     """Which kernel a conv (``transposed``: the 3x3x3 stride-2 transposed
@@ -644,10 +998,63 @@ def conv3d_pair_bn_act(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
     return y
 
 
+def chain_weights(weights, seg: ChainSegment, final_stride: int,
+                  ci: int) -> list:
+    """Layers seg.first .. seg.last's weights (the chain's list) packed as
+    the chain kernel takes them, flat, one after another: a Ci = 1 or 3
+    head by :func:`pack_head_weight`, the rest by
+    :func:`pack_chain_weight`."""
+    out = []
+    for l in range(seg.first, seg.last + 1):
+        wt = weights[l]
+        stride = final_stride if l == len(weights) - 1 else 1
+        p = chain_outputs(stride, wt.shape[0])
+        out.append((pack_head_weight(wt, p) if l == seg.first
+                    and ci in (1, 3) else pack_chain_weight(
+                        wt, stride=stride, p=p)).reshape(-1))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_array(ints: tuple):
+    """A segment's plan as the C array the chain kernel's entry point
+    copies (kept alive with the plan)."""
+    return (ctypes.c_int * len(ints))(*ints)
+
+
+def _chain_launch(x, weights, scales, offsets, seg: ChainSegment, *,
+                  final_stride, out_dtype):
+    """Launch the chain kernel for layers seg.first .. seg.last (their
+    weights, scales and offsets: the chain's lists) on x (N, H, W, Ci) bf16
+    and count the launch under ``LAUNCHES["conv2d_chain"]``."""
+    nb, h, w, ci = x.shape
+    layers = range(seg.first, seg.last + 1)
+    wcat = torch.cat(chain_weights(weights, seg, final_stride, ci))
+    s = torch.cat([scales[l].float() for l in layers])
+    o = torch.cat([offsets[l].float() for l in layers])
+    stride = final_stride if seg.last == len(weights) - 1 else 1
+    ho, wo = -(-h // stride), -(-w // stride)
+    y = torch.empty((nb, ho, wo, weights[seg.last].shape[0]),
+                    dtype=out_dtype, device=x.device)
+    for t, name in ((x, "x"), (wcat, "weight"), (s, "scale"), (o, "offset"),
+                    (y, "out")):
+        build.check_operand(t, name)
+    device, stream = build.launch_context(x)
+    lib = build.load_library()
+    plan = _plan_array(seg.ints)
+    err = lib.mdf_conv_chain(x.data_ptr(), wcat.data_ptr(), s.data_ptr(),
+                             o.data_ptr(), y.data_ptr(), ctypes.addressof(plan),
+                             len(seg.ints), nb, h, w, ho, wo,
+                             _DTYPES[(x.dtype, out_dtype)], device, stream)
+    build.check(err, "conv_chain")
+    LAUNCHES["conv2d_chain"] += 1
+    return y
+
+
 def conv2d_chain(x: torch.Tensor, weights, scales, offsets, *,
                  relu_flags: tuple = (), residuals: tuple | None = None,
                  final_stride: int = 1, plain: bool = False,
-                 route: str | None = None) -> torch.Tensor:
+                 route: str | None = None, out_dtype=None) -> torch.Tensor:
     """A chain of 2D convs (K5), computing what ``conv2d_chain_fused`` does.
 
     Args:
@@ -658,30 +1065,60 @@ def conv2d_chain(x: torch.Tensor, weights, scales, offsets, *,
         residuals: per-layer ``None`` or an earlier layer index j: add layer
             j's output after this layer's ReLU (Res-block skips).
         final_stride: stride of the LAST layer (1 or 2); the others are 1.
-        route: None follows :func:`conv_route` per layer; "direct" runs
-            every layer on the direct kernel (to compare the kernels).
+        route: None follows :func:`chain_route`; "fused" forces the chain
+            kernel at the chain's tile in CHAIN_FUSED (its plan's segments,
+            any other layer by conv_route), "layers" one launch per layer
+            by :func:`conv_route`, "direct" one per layer on the direct
+            kernel (to compare them).
+        out_dtype: the last layer's dtype (default x's; the chain kernel
+            also writes f32 from bf16).
     Returns:
-        The last layer's output, in x's dtype.
+        The last layer's output; every intermediate is rounded to x's dtype.
     """
     nlayers = len(weights)
-    relu_flags = relu_flags or (True,) * nlayers
-    residuals = residuals or (None,) * nlayers
+    relu_flags = tuple(relu_flags) or (True,) * nlayers
+    residuals = tuple(residuals or (None,) * nlayers)
+    out_dtype = out_dtype or x.dtype
     if not (len(relu_flags) == len(residuals) == nlayers):
         raise ValueError("conv2d_chain: per-layer lists differ in length")
+    segments = {}
+    if not (plain or not x.is_cuda):
+        key = (tuple((int(w.shape[-1]), int(w.shape[1]), int(w.shape[0]))
+                     for w in weights), relu_flags, residuals, final_stride)
+        route = route or chain_route(x.dtype, *key)
+        if route == "fused":
+            plan = key in CHAIN_FUSED and chain_plan(*key, CHAIN_FUSED[key])
+            if not plan or x.dtype != torch.bfloat16:
+                raise ValueError(f"conv chain kernel: no plan for {x.dtype} "
+                                 f"{key[0]} residuals {residuals} "
+                                 f"final_stride {final_stride}")
+            segments = {seg.first: seg for seg in plan}
+        elif route not in ("layers", "direct"):
+            raise ValueError(f"conv2d_chain: unknown route {route!r}")
     keep = {j for j in residuals if j is not None}
-    kept, v = {}, x
-    for layer in range(nlayers):
-        stride = final_stride if layer == nlayers - 1 else 1
+    kept, v, layer = {}, x, 0
+    while layer < nlayers:
+        last = layer == nlayers - 1
+        if layer in segments:
+            seg = segments[layer]
+            v = _chain_launch(
+                v.contiguous(), weights, scales, offsets, seg,
+                final_stride=final_stride,
+                out_dtype=out_dtype if seg.last == nlayers - 1 else x.dtype)
+            layer = seg.last + 1
+            continue
         res = kept[residuals[layer]] if residuals[layer] is not None else None
-        kw = dict(stride=stride, relu=relu_flags[layer], residual=res,
-                  out_dtype=x.dtype)
+        kw = dict(stride=final_stride if last else 1, relu=relu_flags[layer],
+                  residual=res, out_dtype=out_dtype if last else x.dtype)
         if plain or not x.is_cuda:
             v = _conv_plain(v, weights[layer], scales[layer], offsets[layer],
                             **kw)
         else:
-            v = _conv2d_launch("conv2d_chain", v, weights[layer],
-                               scales[layer], offsets[layer], route=route,
-                               **kw)
+            v = _conv2d_launch(
+                "conv2d_bn_act", v, weights[layer], scales[layer],
+                offsets[layer], route="direct" if route == "direct" else None,
+                **kw)
         if layer in keep:
             kept[layer] = v
+        layer += 1
     return v

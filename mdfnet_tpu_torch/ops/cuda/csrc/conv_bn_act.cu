@@ -13,8 +13,10 @@
 //   K3 mdfnet_tpu/ops/pallas/conv3d_kernel.py:741 trconv3d_bn_relu
 //   K4 mdfnet_tpu/ops/pallas/conv2d_kernel.py:242 conv2d_fused
 //      (kernels _conv2d_kernel_unstacked :60, _conv2d_kernel_s2i :137)
-//   K5 mdfnet_tpu/ops/pallas/conv2d_kernel.py:654 conv2d_chain_fused runs as
-//      consecutive launches of conv_bn_act_kernel (ops/cuda/conv_kernel.py).
+//   K5 mdfnet_tpu/ops/pallas/conv2d_kernel.py:654 conv2d_chain_fused: the
+//      layers of a chain on the per-layer route that take no tensor-core
+//      kernel (f32, Ci in {1, 3}) run as launches of conv_bn_act_kernel
+//      (ops/cuda/conv_kernel.py conv2d_chain, chain_route).
 //
 // conv_bn_act_kernel: NDHWC input (2D is D = 1), kernel size K (KD = 1 or
 // 3 along D), stride 1 or 2, torch padding (K-1)/2, f32 accumulation, then

@@ -5,8 +5,9 @@
 // Replaces, as conv_bn_act_kernel does on the other route:
 //   K2 mdfnet_tpu/ops/pallas/conv3d_kernel.py:577 conv3d_bn_relu
 //   K4 mdfnet_tpu/ops/pallas/conv2d_kernel.py:242 conv2d_fused
-//   K5 mdfnet_tpu/ops/pallas/conv2d_kernel.py:654 conv2d_chain_fused (its
-//      layers, as consecutive launches)
+//   K5 mdfnet_tpu/ops/pallas/conv2d_kernel.py:654 conv2d_chain_fused (the
+//      layers of a chain on the per-layer route, as consecutive launches;
+//      conv_chain.cu runs a whole chain in one)
 //
 // What it computes: NDHWC bf16 input (2D is D = 1), a KD x K x K kernel (KD
 // in {1, 3}, K in {1, 3, 5}) at stride 1 or 2 with torch padding (K-1)/2, f32
@@ -71,7 +72,7 @@
 
 #include <atomic>
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -79,22 +80,11 @@ constexpr int kThreads = 256;       // two warpgroups
 constexpr int kTableBytes = 1024;   // K-step descriptors (<= 108 of 8 bytes)
 constexpr int kMaxSmem = 227 * 1024;
 constexpr int kMaxDevices = 64;
-// K steps (of 16) summed in the tensor cores before one f32 add into the
-// totals. The tensor cores align each step's sum to the accumulator by
-// truncation, so one long run of steps ends further from the exact sum than
-// f32 FMA does. The interval trades that error against time: at 9 the sums
-// of K2's and K4's main-path convs come nearer the exact (f64) sums than the
-// direct kernel's (chip_smoke.py's "tc sums" line) for a few percent of K2's
-// time; a shorter interval adds f32 adds and waits on the tensor cores to
-// every tile for little more accuracy.
-constexpr int kFlush = 9;
 
-// 64-row M blocks per warpgroup, by N (ops/cuda/conv_kernel.py _TC_MB)
-template <int N> struct Tile;
-template <> struct Tile<8> { static constexpr int MB = 4; };
-template <> struct Tile<16> { static constexpr int MB = 4; };
-template <> struct Tile<32> { static constexpr int MB = 2; };
-template <> struct Tile<64> { static constexpr int MB = 2; };
+using mdf::descriptor;
+using mdf::kFlush;
+using mdf::Tile;
+using mdf::Wgmma;
 
 struct TcArgs {
   const __nv_bfloat16* x;  // (Nb, Di, Hi, Wi, Ci)
@@ -142,12 +132,6 @@ using mdf::cp_async16;
 using mdf::cp_async_wait_all;
 using mdf::smem_u32;
 
-// wgmma matrix descriptor, no swizzle: start, LBO and SBO in 16-byte units
-__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(lbo & 0x3FFF) << 16) |
-         ((uint64_t)(sbo & 0x3FFF) << 32);
-}
-
 // Shared-memory row of K chunk q of the tile (output voxel (0, 0, 0)).
 __device__ __forceinline__ uint32_t chunk_row(int q, const TcArgs& a, const Geometry& g) {
   const int slot = q % a.K;
@@ -159,65 +143,6 @@ __device__ __forceinline__ uint32_t chunk_row(int q, const TcArgs& a, const Geom
   const int kw = a.S == 1 ? slot : (slot < half ? 2 * slot : 2 * (slot - half) + 1);
   return (kd * g.Hin + kh) * g.row + c * g.seg + (kw % a.S) * g.Wp + kw / a.S;
 }
-
-// D = A B (+ D where acc_in != 0), A and B from shared memory (K-major),
-// f32 accumulators.
-template <int N> struct Wgmma;
-
-template <> struct Wgmma<8> {
-  __device__ __forceinline__ static void mma(float* d, uint64_t da, uint64_t db, int acc_in) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(da), "l"(db), "r"(acc_in));
-  }
-};
-
-template <> struct Wgmma<16> {
-  __device__ __forceinline__ static void mma(float* d, uint64_t da, uint64_t db, int acc_in) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7])
-        : "l"(da), "l"(db), "r"(acc_in));
-  }
-};
-
-template <> struct Wgmma<32> {
-  __device__ __forceinline__ static void mma(float* d, uint64_t da, uint64_t db, int acc_in) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, "
-        "%17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(acc_in));
-  }
-};
-
-template <> struct Wgmma<64> {
-  __device__ __forceinline__ static void mma(float* d, uint64_t da, uint64_t db, int acc_in) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, "
-        "p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(acc_in));
-  }
-};
 
 // Copy rows [row0, row0 + rows) of B, (Q, N, 8) in 16-byte rows, to shared
 // memory from the packed (q_real, Co, 8) weights; a row of a channel >= Co

@@ -181,19 +181,128 @@ def test_conv2d(dtype, k, stride, ci, co):
                                                plain=p), dtype)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_chain_with_residuals_and_stride2_tail(dtype):
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "fused"),
+                                         (torch.bfloat16, "layers"),
+                                         (torch.float32, None)])
+def test_chain_with_residuals_and_stride2_tail(dtype, route, monkeypatch):
+    """bf16 on the chain kernel (the chain given a tile in CHAIN_FUSED):
+    one launch; bf16 and f32 per layer: one K4 launch a layer (f32 by
+    chain_route), which the chain's own counter does not count."""
     x = torch.randn(2, 19, 29, 8).cuda().to(dtype)
     ws = [(torch.randn(8, 8, 3, 3) * 0.2).cuda().to(dtype) for _ in range(3)]
     ws.append((torch.randn(16, 8, 5, 5) * 0.1).cuda().to(dtype))
     ones = torch.ones(8).cuda()
     scales = [ones, ones, ones * 0.1, torch.rand(16).cuda() + 0.5]
     offsets = [torch.randn(s.shape[0]).cuda() * 0.1 for s in scales]
-    before = conv_kernel.LAUNCHES["conv2d_chain"]
+    relus, res = (True, True, False, True), (None, None, 0, None)
+    specs = tuple((w.shape[-1], w.shape[1], w.shape[0]) for w in ws)
+    monkeypatch.setitem(conv_kernel.CHAIN_FUSED, (specs, relus, res, 2),
+                        (8, 16))
+    assert [(g.first, g.last) for g in conv_kernel.chain_plan(
+        specs, relus, res, 2, (8, 16))] == [(0, 3)]
+    before = dict(conv_kernel.LAUNCHES)
+    fused = route == "fused"
     _agree(lambda p: conv_kernel.conv2d_chain(
-        x, ws, scales, offsets, relu_flags=(True, True, False, True),
-        residuals=(None, None, 0, None), final_stride=2, plain=p), dtype)
-    assert conv_kernel.LAUNCHES["conv2d_chain"] == before + 4
+        x, ws, scales, offsets, relu_flags=relus, residuals=res,
+        final_stride=2, plain=p, route=route), dtype)
+    assert conv_kernel.LAUNCHES["conv2d_chain"] == \
+        before["conv2d_chain"] + (1 if fused else 0)
+    assert conv_kernel.LAUNCHES["conv2d_bn_act"] == \
+        before["conv2d_bn_act"] + (0 if fused else 4)
+
+
+# the eval forward's chains (K5): specs (k, Ci, Co), ReLUs, residuals,
+# final stride, the DTU input (N, H, W, Ci), and the final tile the chain
+# kernel takes them at here (the trunk's and x2's from CHAIN_FUSED; the
+# others, which the rule leaves per layer, at the tile that ran them
+# fastest)
+CHAINS = {
+    "trunk": (((3, 3, 8), (3, 8, 8), (5, 8, 16)), (True,) * 3, (None,) * 3,
+              2, (5, 1184, 1600, 3), (32, 64)),
+    "x2": (((3, 16, 16),) * 2, (True,) * 2, (None,) * 2, 1, (5, 592, 800, 16),
+           (16, 32)),
+    "x3": (((3, 32, 32),) * 2, (True,) * 2, (None,) * 2, 1, (5, 296, 400, 32),
+           (8, 16)),
+    "refine": (((3, 1, 8),) + ((3, 8, 8),) * 7 + ((3, 8, 32),),
+               (False,) + (True, False) * 3 + (False, False),
+               (None, None, 0, None, 2, None, 4, 0, None), 1, (1, 592, 800, 1),
+               (16, 16)),
+}
+
+
+def _chain_call(name, monkeypatch, shape=None):
+    """The chain's call on random inputs (route "fused" by default), its
+    tile put in CHAIN_FUSED for the test; and its plan there."""
+    specs, relus, res, fs, dtu, tile = CHAINS[name]
+    monkeypatch.setitem(conv_kernel.CHAIN_FUSED, CHAINS[name][:4], tile)
+    shape = shape or dtu
+    x = torch.randn(*shape).cuda().to(torch.bfloat16)
+    ws = [(torch.randn(co, ci, k, k) / (k * ci ** 0.5)).cuda()
+          .to(torch.bfloat16) for k, ci, co in specs]
+    scales = [torch.rand(co).cuda() + 0.5 for _, _, co in specs]
+    offsets = [torch.rand(co).cuda() * 0.2 + 0.3 for _, _, co in specs]
+    return (lambda p, route="fused": conv_kernel.conv2d_chain(
+        x, ws, scales, offsets, relu_flags=relus, residuals=res,
+        final_stride=fs, plain=p, route=route),
+        conv_kernel.chain_plan(*CHAINS[name][:4], tile))
+
+
+@pytest.mark.parametrize("name", list(CHAINS))
+@pytest.mark.parametrize("odd", [False, True])
+def test_chain_kernel(name, odd, monkeypatch):
+    """The chain kernel vs the plain chain at the DTU shape of each chain
+    of the forward that it takes (whichever route the rule gives it), and
+    at odd H and W (partial tiles, raw head rows copied element by
+    element); one launch per segment of its plan (the trunk's one at the
+    rule's tile, its stride-2 tail on the tc kernel)."""
+    route = conv_kernel.chain_route(torch.bfloat16, *CHAINS[name][:4])
+    assert route == ("fused" if name in ("trunk", "x2") else "layers")
+    if route == "fused":
+        assert conv_kernel.CHAIN_FUSED[CHAINS[name][:4]] == CHAINS[name][-1]
+    shape = CHAINS[name][-2]
+    if odd:
+        shape = (2, 37, 53, shape[-1])
+    call, plan = _chain_call(name, monkeypatch, shape)
+    before = dict(conv_kernel.LAUNCHES)
+    _agree(call, torch.bfloat16)
+    loose = len(CHAINS[name][0]) - sum(g.last - g.first + 1 for g in plan)
+    assert conv_kernel.LAUNCHES["conv2d_chain"] == \
+        before["conv2d_chain"] + len(plan)
+    assert conv_kernel.LAUNCHES["conv_tc"] == before["conv_tc"] + loose
+    assert loose == (1 if name == "trunk" else 0)
+
+
+@pytest.mark.parametrize("name", ["trunk", "refine"])
+def test_chain_kernel_gives_the_same_bits_each_launch(name, monkeypatch):
+    """Ten launches on the same inputs give the same bits: a wgmma reading
+    a buffer before the epilogue's stores reach the async proxy would read
+    stale values only some of the time."""
+    call, _ = _chain_call(name, monkeypatch)
+    first = call(False)
+    for _ in range(9):
+        assert torch.equal(call(False), first)
+
+
+def test_chain_kernel_takes_what_the_layers_route_takes(monkeypatch):
+    """The fused route and the per-layer route agree (both bf16 kernels),
+    and forcing the fused route on a chain it does not take, or one not in
+    CHAIN_FUSED, raises."""
+    call, _ = _chain_call("x2", monkeypatch, (2, 29, 41, 16))
+    got, ref = call(False), call(False, route="layers")
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= REL_TOL[torch.bfloat16] * ref.float().abs().max().item()
+    x = torch.randn(1, 8, 8, 64).cuda().to(torch.bfloat16)
+    w = torch.randn(64, 64, 3, 3).cuda().to(torch.bfloat16)
+    one = torch.ones(64).cuda()
+    with pytest.raises(ValueError):
+        conv_kernel.conv2d_chain(x, [w, w], [one] * 2, [one] * 2,
+                                 route="fused")
+    x = x[..., :8].contiguous()
+    w = w[:8, :8].contiguous()
+    with pytest.raises(ValueError):
+        conv_kernel.conv2d_chain(x, [w, w], [one[:8]] * 2, [one[:8]] * 2,
+                                 route="fused")
 
 
 def test_corenet_kernels_match_plain():
@@ -339,9 +448,10 @@ def test_conv_tc_routes_and_failures():
 
 def test_eval_forward_tc_launches_follow_the_rule():
     """A small bf16 eval forward launches the tc kernel once per conv and
-    transposed conv that the rule sends there (53 at the default widths),
-    and the co1 kernel once per conv to Co = 1 (the three ProbConvs,
-    refine's tail)."""
+    transposed conv that the rule sends there (50 at the default widths),
+    the co1 kernel once per conv to Co = 1 (the three ProbConvs, refine's
+    tail), and the chain kernel once per launch of a fused chain (2: the
+    trunk's first two layers, the 16-channel pair)."""
     model = build_model(ModelConfig(compute_dtype="bfloat16"), device="cuda")
     h, w, v = 64, 96, 3
     k = torch.tensor([[1.8 * w, 0, w / 2], [0, 1.8 * w, h / 2], [0, 0, 1]])
@@ -353,9 +463,11 @@ def test_eval_forward_tc_launches_follow_the_rule():
     torch.cuda.synchronize()
     routes = eval_conv_routes(model)
     assert conv_kernel.LAUNCHES["conv_tc"] - before["conv_tc"] == \
-        routes.count("tc") == 53
+        routes.count("tc") == 50
     assert conv_kernel.LAUNCHES["conv_co1"] - before["conv_co1"] == \
         routes.count("co1") == 4
+    assert conv_kernel.LAUNCHES["conv2d_chain"] - before["conv2d_chain"] == \
+        routes.count("chain") == 2
 
 
 CO1_SHAPES = {3: (2, 5, 11, 37), 1: (2, 37, 45)}   # odd extents, 2 items
