@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gate-spread   # the bf16 step gate's readings
-    python3 chip_smoke.py --k1-device-ms ROOT   # K1's device time, ROOT's
+    python3 chip_smoke.py --device-ms ROOT   # K1's and K7's device time, ROOT's
     python3 chip_smoke.py --chain-tiles [ROOT]   # the chain kernel at each tile
 
 ``--gate-spread`` reads the bf16 and f32 step gates' metrics over equally
@@ -14,8 +14,9 @@ beside the per-layer route (chain_tiles): conv_kernel's CHAIN_FUSED rule
 and its tiles, and CHAIN_CASE_TILES, come from it; with ROOT, the package
 of the checkout at ROOT runs them (a parent's ``git archive``, to hold two
 commits' chain kernels side by side in one call).
-``--k1-device-ms ROOT`` times K1 at the three DTU eval stages with the
-package of the checkout at ROOT (k1_device_ms), to hold two commits'
+``--device-ms ROOT`` times K1 at the three DTU eval stages and K7 at the
+three DTU train stages with the package of the checkout at ROOT
+(device_ms_mode), with digests of their outputs, to hold two commits'
 kernels side by side in one call.
 
 Phases (each prints one line; any failure raises and exits non-zero):
@@ -54,12 +55,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
   6. serve   — ``python -m mdfnet_tpu_torch.cli.eval`` on a synthetic DTU
      eval tree (1600x1200 cropped to 1184, 3 reference views);
   7. train kernels — the training step's kernels at the DTU train shapes
-     (640x512, 5 views, batch 4): the sample (K6) and splat (K7) kernels and
-     the fused train aggregate's stats kernel and K1 with a per-view affine
-     (K9) vs their plain versions at stages 0 and 2, the splat and the stats
-     kernel each run twice with bit-identical output, and each
-     differentiable conv's (K8) output, input gradient and weight gradient
-     vs plain autograd on the plain conv; each timed by wall and by device
+     (640x512, 5 views, batch 4): the sample kernel (K6), the fused train
+     aggregate's stats kernel and K1 with a per-view affine (K9) vs their
+     plain versions at stages 0 and 2, the splat kernel (K7) at stages 0,
+     1 and 2 and on stress cameras at stage 0 (each stage timed in bf16
+     and f32, split by kernel, and summed over a step's 3 launches), the
+     splat and the stats kernel each run twice with bit-identical output,
+     and each differentiable conv's (K8) output, input gradient and weight
+     gradient vs plain autograd on the plain conv; each timed by wall and by device
      time (every kernel of one call in a profile);
   8. train gate — one train step at that configuration on the kernels in
      bf16 against the plain versions in f32 (loss, each stage's cost and
@@ -67,8 +70,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the kernels in f32 against the plain versions in f32 (loss and every
      parameter's gradient, its error over a floor of its layer's gradient:
      STEP_BOUNDS_F32); every launch counter of the bf16 step must move, the
-     tc kernel's too; the f32 step launches no tc; each of five injected
-     faults (FAULTS) must read >= 2x a bf16 bound and >= 2x an f32 bound;
+     tc kernel's too; the f32 step launches no tc; each of six injected
+     faults (FAULTS) must read >= 2x an f32 bound and, but the faults of
+     the backward alone (BF16_BLIND: K7's 1-px shift), >= 2x a bf16 bound;
   9. learn   — 20 Adam steps on one batch: finite losses, the last below 0.9
      x the first; ms/step, device time and idle share (torch.profiler),
      peak memory, and one step's time by layer (CUDA events);
@@ -78,8 +82,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
   11. fused gate — one step of ``ModelConfig(warp_impl="fused")`` (the fused
      train aggregate, K9) under the bf16 and f32 gates above, and the fused
      f32 step against the unfused f32 step on the card (FUSED_BOUNDS), which
-     two injected faults (the BN backward without its mean term, K6's 1-px
-     shift) must each exceed twice;
+     three injected faults (the BN backward without its mean term, K6's and
+     K7's 1-px shifts) must each exceed twice;
      the stats kernel, K1 with the affine, K6 and K7 must all launch;
   12. fused learn — 10 Adam steps of the fused model: finite, falling
      losses; ms/step, peak memory, and the aggregates' forward and backward
@@ -431,6 +435,53 @@ def k1_stress_inputs(scene):
             ref_proj, hyp.reshape(1, d, 1, 1).to(DEV),
             (torch.randn(g, generator=gen) * 0.3).to(DEV),
             *(torch.tensor(v).to(DEV) for v in (0.9, 0.1, 1.2, -0.2)))
+
+
+def k7_inputs(batch, stress: bool = False):
+    """K7's arguments at the three DTU train stages (planes, groups) = (48,
+    32), (24, 16), (8, 8) at 1/8, 1/4 and 1/2 of 640x512: the cotangents
+    of all 4 sources of 4 items (16 images; stage 0 uniform planes, stages
+    1-2 per-pixel planes), from a seeded CUDA generator so that two
+    checkouts read the same inputs in one call. Yields (stage, dtype, (g, x,
+    y, h, w)), bf16 then f32 at each stage. ``stress``: stage 0 only, on
+    the batch's cameras with source view i turned by i x 20 degrees about
+    its y axis and planes from 0.2x the near to 5x the far depth."""
+    from mdfnet_tpu_torch import geometry
+    from mdfnet_tpu_torch.ops.warp import sweep_sample_coords
+    gen = torch.Generator(device=DEV).manual_seed(10)
+    b = TRAIN_BATCH
+    extr = batch["extrinsics"].float()
+    if stress:
+        extr = extr.clone()
+        for i in range(NVIEWS):
+            c, sn = (math.cos(math.radians(20.0 * i)),
+                     math.sin(math.radians(20.0 * i)))
+            yaw = torch.tensor([[c, 0, sn, 0], [0, 1, 0, 0], [-sn, 0, c, 0],
+                                [0, 0, 0, 1]], device=extr.device)
+            extr[:, i] = yaw @ extr[:, i]
+    for stage, (d, g) in enumerate(zip(NDEPTHS, NGROUPS)):
+        if stress and stage:
+            break
+        h, w = TRAIN_HEIGHT >> (3 - stage), TRAIN_WIDTH >> (3 - stage)
+        ref_proj, src_projs = geometry.projection_matrices(
+            batch["intrinsics"].float(), extr, stage, num_stages=4)
+        if stress:
+            hyp = torch.linspace(0.2 * DEPTH_RANGE[0], 5.0 * DEPTH_RANGE[1],
+                                 d, device=DEV).reshape(1, d, 1, 1)
+        elif stage == 0:
+            hyp = torch.linspace(*DEPTH_RANGE, d, device=DEV).reshape(
+                1, d, 1, 1)
+        else:
+            hyp = 560.0 + torch.arange(d, device=DEV).reshape(1, d, 1, 1) \
+                * 4.0 + torch.rand(b, 1, h, w, generator=gen,
+                                   device=DEV) * 40.0
+        hyp = hyp.expand(b, d, *hyp.shape[2:])
+        x, y = sweep_sample_coords(src_projs, ref_proj, hyp, h, w)
+        gr = torch.randn(b * (NVIEWS - 1), d, h, w, g, generator=gen,
+                         device=DEV)
+        for dt in (torch.bfloat16, torch.float32):
+            yield stage, dt, (gr.to(dt), x, y, h, w)
+        del gr
 
 
 def chain_calls(dt):
@@ -1331,10 +1382,10 @@ def _rel_err(got, ref) -> tuple[float, float]:
 
 def train_kernel_cases(gen, batch):
     """(name, dtype, run(plain) -> result, time(plain) -> ms, meta) at the
-    DTU train shapes; the first case of each name is its timed, main-path
-    shape (bf16), whose meta gives the bytes its timed work moves, its
-    operations and the PyTorch call timed beside it (None where there is
-    none). K8 results are (output, d_input, d_weight): the kernel Function
+    DTU train shapes; a case with a meta is timed: the first of each name
+    (bf16) at its main-path shape, K7 at each of the three stages in bf16
+    and f32. The meta gives the bytes its timed work moves, its operations
+    and the PyTorch call timed beside it (None where there is none). K8 results are (output, d_input, d_weight): the kernel Function
     against plain autograd on the plain conv; its time, bound and yardstick
     are the input gradient's."""
     import torch.nn.functional as F
@@ -1354,8 +1405,8 @@ def train_kernel_cases(gen, batch):
 
     b, s = TRAIN_BATCH, NVIEWS - 1
     cases, geo = [], {}
-    # K6 / K7 — stage 0 (48 uniform planes, 1/8 res, G = 32) and stage 2
-    # (8 per-pixel planes, 1/2 res, G = 8), all 4 sources of 4 items
+    # K6 — stage 0 (48 uniform planes, 1/8 res, G = 32) and stage 2 (8
+    # per-pixel planes, 1/2 res, G = 8), all 4 sources of 4 items
     for stage, d, g in ((0, NDEPTHS[0], NGROUPS[0]), (2, NDEPTHS[2], NGROUPS[2])):
         h, w = TRAIN_HEIGHT >> (3 - stage), TRAIN_WIDTH >> (3 - stage)
         ref_proj, src_projs = geometry.projection_matrices(
@@ -1376,31 +1427,39 @@ def train_kernel_cases(gen, batch):
         grid = grid.reshape(b * s, d, h * w, 2)
         for dt in (torch.bfloat16, torch.float32):
             img = rnd(b * s, h, w, g).to(dt)
-            gr = rnd(b * s, d, h, w, g).to(dt)
             sample = (lambda p, img=img, x=x, y=y: sample_2d(img, x, y, plain=p))
-            splat = (lambda p, gr=gr, x=x, y=y, h=h, w=w:
-                     splat_2d(gr, x, y, h, w, plain=p))
             n_samples = x.numel()
-            gd = grid.to(dt)
-            img_nchw = cl(img)
-            g_nchw = gr.reshape(b * s, d, h * w, g).permute(0, 3, 1, 2)
             sample_meta = dict(
                 device=lambda f=sample: f(False),
-                nbytes=size(img, x, y, gr), ops=n_samples * (10 + 9 * g),
-                library=lambda img=img_nchw, gd=gd: F.grid_sample(
+                nbytes=size(img, x, y) + n_samples * g * img.element_size(),
+                ops=n_samples * (10 + 9 * g),
+                library=lambda img=cl(img), gd=grid.to(dt): F.grid_sample(
                     img, gd, mode="bilinear", padding_mode="zeros",
                     align_corners=False))
+            cases.append(("sample_2d", dt, sample,
+                          lambda p, f=sample: cuda_ms(lambda: f(p)),
+                          sample_meta if not cases else None))
+    # K7 — the three stages (k7_inputs), each timed in bf16 (the dense
+    # step's) and f32 (the fused step's), and the stress cameras at stage 0
+    for stress in (False, True):
+        for stage, dt, (gr, x, y, h, w) in k7_inputs(batch, stress):
+            splat = (lambda p, a=(gr, x, y, h, w): splat_2d(*a, plain=p))
+            n, d, g = gr.shape[0], gr.shape[1], gr.shape[-1]
+            grid = torch.stack([(2.0 * x + 1.0) / w - 1.0,
+                                (2.0 * y + 1.0) / h - 1.0], -1)
             splat_meta = dict(
-                device=lambda f=splat: f(False),
-                nbytes=size(gr, x, y) + b * s * h * w * g * 4,
-                ops=n_samples * (10 + 8 * g),
-                library=lambda gn=g_nchw, img=img_nchw, gd=gd:
+                stage=stage, device=lambda f=splat: f(False),
+                nbytes=size(gr, x, y) + n * h * w * g * 4,
+                ops=x.numel() * (10 + 8 * g),
+                library=lambda gn=gr.reshape(n, d, h * w, g).permute(
+                    0, 3, 1, 2), img=torch.zeros(n, g, h, w, dtype=dt,
+                                                 device=DEV),
+                gd=grid.reshape(n, d, h * w, 2).to(dt):
                 torch.ops.aten.grid_sampler_2d_backward(
                     gn, img, gd, 0, 0, False, [True, False]))
-            cases += [("sample_2d", dt, sample,
-                       lambda p, f=sample: cuda_ms(lambda: f(p)), sample_meta),
-                      ("splat_2d", dt, splat,
-                       lambda p, f=splat: cuda_ms(lambda: f(p)), splat_meta)]
+            cases.append(("splat_2d" if not stress else "splat_2d stress",
+                          dt, splat, lambda p, f=splat: cuda_ms(lambda: f(p)),
+                          None if stress else splat_meta))
 
     def plain_conv(kind, stride):
         def run(x, w):
@@ -1523,49 +1582,72 @@ def train_kernel_cases(gen, batch):
 
 
 def check_train_kernels(batch):
-    from mdfnet_tpu_torch.ops.cuda.splat_kernel import splat_2d
     gen = torch.Generator().manual_seed(1)
     report = {}
     for name, dt, run, timer, meta in train_kernel_cases(gen, batch):
+        key = name.split()[0]       # "splat_2d stress" reports as splat_2d
         got, ref = run(False), run(True)
         torch.cuda.synchronize()
         err, rel = _rel_err(got, ref)
-        entry = report.setdefault(name, {"max_abs_err": 0.0})
+        entry = report.setdefault(key, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         shape = tuple((got[0] if isinstance(got, tuple) else got).shape)
         line = (f"train kernel {name} {str(dt)[6:]} {shape}: max_abs_err "
                 f"{err:.3e} rel {rel:.3e} (tol {REL_TOL[dt]:.0e})")
-        if name in ("splat_2d", "rowsweep_stats"):
+        if key in ("splat_2d", "rowsweep_stats"):
             again = run(False)
             torch.cuda.synchronize()
             require(torch.equal(got, again),
                     f"{name}: two launches on the same inputs differ")
             line += "; two launches bit-identical"
-        if meta is not None and "ms" not in entry:
+        if meta is not None:
             # wall per call of back-to-back calls, mostly the host's time
-            entry.update(interleaved_ms({"ms": lambda: timer(False),
-                                         "plain_ms": lambda: timer(True)}))
-            entry.update(bound(name, meta["nbytes"], meta["ops"],
-                               meta.get("mufu", 0)))
-            entry["library_ms"] = (cuda_ms(meta["library"])
-                                   if meta["library"] else None)
+            case = {"shape": list(shape), "dtype": str(dt)[6:]}
+            case.update(interleaved_ms({"ms": lambda: timer(False),
+                                        "plain_ms": lambda: timer(True)}))
+            case.update(bound(key, meta["nbytes"], meta["ops"],
+                              meta.get("mufu", 0)))
+            case["library_ms"] = (cuda_ms(meta["library"])
+                                  if meta["library"] else None)
             # device time: every kernel of one call in a profile
-            entry["device_ms"] = kernel_device_ms(meta["device"], "")
-            entry["library_device_ms"] = (
+            case["device_ms"] = kernel_device_ms(meta["device"], "")
+            case["library_device_ms"] = (
                 kernel_device_ms(meta["library"], "") if meta["library"]
                 else None)
-            line += (f"; {entry['ms']:.3f} ms vs plain "
-                     f"{entry['plain_ms']:.3f} ms, bound "
-                     f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}), "
-                     f"library {entry['library_ms']} ms; device time "
-                     f"{entry['device_ms']:.3f} ms, library "
-                     f"{entry['library_device_ms']} ms")
+            line += (f"; {case['ms']:.3f} ms vs plain "
+                     f"{case['plain_ms']:.3f} ms, bound "
+                     f"{case['bound_ms']:.3f} ms ({case['bound_by']}), "
+                     f"library {case['library_ms']} ms; device time "
+                     f"{case['device_ms']:.3f} ms, library "
+                     f"{case['library_device_ms']} ms")
+            if "stage" in meta:
+                case["stage"] = meta["stage"]
+                case["split"] = device_split(meta["device"])
+                line += " (" + ", ".join(f"{k} {v:.4f}" for k, v in
+                                         case["split"].items()) + ")"
             if name.endswith("_train"):
                 line += " (input gradient)"
+            if "ms" not in entry:
+                entry.update({k: v for k, v in case.items()
+                              if k not in ("shape", "dtype", "stage",
+                                           "split")})
+            entry.setdefault("cases", []).append(case)
         print(line, flush=True)
         require(rel <= REL_TOL[dt] and np.isfinite(err),
                 f"{name} disagrees with its plain version")
         del got, ref
+    for entry in report.values():
+        if len(entry.get("cases", ())) == 1:
+            del entry["cases"]
+    k7 = report["splat_2d"]["cases"]
+    print("train kernel splat_2d per step (3 launches, device ms): "
+          + "; ".join(f"{dt} " + " + ".join(
+              f"{c['device_ms']:.3f}" for c in k7 if c["dtype"] == dt)
+              + f" = {sum(c['device_ms'] for c in k7 if c['dtype'] == dt):.3f}"
+              + " (library " + " + ".join(
+                  f"{c['library_device_ms']:.3f}" for c in k7
+                  if c["dtype"] == dt) + ")"
+              for dt in ("bfloat16", "float32")), flush=True)
     return report
 
 
@@ -1654,11 +1736,25 @@ def _shifted_sample_taps():
     return [(warp, "sample_2d", faulty), (aggregate_train, "sample_2d", faulty)]
 
 
-# The step gates' injected faults: name -> the patches that inject it. The
-# fused step runs K6 only in its backward, where the bf16 gate's metrics
-# read its fault as they read a correct order (PERF.md section 2), so the
-# fused f32 gate (fused_gate) holds that fault instead.
+def _shifted_splat_taps():
+    """A K7 fault: its launches splat each tap one pixel to the right."""
+    from mdfnet_tpu_torch.ops import aggregate_train, warp
+    from mdfnet_tpu_torch.ops.cuda.splat_kernel import splat_2d
+
+    def faulty(g, x, y, height, width, *, plain=False):
+        return splat_2d(g, x if plain else x + 1.0, y, height, width,
+                        plain=plain)
+    return [(warp, "splat_2d", faulty), (aggregate_train, "splat_2d", faulty)]
+
+
+# The step gates' injected faults: name -> the patches that inject it.
 K6_FAULT = "K6 1-px shift"
+K7_FAULT = "K7 1-px shift"
+# (path, fault) pairs that the bf16 gate cannot see: the fused step runs K6
+# only in its backward, and both steps run K7 only there, where every bf16
+# metric reads the fault as it reads a correct order (PERF.md section 2).
+# The f32 gate holds each of them (and fused_gate the fused step's).
+BF16_BLIND = {("fused", K6_FAULT), ("dense", K7_FAULT), ("fused", K7_FAULT)}
 FAULTS = {
     "conv3d tap": lambda: _zeroed_corner_tap(
         lambda kd, k, co, tr: kd == 3 and not tr and co > 1),
@@ -1668,6 +1764,7 @@ FAULTS = {
     "ProbConv tap": lambda: _zeroed_corner_tap(
         lambda kd, k, co, tr: kd == 3 and not tr and co == 1),
     K6_FAULT: _shifted_sample_taps,
+    K7_FAULT: _shifted_splat_taps,
 }
 
 
@@ -1693,9 +1790,9 @@ def train_gate(batch, warp_impl: str = "dense"):
     """The bf16 and f32 step gates; returns the bf16 step's launches, its
     tc-route launches per conv counter, and the f32 kernel step's (loss,
     gradients). The f32 step must take the direct kernels only. Each of
-    FAULTS (in the fused step all but K6_FAULT), injected into the bf16
-    step, must read at least twice its bound on one of the bf16 gate's
-    metrics."""
+    FAULTS but those of BF16_BLIND, injected into the bf16 step, must read
+    at least twice its bound on one of the bf16 gate's metrics; each,
+    injected into the f32 step, on one of the f32 gate's."""
     from mdfnet_tpu_torch.ops.cuda import (aggregate_kernel, conv_kernel,
                                            splat_kernel, warp_kernel)
     counters = (warp_kernel.LAUNCHES, splat_kernel.LAUNCHES,
@@ -1747,7 +1844,7 @@ def train_gate(batch, warp_impl: str = "dense"):
         over = {k: m[k] / b for k, b in STEP_BOUNDS_BF16.items()}
         worst = max(over, key=over.get)
         caught.append(f"{name}: {worst} {over[worst]:.1f}x")
-        require(over[worst] >= 2.0 or (warp_impl, name) == ("fused", K6_FAULT),
+        require(over[worst] >= 2.0 or (warp_impl, name) in BF16_BLIND,
                 f"train gate bf16: the injected fault '{name}' reads within "
                 f"2x of every bound ({_show(m)})")
     print(f"{warp_impl} train gate bf16, injected faults (the metric most "
@@ -1986,10 +2083,11 @@ def _versus(loss, grads, loss_ref, grads_ref) -> dict:
 def fused_gate(batch, unfused_f32):
     """The fused train aggregate's step (warp_impl="fused") under the bf16
     and f32 gates, then the fused f32 step against the unfused f32 step on
-    the kernels (FUSED_BOUNDS), and the same with each of two faults
+    the kernels (FUSED_BOUNDS), and the same with each of three faults
     injected into the fused backward (the BN backward without its mean
-    term; K6_FAULT, which only this gate sees there), each of which must
-    read at least twice a bound. Returns the fused bf16 step's launches."""
+    term, K6_FAULT and K7_FAULT, which the bf16 gate cannot see there),
+    each of which must read at least twice a bound. Returns the fused bf16
+    step's launches."""
     from mdfnet_tpu_torch.ops import aggregate_train
     launches, _, (loss_f, grads_f) = train_gate(batch, warp_impl="fused")
     require(all(launches[k] > 0 for k in (*FUSED_KERNELS, "sample_2d",
@@ -2003,7 +2101,7 @@ def fused_gate(batch, unfused_f32):
         return r * (d_shat - s_hat * m2.float())
     faults = {"the BN backward without its mean term":
               [(aggregate_train, "bn_backward", without_mean)],
-              K6_FAULT: FAULTS[K6_FAULT]()}
+              K6_FAULT: FAULTS[K6_FAULT](), K7_FAULT: FAULTS[K7_FAULT]()}
     read = {}
     for name, patches in faults.items():
         with patched(patches):
@@ -2256,38 +2354,78 @@ def _kernel_name(mangled: str) -> str:
     return mangled
 
 
+def _device_events(fn, iters: int) -> dict:
+    """Device time per call of ``fn`` by kernel (or copy) name
+    (torch.profiler, CUPTI) over ``iters`` calls, after one call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            out[e.key] = out.get(e.key, 0.0) + \
+                e.self_device_time_total / iters / 1e3
+    return out
+
+
 def kernel_device_ms(fn, kernel: str, iters: int = 10) -> float:
     """Mean device time per call of ``fn`` of the kernels whose name holds
     ``kernel`` ("": every kernel and copy of the call) (torch.profiler,
     CUPTI), over ``iters`` calls after one. A trace that holds none of
     them (CUPTI at times records no kernel of a short profile) is taken
     again, up to three times."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and kernel in e.key)
-        if us > 0:
-            return us / iters / 1e3
+        ms = sum(v for k, v in _device_events(fn, iters).items()
+                 if kernel in k)
+        if ms > 0:
+            return ms
     raise RuntimeError(f"no {kernel} kernel in three traces")
 
 
-def k1_device_ms(root: str) -> None:
-    """K1's own device time at the three DTU eval stages (bf16, the kernel
-    phase's inputs), by kernel_device_ms, and a digest of each stage's
-    output bytes, for the package of the checkout at ``root`` (say a parent
-    commit's ``git archive``, whose kernels build under its own build/):
-    one line ``K1_DEVICE_MS {...}``. Run it for two checkouts in one call
-    to compare them on one card; equal digests mean equal bits."""
+def device_split(fn, iters: int = 10) -> dict:
+    """Device time per call of ``fn`` by kernel or copy, each name cut to
+    its function (no namespace, template or arguments)."""
+    for _ in range(3):
+        events = _device_events(fn, iters)
+        if events:
+            break
+    else:
+        raise RuntimeError("no kernel in three traces")
+    out = {}
+    for key, ms in events.items():
+        name = re.split(r"[<(]", key.replace("(anonymous namespace)::", "")
+                        .replace("void ", ""))[0].split("::")[-1].strip()
+        name = name or key[:40]
+        out[name] = out.get(name, 0.0) + ms
+    return out
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def device_ms_mode(root: str) -> None:
+    """K1's and K7's device time with the package of the checkout at
+    ``root`` (say a parent commit's ``git archive``, whose kernels build
+    under its own build/), and a digest of each output; run it for two
+    checkouts in one call to compare them on one card (equal digests mean
+    equal bits). K1 (its kernel alone, kernel_device_ms) at the three DTU
+    eval stages in bf16: one line ``K1_DEVICE_MS {...}``. K7 (every kernel
+    and copy of a call) at the three DTU train stages (k7_inputs) in bf16
+    and f32, with its split by kernel (device_split), its wall per call,
+    the device memory a call takes beyond its output, and
+    grid_sampler_2d_backward's device time on the same samples: one line
+    ``K7_DEVICE_MS {...}``. Then the DTU train step (bf16, dense and fused):
+    ms/step (median of 5 after 2), peak memory and device time (every
+    kernel and copy of a step in a profile): ``TRAIN_STEP {...}``."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
-    from mdfnet_tpu_torch.ops.cuda import aggregate_kernel
+    from mdfnet_tpu_torch.ops.cuda import aggregate_kernel, splat_kernel
     require(aggregate_kernel.__file__.startswith(root + os.sep),
             f"{aggregate_kernel.__file__} is not under {root}")
     gen = torch.Generator().manual_seed(0)
@@ -2296,10 +2434,65 @@ def k1_device_ms(root: str) -> None:
         ms.append(kernel_device_ms(
             lambda a=a: aggregate_kernel.rowsweep_aggregate(*a),
             "rowsweep_aggregate_kernel"))
-        out = aggregate_kernel.rowsweep_aggregate(*a).cpu().numpy()
-        digests.append(hashlib.sha256(out.tobytes()).hexdigest()[:16])
+        digests.append(_digest(aggregate_kernel.rowsweep_aggregate(*a)))
     print("K1_DEVICE_MS " + json.dumps({"root": root, "stages_ms": ms,
                                         "digests": digests}), flush=True)
+    cases = []
+    for stage, dt, (g, x, y, h, w) in k7_inputs(train_batch()):
+        def run(g=g, x=x, y=y, h=h, w=w):
+            return splat_kernel.splat_2d(g, x, y, h, w)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        torch.cuda.synchronize()
+        scratch = torch.cuda.max_memory_allocated() - before - size(out)
+        split = device_split(run)
+        n, d, c = g.shape[0], g.shape[1], g.shape[-1]
+        grid = torch.stack([(2.0 * x + 1.0) / w - 1.0,
+                            (2.0 * y + 1.0) / h - 1.0], -1)
+        grid = grid.reshape(n, d, h * w, 2).to(dt)
+        img = torch.zeros(n, c, h, w, dtype=dt, device=DEV)
+        g_nchw = g.reshape(n, d, h * w, c).permute(0, 3, 1, 2)
+        library = kernel_device_ms(
+            lambda: torch.ops.aten.grid_sampler_2d_backward(
+                g_nchw, img, grid, 0, 0, False, [True, False]), "")
+        cases.append({"stage": stage, "dtype": str(dt)[6:],
+                      "shape": list(g.shape), "ms": sum(split.values()),
+                      "split": split, "wall_ms": cuda_ms(run),
+                      "scratch_mib": scratch / 2**20,
+                      "library_ms": library, "digest": _digest(out)})
+        print(f"K7 stage {stage} {str(dt)[6:]}: {cases[-1]}", flush=True)
+        del out, grid, img, g_nchw
+    print("K7_DEVICE_MS " + json.dumps({"root": root, "cases": cases}),
+          flush=True)
+    from mdfnet_tpu_torch.config import ModelConfig
+    from mdfnet_tpu_torch.models.registry import build_model
+    from mdfnet_tpu_torch.train_lib import make_optimizer, poly_lr, train_step
+    batch, steps = train_batch(), {}
+    for impl in ("dense", "fused"):
+        model = build_model(ModelConfig(warp_impl=impl),
+                            compute_dtype="bfloat16", seed=0,
+                            device=DEV).requires_grad_(True)
+        opt = make_optimizer(model, poly_lr(1, 1e-3, 30, 0.9))
+
+        def step(model=model, opt=opt):
+            return train_step(model, opt, batch)
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        steps[impl] = {"ms_step": statistics.median(times),
+                       "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                       "device_ms": kernel_device_ms(step, "", iters=3)}
+        del model, opt
+    print("TRAIN_STEP " + json.dumps({"root": root, **steps}), flush=True)
 
 
 def sass_mufu(lib_path) -> dict:
@@ -2331,8 +2524,8 @@ def main():
     if sys.argv[1:2] == ["--chain-tiles"] and len(sys.argv) <= 3:
         chain_tiles(*sys.argv[2:])
         return
-    if sys.argv[1:2] == ["--k1-device-ms"] and len(sys.argv) == 3:
-        k1_device_ms(sys.argv[2])
+    if sys.argv[1:2] == ["--device-ms"] and len(sys.argv) == 3:
+        device_ms_mode(sys.argv[2])
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

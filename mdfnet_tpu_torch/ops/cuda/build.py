@@ -42,8 +42,7 @@ SIGNATURES = {
     "mdf_conv_chain": [_P] * 6 + [_I] * 8 + [_P],
     "mdf_conv3d_pair": [_P] * 8 + [_I] * 11 + [_P],
     "mdf_sample_2d": [_P] * 4 + [_I] * 7 + [_P],
-    "mdf_splat_keys": [_P] * 3 + [_I] * 5 + [_P],
-    "mdf_splat_reduce": [_P] * 6 + [_I] * 6 + [_P],
+    "mdf_splat_2d": [_P] * 8 + [_I] * 11 + [_P],
 }
 
 

@@ -565,12 +565,35 @@ def test_sample_2d(dtype, c, stress):
     assert warp_kernel.LAUNCHES["sample_2d"] == before + 1
 
 
+# name -> (H, W, planes, views, channels, coordinates): the sweep of
+# _sweep ("sweep", "stress"), or uniform in a box (x0, x1, y0, y1): "one
+# tile" puts every sample into the first tile, so it takes many of the
+# reduce's chunks and its cells hold many samples each; "outside" puts
+# every coordinate outside the image (each snaps to -1: only a zero-weight
+# tap at pixel (0, 0) stays in the image). "stage 0-2": the DTU train
+# stages' per-image shapes.
+SPLAT_CASES = {
+    "c8": (20, 36, 6, 4, 8, "sweep"), "c32": (20, 36, 6, 4, 32, "sweep"),
+    "stress": (20, 36, 6, 4, 16, "stress"),
+    "stage 0": (64, 80, 48, 3, 32, "sweep"),
+    "stage 1": (128, 160, 24, 3, 16, "sweep"),
+    "stage 2": (256, 320, 8, 3, 8, "sweep"),
+    "one tile": (70, 90, 40, 3, 16, (3.0, 9.0, 2.0, 5.0)),
+    "outside": (20, 36, 6, 3, 8, (-40.0, -1.0, -20.0, 60.0)),
+}
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("c,stress", [(8, False), (32, False), (16, True)])
-def test_splat_2d_and_its_determinism(dtype, c, stress):
+@pytest.mark.parametrize("case", list(SPLAT_CASES))
+def test_splat_2d_and_its_determinism(dtype, case):
     """f32 output; two launches on the same inputs are bit-identical."""
-    h, w, d, v = 20, 36, 6, 4
-    x, y = _sweep(h, w, d, v, stress)
+    h, w, d, v, c, coords = SPLAT_CASES[case]
+    if isinstance(coords, str):
+        x, y = _sweep(h, w, d, v, coords == "stress")
+    else:
+        x0, x1, y0, y1 = coords
+        x = (torch.rand(v - 1, d, h, w) * (x1 - x0) + x0).cuda()
+        y = (torch.rand(v - 1, d, h, w) * (y1 - y0) + y0).cuda()
     g = torch.randn(v - 1, d, h, w, c).cuda().to(dtype)
     before = splat_kernel.LAUNCHES["splat_2d"]
     got = splat_kernel.splat_2d(g, x, y, h, w)
@@ -581,7 +604,54 @@ def test_splat_2d_and_its_determinism(dtype, c, stress):
     assert got.dtype == torch.float32 and got.shape == (v - 1, h, w, c)
     assert torch.equal(got, again)
     err = (got - ref).abs().max().item()
-    assert err <= REL_TOL[torch.float32] * ref.abs().max().item()
+    assert err <= REL_TOL[torch.float32] * max(ref.abs().max().item(), 1e-6)
+    if case == "outside":
+        assert not got.any()
+
+
+def _sequential_splat(g, x, y, h, w):
+    """Each pixel's f32 sum of its in-image terms (v * fy) * fx in ascending
+    (sample, tap) order, in numpy: the order and the rounding of the splat
+    kernel (and of the sort-based kernel before it)."""
+    import numpy as np
+    f32 = np.float32
+    b, c = g.shape[0], g.shape[-1]
+    gf = g.float().cpu().numpy().reshape(-1, c)
+    xs, ys = x.cpu().numpy().reshape(-1), y.cpu().numpy().reshape(-1)
+    n = xs.size // b
+    xs = np.where((xs > -1) & (xs < w), xs, f32(-1)).astype(f32)
+    ys = np.where((ys > -1) & (ys < h), ys, f32(-1)).astype(f32)
+    x0, y0 = np.floor(xs), np.floor(ys)
+    wx, wy = (xs - x0).astype(f32), (ys - y0).astype(f32)
+    out = np.zeros((b, h, w, c), f32)
+    with np.errstate(invalid="ignore"):
+        for i in range(xs.size):
+            for k in range(4):
+                xi, yi = int(x0[i]) + (k & 1), int(y0[i]) + (k >> 1)
+                if 0 <= xi < w and 0 <= yi < h:
+                    fx = wx[i] if k & 1 else f32(1) - wx[i]
+                    fy = wy[i] if k >> 1 else f32(1) - wy[i]
+                    out[i // n, yi, xi] += (gf[i] * fy).astype(f32) * fx
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("c,stress", [(8, False), (32, True), (16, False)])
+def test_splat_2d_sums_in_sample_order(c, stress):
+    """The kernel's f32 output is, bit for bit, each pixel's sequential sum
+    in ascending sample order; a sample snapped outside the image whose
+    value is infinite or NaN leaves NaN at its in-image taps, as that sum
+    does."""
+    h, w, d, v = 20, 36, 6, 3
+    x, y = _sweep(h, w, d, v, stress)
+    x[0, 0, :, :4] = -3.0                     # snapped samples
+    g = torch.randn(v - 1, d, h, w, c).cuda()
+    g[0, 0, :, :4:3, 1] = float("inf")
+    g[1, 2, 5, 7, 0] = float("nan")
+    got = splat_kernel.splat_2d(g, x, y, h, w).cpu()
+    want = _sequential_splat(g, x, y, h, w)
+    assert torch.equal(got.isnan(), want.isnan()) and got.isnan().any()
+    ok = ~want.isnan()
+    assert torch.equal(got[ok].view(torch.int32), want[ok].view(torch.int32))
 
 
 def test_warp_train_backward_is_the_splat():
