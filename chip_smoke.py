@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gate-spread   # the bf16 step gate's readings
-    python3 chip_smoke.py --device-ms ROOT   # K1's and K7's device time, ROOT's
+    python3 chip_smoke.py --device-ms ROOT   # K1, K7, K9 device time, ROOT's
     python3 chip_smoke.py --chain-tiles [ROOT]   # the chain kernel at each tile
 
 ``--gate-spread`` reads the bf16 and f32 step gates' metrics over equally
@@ -14,16 +14,18 @@ beside the per-layer route (chain_tiles): conv_kernel's CHAIN_FUSED rule
 and its tiles, and CHAIN_CASE_TILES, come from it; with ROOT, the package
 of the checkout at ROOT runs them (a parent's ``git archive``, to hold two
 commits' chain kernels side by side in one call).
-``--device-ms ROOT`` times K1 at the three DTU eval stages and K7 at the
-three DTU train stages with the package of the checkout at ROOT
-(device_ms_mode), with digests of their outputs, to hold two commits'
-kernels side by side in one call.
+``--device-ms ROOT`` times K1 at the three DTU eval stages and K7 and K9
+(the stats kernel and K1's train launch) at the three DTU train stages with
+the package of the checkout at ROOT (device_ms_mode), with digests of their
+outputs, to hold two commits' kernels side by side in one call.
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device  — needs CUDA; prints the card's name and power limit;
   2. build   — compiles the hand-written kernels (ops/cuda/csrc) with nvcc;
-     the tc kernels', K1's and the co1 kernel's registers (none may spill),
-     K1's MUFU instructions in the SASS;
+     the tc kernels', K1's, the co1 kernel's and the stats kernel's
+     registers (none may spill), K1's and the stats kernel's MUFU
+     instructions in the SASS, and the instructions of the stats kernel's
+     loops;
   3. kernels — each kernel vs its plain PyTorch version at the DTU stage
      shapes, bf16 and f32, with times from CUDA events, its bound (the
      least time the card could take for the same work; K1's also on the
@@ -55,11 +57,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
   6. serve   — ``python -m mdfnet_tpu_torch.cli.eval`` on a synthetic DTU
      eval tree (1600x1200 cropped to 1184, 3 reference views);
   7. train kernels — the training step's kernels at the DTU train shapes
-     (640x512, 5 views, batch 4): the sample kernel (K6), the fused train
-     aggregate's stats kernel and K1 with a per-view affine (K9) vs their
-     plain versions at stages 0 and 2, the splat kernel (K7) at stages 0,
-     1 and 2 and on stress cameras at stage 0 (each stage timed in bf16
-     and f32, split by kernel, and summed over a step's 3 launches), the
+     (640x512, 5 views, batch 4): the sample kernel (K6) vs its plain
+     version at stages 0 and 2; the splat kernel (K7) and the fused train
+     aggregate's kernels (K9: the stats kernel, on K1's lane groups with
+     all planes a block, and K1 with a per-view affine) at stages 0, 1 and
+     2 and on stress cameras at stage 0, each stage timed in bf16 and f32,
+     split by kernel, and summed over a step's 3 launches; the
      splat and the stats kernel each run twice with bit-identical output,
      and each differentiable conv's (K8) output, input gradient and weight
      gradient vs plain autograd on the plain conv; each timed by wall and by device
@@ -364,6 +367,12 @@ def aggregate_mufu(pixels: int, points: int, n_src: int, g: int) -> int:
     return pixels * 2 * g + points * (n_src * (2 * g + 4) + 1)
 
 
+# The stats kernel's (K9): q's G sigmoids once per pixel, per (pixel,
+# plane, source) p's G sigmoids and the projection's two divisions.
+def stats_mufu(pixels: int, points: int, n_src: int, g: int) -> int:
+    return pixels * 2 * g + points * n_src * (2 * g + 2)
+
+
 def cl(x):
     """Channels-last (NHWC / NDHWC) data as the NCHW / NCDHW view cuDNN takes
     in its channels-last memory format."""
@@ -446,9 +455,28 @@ def k7_inputs(batch, stress: bool = False):
     y, h, w)), bf16 then f32 at each stage. ``stress``: stage 0 only, on
     the batch's cameras with source view i turned by i x 20 degrees about
     its y axis and planes from 0.2x the near to 5x the far depth."""
-    from mdfnet_tpu_torch import geometry
     from mdfnet_tpu_torch.ops.warp import sweep_sample_coords
     gen = torch.Generator(device=DEV).manual_seed(10)
+    for stage, d, g, h, w, src_projs, ref_proj, hyp in train_sweeps(
+            batch, gen, stress):
+        x, y = sweep_sample_coords(src_projs, ref_proj, hyp, h, w)
+        gr = torch.randn(TRAIN_BATCH * (NVIEWS - 1), d, h, w, g,
+                         generator=gen, device=DEV)
+        for dt in (torch.bfloat16, torch.float32):
+            yield stage, dt, (gr.to(dt), x, y, h, w)
+        del gr
+
+
+def train_sweeps(batch, gen, stress: bool = False):
+    """The plane sweeps of the three DTU train stages: (stage, planes,
+    groups, h, w, src_projs, ref_proj, hypotheses) with (planes, groups) =
+    (48, 32), (24, 16), (8, 8) at 1/8, 1/4 and 1/2 of 640x512 on the batch's
+    cameras; stage 0 uniform planes (B, D, 1, 1), stages 1-2 per-pixel
+    planes (B, D, H, W) drawn from ``gen`` (a CUDA generator). ``stress``:
+    stage 0 only, with source view i turned by i x 20 degrees about its y
+    axis and planes from 0.2x the near to 5x the far depth, so that the
+    sources are partly out of view."""
+    from mdfnet_tpu_torch import geometry
     b = TRAIN_BATCH
     extr = batch["extrinsics"].float()
     if stress:
@@ -475,13 +503,30 @@ def k7_inputs(batch, stress: bool = False):
             hyp = 560.0 + torch.arange(d, device=DEV).reshape(1, d, 1, 1) \
                 * 4.0 + torch.rand(b, 1, h, w, generator=gen,
                                    device=DEV) * 40.0
-        hyp = hyp.expand(b, d, *hyp.shape[2:])
-        x, y = sweep_sample_coords(src_projs, ref_proj, hyp, h, w)
-        gr = torch.randn(b * (NVIEWS - 1), d, h, w, g, generator=gen,
-                         device=DEV)
+        yield (stage, d, g, h, w, src_projs, ref_proj,
+               hyp.expand(b, d, *hyp.shape[2:]))
+
+
+def k9_inputs(batch, stress: bool = False):
+    """The fused train aggregate's arguments (K9) at the three DTU train
+    stages (train_sweeps), from a seeded CUDA generator so that two
+    checkouts read the same inputs in one call: yields (stage, dtype,
+    (src diffs, ref diffs, src_projs, ref_proj, hypotheses, k0), (bn_s,
+    bn_o, k1, b1)), bf16 then f32 at each stage, all 4 sources of 4 items.
+    ``stress``: stage 0 on the stress cameras of train_sweeps."""
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    b, s = TRAIN_BATCH, NVIEWS - 1
+    for stage, d, g, h, w, src_projs, ref_proj, hyp in train_sweeps(
+            batch, gen, stress):
+        src = torch.randn(b, s, h, w, g, generator=gen, device=DEV)
+        ref = torch.randn(b, h, w, g, generator=gen, device=DEV)
+        k0 = torch.randn(g, generator=gen, device=DEV) * 0.3
+        bn = (torch.rand(s, generator=gen, device=DEV) + 0.5,
+              torch.randn(s, generator=gen, device=DEV) * 0.2,
+              torch.tensor(1.2, device=DEV), torch.tensor(-0.2, device=DEV))
         for dt in (torch.bfloat16, torch.float32):
-            yield stage, dt, (gr.to(dt), x, y, h, w)
-        del gr
+            yield (stage, dt, (src.to(dt), ref.to(dt), src_projs, ref_proj,
+                               hyp.contiguous(), k0), bn)
 
 
 def chain_calls(dt):
@@ -1383,8 +1428,8 @@ def _rel_err(got, ref) -> tuple[float, float]:
 def train_kernel_cases(gen, batch):
     """(name, dtype, run(plain) -> result, time(plain) -> ms, meta) at the
     DTU train shapes; a case with a meta is timed: the first of each name
-    (bf16) at its main-path shape, K7 at each of the three stages in bf16
-    and f32. The meta gives the bytes its timed work moves, its operations
+    (bf16) at its main-path shape, K7 and K9 at each of the three stages in
+    bf16 and f32. The meta gives the bytes its timed work moves, its operations
     and the PyTorch call timed beside it (None where there is none). K8 results are (output, d_input, d_weight): the kernel Function
     against plain autograd on the plain conv; its time, bound and yardstick
     are the input gradient's."""
@@ -1404,7 +1449,7 @@ def train_kernel_cases(gen, batch):
         return (torch.randn(*shape, generator=gen) * scale).to(DEV)
 
     b, s = TRAIN_BATCH, NVIEWS - 1
-    cases, geo = [], {}
+    cases = []
     # K6 — stage 0 (48 uniform planes, 1/8 res, G = 32) and stage 2 (8
     # per-pixel planes, 1/2 res, G = 8), all 4 sources of 4 items
     for stage, d, g in ((0, NDEPTHS[0], NGROUPS[0]), (2, NDEPTHS[2], NGROUPS[2])):
@@ -1419,7 +1464,6 @@ def train_kernel_cases(gen, batch):
             hyp = 560.0 + torch.arange(d).reshape(1, d, 1, 1) * 4.0 \
                 + torch.rand(b, 1, h, w, generator=gen) * 40.0
         x, y = sweep_sample_coords(src_projs, ref_proj, hyp.to(DEV), h, w)
-        geo[stage] = (src_projs, ref_proj, hyp.to(DEV), d, h, w, g)
         # grid_sample's normalised grid for the same samples (align_corners
         # False): x_pixel = ((gx + 1) W - 1) / 2
         grid = torch.stack([(2.0 * x + 1.0) / w - 1.0,
@@ -1545,39 +1589,34 @@ def train_kernel_cases(gen, batch):
             cases.append((kind, dt, grads, backward_ms, meta))
 
     # K9 — the fused train aggregate's stats kernel and K1 with a per-view
-    # BN affine, at stages 0 and 2 (its own generator keeps the earlier
-    # cases' inputs as they were)
-    gen9 = torch.Generator().manual_seed(9)
-    for stage in (0, 2):
-        src_projs, ref_proj, hyp, d, h, w, g = geo[stage]
-        hyp = hyp.expand(b, d, *hyp.shape[2:]).contiguous()
-        for dt in (torch.bfloat16, torch.float32):
-            src = torch.randn(b, s, h, w, g, generator=gen9).to(DEV, dt)
-            ref = torch.randn(b, h, w, g, generator=gen9).to(DEV, dt)
-            k0 = (torch.randn(g, generator=gen9) * 0.3).to(DEV)
-            bn = ((torch.rand(s, generator=gen9) + 0.5).to(DEV),
-                  (torch.randn(s, generator=gen9) * 0.2).to(DEV),
-                  torch.tensor(1.2, device=DEV), torch.tensor(-0.2, device=DEV))
-            args = (src, ref, src_projs, ref_proj, hyp, k0)
+    # BN affine at the three stages (k9_inputs), each timed in bf16 and f32,
+    # and on the stress cameras at stage 0
+    for stress in (False, True):
+        for stage, dt, args, bn in k9_inputs(batch, stress):
+            src, ref, _, _, hyp, k0 = args
+            (h, w, g), d = src.shape[2:], hyp.shape[1]
             points = b * d * h * w
             stats = (lambda p, a=args: rowsweep_stats(*a, plain=p))
             wsum = (lambda p, a=args, bn=bn:
                     rowsweep_aggregate_with_wsum(*a, *bn, plain=p))
-            first = dt == torch.bfloat16 and stage == 0
+            tag = " stress" if stress else ""
             cases += [
-                ("rowsweep_stats", dt, stats,
+                ("rowsweep_stats" + tag, dt, stats,
                  lambda p, f=stats: cuda_ms(lambda: f(p)),
-                 dict(nbytes=size(src, ref, hyp, k0), library=None,
-                      device=lambda f=stats: f(False),
-                      ops=aggregate_ops(points, s, g, True)) if first
-                 else None),
-                ("rowsweep_aggregate_with_wsum", dt, wsum,
+                 None if stress else dict(
+                     stage=stage, kernel="rowsweep_stats",
+                     nbytes=size(src, ref, hyp, k0),
+                     library=None, device=lambda f=stats: f(False),
+                     ops=aggregate_ops(points, s, g, True),
+                     mufu=stats_mufu(b * h * w, points, s, g))),
+                ("rowsweep_aggregate_with_wsum" + tag, dt, wsum,
                  lambda p, f=wsum: cuda_ms(lambda: f(p)),
-                 dict(nbytes=size(src, ref, hyp, k0) + points * (g + 1) * 4,
-                      library=None, device=lambda f=wsum: f(False),
-                      ops=aggregate_ops(points, s, g, False),
-                      mufu=aggregate_mufu(b * h * w, points, s, g))
-                 if first else None)]
+                 None if stress else dict(
+                     stage=stage, kernel="rowsweep_aggregate_kernel",
+                     nbytes=size(src, ref, hyp, k0) + points * (g + 1) * 4,
+                     library=None, device=lambda f=wsum: f(False),
+                     ops=aggregate_ops(points, s, g, False),
+                     mufu=aggregate_mufu(b * h * w, points, s, g)))]
     return cases
 
 
@@ -1623,6 +1662,10 @@ def check_train_kernels(batch):
             if "stage" in meta:
                 case["stage"] = meta["stage"]
                 case["split"] = device_split(meta["device"])
+            if "kernel" in meta:
+                # the wrapper's own launches, without its PyTorch set-up
+                case["kernel_ms"] = sum(v for k, v in case["split"].items()
+                                        if k.startswith(meta["kernel"]))
                 line += " (" + ", ".join(f"{k} {v:.4f}" for k, v in
                                          case["split"].items()) + ")"
             if name.endswith("_train"):
@@ -1630,7 +1673,7 @@ def check_train_kernels(batch):
             if "ms" not in entry:
                 entry.update({k: v for k, v in case.items()
                               if k not in ("shape", "dtype", "stage",
-                                           "split")})
+                                           "split", "kernel_ms")})
             entry.setdefault("cases", []).append(case)
         print(line, flush=True)
         require(rel <= REL_TOL[dt] and np.isfinite(err),
@@ -1648,6 +1691,15 @@ def check_train_kernels(batch):
                   f"{c['library_device_ms']:.3f}" for c in k7
                   if c["dtype"] == dt) + ")"
               for dt in ("bfloat16", "float32")), flush=True)
+    stats, k1 = (report[n]["cases"] for n in
+                 ("rowsweep_stats", "rowsweep_aggregate_with_wsum"))
+    print("train kernel K9 (device ms; the stats kernel's two launches / K1's "
+          "train launch, each with its share of its MUFU bound): " + "; ".join(
+              f"stage {a['stage']} {a['dtype']} {a['kernel_ms']:.3f} "
+              f"({a['mufu_bound_ms'] / a['kernel_ms']:.0%}) / "
+              f"{k['kernel_ms']:.3f} "
+              f"({k['mufu_bound_ms'] / k['kernel_ms']:.0%})"
+              for a, k in zip(stats, k1)), flush=True)
     return report
 
 
@@ -1897,10 +1949,11 @@ ORDERS = {
         "direct" if tr else rule(dt, kd, k, s, ci, co)),
     "all direct": lambda rule: lambda *a: "direct",
 }
-# ... and in copies of this tree, outside it, each with one source edited
-# by text substitution (file, [(old, new), ...]): the tc kernels flushing
+# ... and in copies of this tree, outside it, with sources edited by text
+# substitution ([(file, [(old, new), ...]), ...]): the tc kernels flushing
 # their tensor-core sums every N K steps (csrc/wgmma.cuh kFlush; unflushed:
-# one run per GEMM or weight stage); K1 summing its group's field by a
+# one run per GEMM or weight stage); K1 (and with it the stats kernel,
+# which shares common.cuh's group_field) summing its group's field by a
 # butterfly of shuffles and dividing by one reciprocal of the weight sum;
 # the co1 kernel running its channel chunks (16-byte units) outermost
 _K1_FIELD = """  float s = 0.0f;
@@ -1921,18 +1974,19 @@ _K1_BUTTERFLY = """  float t = 0.0f;
 _KD_LOOP = """#pragma unroll
     for (int kd = 0; kd < KD; ++kd) {"""
 COPIES = {
-    **{name: ("wgmma.cuh", [("constexpr int kFlush = 9;",
-                              f"constexpr int kFlush = {every};")])
+    **{name: [("wgmma.cuh", [("constexpr int kFlush = 9;",
+                               f"constexpr int kFlush = {every};")])]
        for name, every in (("kFlush 3", 3), ("kFlush 27", 27),
                            ("unflushed", 1 << 20))},
-    "K1 butterfly": ("rowsweep_aggregate.cu", [
-        (_K1_FIELD, _K1_BUTTERFLY),
-        ("v[i] = acc[i] / wsum;", "v[i] = acc[i] * (1.0f / wsum);")]),
-    "co1 chunks outermost": ("conv_co1.cu", [
+    "K1 butterfly": [
+        ("common.cuh", [(_K1_FIELD, _K1_BUTTERFLY)]),
+        ("rowsweep_aggregate.cu", [("v[i] = acc[i] / wsum;",
+                                    "v[i] = acc[i] * (1.0f / wsum);")])],
+    "co1 chunks outermost": [("conv_co1.cu", [
         (_KD_LOOP, "#pragma unroll\n    for (int u0 = 0; u0 < NU; ++u0)\n"
          + _KD_LOOP),
         ("for (int u = 0; u < NU; ++u) {",
-         "for (int u = u0; u == u0; ++u) {")]),
+         "for (int u = u0; u == u0; ++u) {")])],
 }
 
 
@@ -2001,24 +2055,26 @@ def gate_readings(names) -> dict:
     return out
 
 
-def edited_copy(tmp: str, name: str, source: str, edits) -> str:
-    """A copy of the port and this script under ``tmp`` whose kernel
-    ``source`` (csrc/) has each (old, new) of ``edits`` substituted once;
-    returns its root (its kernels build there at first use)."""
+def edited_copy(tmp: str, name: str, sources) -> str:
+    """A copy of the port and this script under ``tmp`` in which, for each
+    (source, edits) of ``sources``, the kernel source (csrc/) has each (old,
+    new) of ``edits`` substituted once; returns its root (its kernels build
+    there at first use)."""
     copy = os.path.join(tmp, name.replace(" ", "_").replace(",", ""))
     shutil.copytree(os.path.join(ROOT, "mdfnet_tpu_torch"),
                     os.path.join(copy, "mdfnet_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(os.path.join(ROOT, "chip_smoke.py"), copy)
-    src = os.path.join(copy, _SRC, source)
-    with open(src) as f:
-        text = f.read()
-    for old, new in edits:
-        require(text.count(old) == 1, f"{name}: {old!r} is not once in "
-                f"{source}")
-        text = text.replace(old, new)
-    with open(src, "w") as f:
-        f.write(text)
+    for source, edits in sources:
+        src = os.path.join(copy, _SRC, source)
+        with open(src) as f:
+            text = f.read()
+        for old, new in edits:
+            require(text.count(old) == 1, f"{name}: {old!r} is not once in "
+                    f"{source}")
+            text = text.replace(old, new)
+        with open(src, "w") as f:
+            f.write(text)
     return copy
 
 
@@ -2043,8 +2099,8 @@ def gate_spread() -> None:
     to build/gate_spread.json."""
     readings = _readings(ROOT, [*ORDERS, *FAULTS])
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (source, edits) in COPIES.items():
-            copy = edited_copy(tmp, name, source, edits)
+        for name, sources in COPIES.items():
+            copy = edited_copy(tmp, name, sources)
             readings[name] = _readings(copy, ["tree"])["tree"]
     orders = [n for n in readings if n not in FAULTS]
     for gate in ("bf16", "f32"):
@@ -2356,20 +2412,29 @@ def _kernel_name(mangled: str) -> str:
 
 def _device_events(fn, iters: int) -> dict:
     """Device time per call of ``fn`` by kernel (or copy) name
-    (torch.profiler, CUPTI) over ``iters`` calls, after one call."""
+    (torch.profiler, CUPTI) over ``iters`` calls, after one call. CUPTI at
+    times drops some of a trace's kernels (a reading of K1's train launch
+    at 0.09 ms against 0.23 in the same call): each kernel of a call
+    launches as often in every call, so a trace in which a kernel's count
+    is not a multiple of ``iters`` is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            out[e.key] = out.get(e.key, 0.0) + \
-                e.self_device_time_total / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out, whole = {}, True
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0):
+                out[e.key] = out.get(e.key, 0.0) + \
+                    e.self_device_time_total / iters / 1e3
+                whole = whole and e.count % iters == 0
+        if whole:
+            break
     return out
 
 
@@ -2409,8 +2474,55 @@ def _digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
+def k9_device_ms(aggregate_kernel, root: str) -> None:
+    """K9 (``aggregate_kernel``: a checkout's module) at the three DTU train
+    stages in bf16 and f32 (k9_inputs): the stats kernel's two launches
+    (split by kernel, and summed) and K1's train launch by device time (the
+    median of three reads in turn, each read beside it), the
+    f64 sums, a digest of the f32 mean and biased variance derived from them
+    as ops/aggregate_train.py derives them, and a digest of K1's train
+    output (volume and weight sum): one line ``K9_DEVICE_MS {...}``."""
+    cases = []
+    for stage, dt, args, bn in k9_inputs(train_batch()):
+        def stats(args=args):
+            return aggregate_kernel.rowsweep_stats(*args)
+
+        def k1_train(args=args, bn=bn):
+            return aggregate_kernel.rowsweep_aggregate_with_wsum(*args, *bn)
+        sums = stats()
+        # the batch statistics as ops/aggregate_train.py derives them
+        b, _, h, w, _ = args[0].shape
+        n = b * args[4].shape[1] * h * w
+        mu = sums[:, 0] / n
+        var_b = (sums[:, 1] / n - mu * mu).clamp_min(0.0)
+        vol, wsum = k1_train()
+        # three reads of each in turn, the median kept: a read can catch the
+        # card's clock low (every kernel of its trace ~10% slower)
+        splits, k1_ms = [], []
+        for _ in range(3):
+            splits.append(device_split(stats))
+            k1_ms.append(kernel_device_ms(k1_train,
+                                          "rowsweep_aggregate_kernel"))
+        stats_ms = [sum(v for k, v in split.items()
+                        if k.startswith("rowsweep_stats")) for split in splits]
+        cases.append({
+            "stage": stage, "dtype": str(dt)[6:],
+            "stats_split": splits[stats_ms.index(statistics.median(stats_ms))],
+            "stats_ms": statistics.median(stats_ms), "stats_reads": stats_ms,
+            "k1_train_ms": statistics.median(k1_ms), "k1_train_reads": k1_ms,
+            "sums": sums.cpu().tolist(),
+            "mu_var_digest": _digest(torch.stack([mu.float(),
+                                                  var_b.float()])),
+            "k1_train_digest": _digest(torch.cat([vol.flatten(),
+                                                  wsum.flatten()]))})
+        print(f"K9 stage {stage} {str(dt)[6:]}: {cases[-1]}", flush=True)
+        del vol, wsum
+    print("K9_DEVICE_MS " + json.dumps({"root": root, "cases": cases}),
+          flush=True)
+
+
 def device_ms_mode(root: str) -> None:
-    """K1's and K7's device time with the package of the checkout at
+    """K1's, K7's and K9's device time with the package of the checkout at
     ``root`` (say a parent commit's ``git archive``, whose kernels build
     under its own build/), and a digest of each output; run it for two
     checkouts in one call to compare them on one card (equal digests mean
@@ -2420,9 +2532,10 @@ def device_ms_mode(root: str) -> None:
     and f32, with its split by kernel (device_split), its wall per call,
     the device memory a call takes beyond its output, and
     grid_sampler_2d_backward's device time on the same samples: one line
-    ``K7_DEVICE_MS {...}``. Then the DTU train step (bf16, dense and fused):
-    ms/step (median of 5 after 2), peak memory and device time (every
-    kernel and copy of a step in a profile): ``TRAIN_STEP {...}``."""
+    ``K7_DEVICE_MS {...}``. K9 at the same stages (k9_device_ms):
+    ``K9_DEVICE_MS {...}``. Then the DTU train step (bf16, dense and
+    fused): ms/step (median of 5 after 2), peak memory and device time
+    (every kernel and copy of a step in a profile): ``TRAIN_STEP {...}``."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     from mdfnet_tpu_torch.ops.cuda import aggregate_kernel, splat_kernel
@@ -2466,6 +2579,7 @@ def device_ms_mode(root: str) -> None:
         del out, grid, img, g_nchw
     print("K7_DEVICE_MS " + json.dumps({"root": root, "cases": cases}),
           flush=True)
+    k9_device_ms(aggregate_kernel, root)
     from mdfnet_tpu_torch.config import ModelConfig
     from mdfnet_tpu_torch.models.registry import build_model
     from mdfnet_tpu_torch.train_lib import make_optimizer, poly_lr, train_step
@@ -2495,10 +2609,14 @@ def device_ms_mode(root: str) -> None:
     print("TRAIN_STEP " + json.dumps({"root": root, **steps}), flush=True)
 
 
-def sass_mufu(lib_path) -> dict:
-    """K1's special-function instructions in the library's SASS (cuobjdump
-    -sass), per instantiation: (MUFU.EX2, MUFU.RCP) in the code, each
-    counted once wherever it sits (the per-plane loop or not)."""
+def sass_counts(lib_path, prefix: str) -> dict:
+    """The special-function instructions of the kernels named ``prefix``*
+    in the library's SASS (cuobjdump -sass), per instantiation: (MUFU.EX2,
+    MUFU.RCP) in the code, each counted once wherever it sits, and each
+    loop that holds an EX2 (a branch back to an earlier address) as
+    (instructions, EX2, RCP) in its body, inner loops included, then the
+    same on its common path: without the code that a branch jumps over to
+    skip a call and no EX2 (a division's slow path)."""
     from mdfnet_tpu_torch.ops.cuda import build
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
@@ -2506,8 +2624,33 @@ def sass_mufu(lib_path) -> dict:
     out = {}
     for block in sass.split("Function : ")[1:]:
         name = _kernel_name(block.split("\n", 1)[0].strip())
-        if name.startswith("rowsweep_aggregate_kernel"):
-            out[name] = (block.count("MUFU.EX2"), block.count("MUFU.RCP"))
+        if not name.startswith(prefix):
+            continue
+        code = [(int(m[1], 16), m[2].strip()) for m in re.finditer(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
+        skipped = set()
+        for a, op in code:
+            jump = re.search(r"BRA\s+(?:!?U?P\w+,\s*)?(0x[0-9a-f]+)", op)
+            if jump and int(jump[1], 16) > a:
+                over = [x for x in code if a < x[0] < int(jump[1], 16)]
+                if (any(o.startswith("CALL") for _, o in over)
+                        and not any("MUFU.EX2" in o for _, o in over)):
+                    skipped.update(x for x, _ in over)
+
+        def count(body):
+            return (len(body), sum("MUFU.EX2" in o for o in body),
+                    sum("MUFU.RCP" in o for o in body))
+        loops = []
+        for a, op in code:
+            jump = re.search(r"BRA\s+(?:!?U?P\w+,\s*)?(0x[0-9a-f]+)", op)
+            if jump and int(jump[1], 16) <= a:
+                body = [(x, o) for x, o in code if int(jump[1], 16) <= x <= a]
+                if any("MUFU.EX2" in o for _, o in body):
+                    loops.append(count([o for _, o in body])
+                                 + count([o for x, o in body
+                                          if x not in skipped]))
+        out[name] = {"mufu": (block.count("MUFU.EX2"),
+                              block.count("MUFU.RCP")), "loops": loops}
     return out
 
 
@@ -2568,12 +2711,25 @@ def main():
     print("build: K1 and the co1 kernel (registers, spill store bytes): "
           + ", ".join(f"{k} {v}" for k, v in {**k1, **co1}.items())
           + "; K1's MUFU instructions (static, EX2 + RCP): "
-          + ", ".join(f"{k} {v}" for k, v in sass_mufu(lib_path).items()),
-          flush=True)
+          + ", ".join(f"{k} {v['mufu']}" for k, v in sass_counts(
+              lib_path, "rowsweep_aggregate_kernel").items()), flush=True)
     require(len(k1) == 12 and len(co1) == 12
             and not any(v[1] for v in (*k1.values(), *co1.values())),
             f"K1's or the co1 kernel's instantiations spill or are missing: "
             f"{k1} {co1}")
+    # the stats kernel (3 G x 2 dtypes): registers, spills; its MUFU
+    # instructions and the loops that hold them
+    k9 = {k: v for k, v in kern.items()
+          if k.startswith("rowsweep_stats_kernel")}
+    print("build: the stats kernel (registers, spill store bytes; static "
+          "EX2 + RCP; loops with an EX2 as instructions, EX2, RCP in the "
+          "body, then on its common path): "
+          + ", ".join(f"{k} {k9.get(k)}; {v['mufu']}; {v['loops']}"
+                      for k, v in sass_counts(
+                          lib_path, "rowsweep_stats_kernel").items()),
+          flush=True)
+    require(len(k9) == 6 and not any(v[1] for v in k9.values()),
+            f"the stats kernel's instantiations spill or are missing: {k9}")
 
     def entry(name, info, report, launches, tc_launches=None):
         info = dict(info)

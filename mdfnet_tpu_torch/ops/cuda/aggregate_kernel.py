@@ -7,11 +7,13 @@ Port of ``mdfnet_tpu/ops/pallas/aggregate_kernel.py:427``
 affine) and ``:604`` (``rowsweep_stats``) for the C/G == 2 configuration,
 where the group softmax collapses to sigmoids of channel-pair differences:
 ``softmax([a, b]) == [sigmoid(a-b), sigmoid(b-a)]``, so only the G difference
-channels are warped. The kernels (``csrc/rowsweep_aggregate.cu``, where a
-group of G / 8 lanes shares a pixel (:func:`aggregate_plan`), and
-``csrc/rowsweep_stats.cu``, one thread per voxel) round the coordinate chain
-of a (pixel, plane, source) alike and have no source window, so unlike the
-TPU kernels they need no coverage contract: they are exact for any camera.
+channels are warped. Both kernels (``csrc/rowsweep_aggregate.cu``, whose
+blocks walk runs of planes (:func:`aggregate_plan`), and
+``csrc/rowsweep_stats.cu``, whose blocks walk all planes
+(:func:`stats_plan`)) run one chain on groups of G / 8 lanes a pixel, so the
+statistics describe exactly the field that K1 normalises. They have no
+source window, so unlike the TPU kernels they need no coverage contract:
+they are exact for any camera.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``plain=True`` asks for the plain version explicitly (used to compare
@@ -33,7 +35,7 @@ LAUNCHES = {"rowsweep_aggregate": 0, "rowsweep_aggregate_with_wsum": 0,
 
 _GROUPS = (8, 16, 32)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 2}   # input -> f32 output codes
-_STATS_BLOCK = 256          # threads per block of csrc/rowsweep_stats.cu
+_STATS_BLOCK = 128          # threads per block of csrc/rowsweep_stats.cu
 _AGG_BLOCK = 128            # threads per block of csrc/rowsweep_aggregate.cu
 _AGG_PLANES = 8             # planes per lane group there, at most
 
@@ -57,6 +59,27 @@ def aggregate_plan(b: int, d: int, h: int, w: int, g: int) -> AggregatePlan:
     planes = min(_AGG_PLANES, d)
     return AggregatePlan(lanes, pixels, planes,
                          b * -(-d // planes) * -(-(h * w) // pixels))
+
+
+class StatsPlan(NamedTuple):
+    """The stats kernel's launch (csrc/rowsweep_stats.cu): K1's lane
+    groups (``lanes`` lanes a pixel, 8 channels each); a block covers
+    ``pixels`` consecutive pixels of one item's flattened H x W and walks
+    all ``planes`` planes; ``blocks`` blocks in all, ``blocks`` partial
+    sums per source."""
+    lanes: int
+    pixels: int
+    planes: int
+    blocks: int
+
+
+def stats_plan(b: int, d: int, h: int, w: int, g: int) -> StatsPlan:
+    """The stats kernel's launch plan for a (B, D, H, W, G) sweep; the
+    kernel checks that ``blocks`` is its own. It follows from the shape
+    alone, so the order of the f64 sums does not depend on the card."""
+    lanes = g // 8
+    pixels = _STATS_BLOCK // lanes
+    return StatsPlan(lanes, pixels, d, b * -(-(h * w) // pixels))
 
 
 def depth_weight_folded(sim: torch.Tensor, k0, bn_scale, bn_offset, k1,
@@ -266,8 +289,8 @@ def rowsweep_stats(src_diffs: torch.Tensor, ref_diffs: torch.Tensor,
     rel = geometry.relative_transforms(src_projs, ref_proj).contiguous()
     hypos = depth_hypos.float().contiguous()
     k0f = k0.detach().float().reshape(g).contiguous()
-    nblocks = -(-(b * d * h * w) // _STATS_BLOCK)
-    partial = torch.empty((n_src, nblocks, 2), dtype=torch.float64,
+    plan = stats_plan(b, d, h, w, g)
+    partial = torch.empty((n_src, plan.blocks, 2), dtype=torch.float64,
                           device=dev)
     out = torch.empty((n_src, 2), dtype=torch.float64, device=dev)
     for t, name in ((src_diffs, "src_diffs"), (ref_diffs, "ref_diffs"),
@@ -280,7 +303,7 @@ def rowsweep_stats(src_diffs: torch.Tensor, ref_diffs: torch.Tensor,
         src_diffs.data_ptr(), ref_diffs.data_ptr(), rel.data_ptr(),
         hypos.data_ptr(), k0f.data_ptr(), partial.data_ptr(), out.data_ptr(),
         b, n_src, d, h, w, g, int(per_pixel), _DTYPES[src_diffs.dtype],
-        w / (w - 1.0), h / (h - 1.0), nblocks, device, stream)
+        w / (w - 1.0), h / (h - 1.0), plan.blocks, device, stream)
     build.check(err, "rowsweep_stats")
     LAUNCHES["rowsweep_stats"] += 1
     return out

@@ -41,12 +41,12 @@
 // source l), and shuffles hand each source's taps to the whole group: the
 // projection and its two divisions run once per (pixel, plane, source),
 // not on every lane. The field k0 . sim passes from lane to lane in channel
-// order (group_field), one FMA per term, so every rounding of the chain is
-// mdf::sweep_similarity's, which the stats kernel (rowsweep_stats.cu, one
-// thread per voxel) runs: the kernel gives the bits of the one-thread
-// version it replaced, and the batch statistics describe exactly the field
-// it normalises. The coordinate chain keeps the non-contracted multiplies
-// and adds (common.cuh: sweep_taps), so it rounds like the
+// order (group_field), one FMA per term, so the kernel gives the bits of
+// the one-thread version it replaced. The stats kernel (rowsweep_stats.cu)
+// runs the same chain on the same lane groups (common.cuh: sweep_taps,
+// lane_similarity, group_field), so the batch statistics describe exactly
+// the field normalised here. The coordinate chain keeps the non-contracted
+// multiplies and adds (sweep_taps), so it rounds like the
 // unfused reference (mdfnet_tpu/geometry.py reference_grid_coords, the
 // gather warp's tap rounding in mdfnet_tpu/ops/sample.py). There is no
 // source window, so unlike the TPU kernel (whose DMA window imposes a
@@ -63,7 +63,9 @@ namespace {
 
 constexpr int kBlock = 128;
 constexpr int kMinBlocks = 5;   // per SM: 20 warps, at most 96 registers a thread
-constexpr int kCh = 8;          // channels per lane
+using mdf::from_lane;
+using mdf::group_field;
+using mdf::kCh;
 
 // The launch plan, which ops/cuda/aggregate_kernel.py aggregate_plan
 // mirrors: L lanes per pixel, P pixels per block; block i covers pixel tile
@@ -72,32 +74,6 @@ template <int G> struct Plan {
   static constexpr int L = G / kCh;
   static constexpr int P = kBlock / L;
 };
-
-// The pre-BN field k0 . sim of a lane group's pixel, summed over g = 0 ..
-// G - 1 in order with one FMA per term, as mdf::sweep_similarity sums it:
-// the chain passes from lane to lane (lane l holds channels kCh l ..
-// kCh l + kCh - 1), each lane continuing it over its own channels in turn,
-// and every lane of the group gets the result. The statistics of the stats
-// kernel (rowsweep_stats.cu) therefore describe exactly the field
-// normalised here.
-template <int L>
-__device__ __forceinline__ float group_field(const float* sim, const float* k0) {
-  float s = 0.0f;
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    float t = s;
-#pragma unroll
-    for (int i = 0; i < kCh; ++i) t = fmaf(sim[i], k0[i], t);
-    s = L > 1 ? __shfl_sync(0xffffffffu, t, l, L) : t;
-  }
-  return s;
-}
-
-// lane k's value of the group's L lanes
-template <int L, typename V>
-__device__ __forceinline__ V from_lane(V v, int k) {
-  return L > 1 ? __shfl_sync(0xffffffffu, v, k, L) : v;
-}
 
 template <typename T, int G, bool TRAIN>
 __global__ void __launch_bounds__(kBlock, kMinBlocks) rowsweep_aggregate_kernel(
@@ -148,25 +124,10 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) rowsweep_aggregate_kernel(
       const int ns = min(L, S - s0);
       for (int k = 0; k < ns; ++k) {
         const int s = s0 + k;
-        const int x0 = from_lane<L>(mine.x0, k), y0 = from_lane<L>(mine.y0, k);
-        const float wx = from_lane<L>(mine.wx, k), wy = from_lane<L>(mine.wy, k);
-        const bool vx0 = x0 >= 0, vx1 = x0 + 1 < W;
-        const bool vy0 = y0 >= 0, vy1 = y0 + 1 < H;
-        const T* row0 = srcb + (long long)s * HW * G + ((long long)y0 * W + x0) * G;
-        const T* row1 = row0 + (long long)W * G;
-        float v00[kCh] = {}, v01[kCh] = {}, v10[kCh] = {}, v11[kCh] = {};
-        if (vy0 && vx0) mdf::ldg8(row0, v00);
-        if (vy0 && vx1) mdf::ldg8(row0 + G, v01);
-        if (vy1 && vx0) mdf::ldg8(row1, v10);
-        if (vy1 && vx1) mdf::ldg8(row1 + G, v11);
+        const mdf::Taps t{from_lane<L>(mine.x0, k), from_lane<L>(mine.y0, k),
+                          from_lane<L>(mine.wx, k), from_lane<L>(mine.wy, k)};
         float sim[kCh];
-#pragma unroll
-        for (int i = 0; i < kCh; ++i) {
-          const float top = v00[i] * (1.0f - wx) + v01[i] * wx;
-          const float bot = v10[i] * (1.0f - wx) + v11[i] * wx;
-          const float pv = mdf::sigmoid(top * (1.0f - wy) + bot * wy);
-          sim[i] = pv * q[i] + (1.0f - pv) * (1.0f - q[i]);
-        }
+        mdf::lane_similarity<T, G>(srcb + (long long)s * HW * G, t, H, W, q, sim);
         const float sfield = group_field<L>(sim, k0);
         const float bn_s = TRAIN ? bn[s] : params[0];
         const float bn_o = TRAIN ? bn[S + s] : params[1];
@@ -202,7 +163,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const long long hw = (long long)a.H * a.W;
   const long long blocks =
       (long long)a.B * ((a.D + a.planes - 1) / a.planes) * ((hw + P - 1) / P);
-  if (blocks != a.blocks || blocks > 0x7fffffffLL || hw > 0x7fffffffLL)
+  if (blocks != a.blocks || blocks > 0x7fffffffLL || hw * G > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   rowsweep_aggregate_kernel<T, G, TRAIN><<<(unsigned)blocks, kBlock, 0, stream>>>(
       static_cast<const T*>(a.src), static_cast<const T*>(a.ref),

@@ -8,6 +8,9 @@ skips tests/conftest.py, whose JAX set-up these tests do not use) with
 
 ``chip_smoke.py`` runs the same comparisons at the DTU shapes.
 """
+import math
+
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
@@ -20,7 +23,8 @@ from mdfnet_tpu_torch.ops.aggregate_train import rowsweep_aggregate_train
 from mdfnet_tpu_torch.ops.cuda import (aggregate_kernel, conv_kernel,
                                        conv_vjp, exact_cuda_math,
                                        splat_kernel, warp_kernel)
-from mdfnet_tpu_torch.ops.warp import homography_warp_train
+from mdfnet_tpu_torch.ops.warp import (homography_warp_train,
+                                       sweep_sample_coords)
 
 pytestmark = pytest.mark.cuda
 
@@ -793,10 +797,14 @@ def test_rejected_train_kernel_calls_are_not_counted():
     assert (dict(warp_kernel.LAUNCHES), dict(splat_kernel.LAUNCHES)) == before
 
 
-def _aggregate_args(dtype, g, per_pixel, stress, b=2, s=3, d=6, h=20, w=36):
+def _aggregate_args(dtype, g, per_pixel, stress, b=2, s=3, d=6, h=20, w=36,
+                    yaw=None):
     """(src diffs, ref diffs, src_projs, ref_proj, hypotheses, k0) on the
-    card for a batch of b items (the same cameras)."""
-    ref_proj, src_projs = _cameras(h, w, s + 1, yaw=0.35 if stress else 0.0)
+    card for a batch of b items (the same cameras); ``stress``: planes from
+    40 to 5000 and, unless ``yaw`` is given, 20 degrees between views."""
+    if yaw is None:
+        yaw = 0.35 if stress else 0.0
+    ref_proj, src_projs = _cameras(h, w, s + 1, yaw=yaw)
     hyp = torch.linspace(*((40, 5000) if stress else (425, 935)), d) \
         .reshape(1, d, 1, 1).repeat(b, 1, 1, 1)
     if per_pixel:
@@ -808,6 +816,19 @@ def _aggregate_args(dtype, g, per_pixel, stress, b=2, s=3, d=6, h=20, w=36):
             torch.randn(g).cuda() * 0.3)
 
 
+def _stats_twice_and_plain(args):
+    """The stats kernel twice (bit-identical) and within REL_TOL of its plain
+    version (the f32 field of each voxel differs by summation order only)."""
+    got = aggregate_kernel.rowsweep_stats(*args)
+    again = aggregate_kernel.rowsweep_stats(*args)
+    ref = aggregate_kernel.rowsweep_stats(*args, plain=True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64 and got.shape == ref.shape
+    assert torch.equal(got, again)
+    err = (got - ref).abs().max().item()
+    assert err <= REL_TOL[torch.float32] * ref.abs().max().item()
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("g,per_pixel,stress", [(8, True, False),
                                                 (32, False, False),
@@ -817,16 +838,89 @@ def test_rowsweep_stats_and_its_determinism(dtype, g, per_pixel, stress):
     bit-identical."""
     args = _aggregate_args(dtype, g, per_pixel, stress)
     before = aggregate_kernel.LAUNCHES["rowsweep_stats"]
-    got = aggregate_kernel.rowsweep_stats(*args)
-    again = aggregate_kernel.rowsweep_stats(*args)
-    ref = aggregate_kernel.rowsweep_stats(*args, plain=True)
-    torch.cuda.synchronize()
-    assert aggregate_kernel.LAUNCHES["rowsweep_stats"] == before + 2
-    assert got.dtype == torch.float64 and got.shape == (3, 2)
-    assert torch.equal(got, again)
-    # the f32 field of each voxel differs by summation order only
-    err = (got - ref).abs().max().item()
-    assert err <= REL_TOL[torch.float32] * ref.abs().max().item()
+    assert aggregate_kernel.rowsweep_stats(*args).shape == (3, 2)
+    assert aggregate_kernel.LAUNCHES["rowsweep_stats"] == before + 1
+    _stats_twice_and_plain(args)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g,d,h,w", [(8, 1, 13, 37), (16, 3, 13, 37),
+                                     (32, 5, 13, 37), (32, 3, 3, 70)])
+def test_rowsweep_stats_at_extents_its_tiles_do_not_divide(dtype, g, d, h, w):
+    """The stats kernel's plan (stats_plan) where H x W is not a multiple of
+    a block's pixels, D = 1, 3 or 5, on the stress cameras."""
+    plan = aggregate_kernel.stats_plan(2, d, h, w, g)
+    assert (h * w) % plan.pixels
+    _stats_twice_and_plain(_aggregate_args(dtype, g, False, True, d=d, h=h,
+                                           w=w))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rowsweep_stats_stage0_sources_partly_out_of_view(dtype):
+    """DTU train stage 0 (4 items, 4 sources, 48 planes, 64 x 80, G = 32),
+    planes from 40 to 5000 and view i turned by 0.1 i radians, so that 18-68%
+    of each source's samples fall outside its image."""
+    b, s, d, h, w = 4, 4, 48, 64, 80
+    args = _aggregate_args(dtype, 32, False, True, b=b, s=s, d=d, h=h, w=w,
+                           yaw=0.1)
+    x, y = sweep_sample_coords(args[2], args[3], args[4], h, w)
+    outside = ((x <= -1) | (x >= w) | (y <= -1) | (y >= h)).float()
+    share = outside.reshape(b, s, -1).mean(dim=(0, 2))     # per source
+    assert ((share > 0.05) & (share < 0.95)).all(), share
+    _stats_twice_and_plain(args)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g", [8, 32])
+def test_saturated_sigmoids_take_the_division(dtype, g):
+    """Pair differences scaled by 150: many samples below -87.3, whose
+    sigmoid denominators reach 2^126 or overflow to inf, so the lane's
+    sigmoids take the division (common.cuh sigmoid_n); the stats kernel and
+    K1's train launch against their plain versions."""
+    args = list(_aggregate_args(dtype, g, True, False))
+    args[0] = (args[0].float() * 150.0).to(dtype)
+    bn = (torch.rand(3).cuda() + 0.5, torch.randn(3).cuda() * 0.2,
+          torch.tensor(1.2).cuda(), torch.tensor(-0.2).cuda())
+    assert (args[0].float() < -87.4).float().mean() > 0.2
+    _stats_twice_and_plain(args)
+    got = aggregate_kernel.rowsweep_aggregate_with_wsum(*args, *bn)
+    ref = aggregate_kernel.rowsweep_aggregate_with_wsum(*args, *bn,
+                                                        plain=True)
+    for a, r in zip(got, ref):
+        err = (a - r).abs().max().item()
+        assert err <= REL_TOL[torch.float32] * r.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g", [8, 32])
+def test_rowsweep_stats_sum_k1s_own_field(dtype, g):
+    """B = 1, D = 1, a 16 x 16 image: the stats kernel's sums within 1e-12
+    (of the sum of magnitudes) of the f64 sums of the field that K1's train
+    instantiation computes.
+    K1 gives its similarities exactly for one source with k1 = b1 = 0 (every
+    weight sigmoid(0) = 0.5, so its volume is 0.5 sim / 0.5); the field is
+    then their k0 . sim in channel order, one f32 FMA a term (an f64
+    product and sum rounded to f32). A field that differs from K1's by one
+    f32 rounding in a voxel reads ~1e-8 here."""
+    b, s, h, w = 1, 3, 16, 16
+    args = _aggregate_args(dtype, g, False, False, b=b, s=s, d=1, h=h, w=w)
+    got = aggregate_kernel.rowsweep_stats(*args).cpu()
+    k0 = args[5].cpu().double().numpy()
+    one, zero = torch.ones(1).cuda(), torch.zeros(1).cuda()
+    for v in range(s):
+        sim, _ = aggregate_kernel.rowsweep_aggregate_with_wsum(
+            args[0][:, v:v + 1].contiguous(), args[1],
+            args[2][:, v:v + 1].contiguous(), *args[3:6], one, zero,
+            torch.tensor(0.0).cuda(), torch.tensor(0.0).cuda())
+        sim = sim.cpu().double().numpy()
+        field = np.zeros(sim.shape[:-1], np.float32)
+        for c in range(g):
+            field = (sim[..., c] * k0[c] + field).astype(np.float32)
+        x = field.astype(np.float64).ravel()
+        for j, vals in enumerate((x, x * x)):
+            exact = math.fsum(vals.tolist())
+            scale = math.fsum(np.abs(vals).tolist())
+            assert abs(got[v, j].item() - exact) <= 1e-12 * scale
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
