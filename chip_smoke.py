@@ -56,6 +56,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
      against the two conv3d launches (tc route) each pair replaces;
   6. serve   — ``python -m mdfnet_tpu_torch.cli.eval`` on a synthetic DTU
      eval tree (1600x1200 cropped to 1184, 3 reference views);
+  6a. tanks  — the eval forward at the Tanks & Temples shapes (11 views,
+     1920x1056 and 2048x1056): K1 against its plain version at the three
+     stages with S = 10 sources (bf16 and f32), every kernel of the path
+     launched, ms per map, device busy time, peak memory and the forward
+     gate above; then ``cli.eval -d tanks`` on a synthetic Tanks tree (two
+     scenes, one of each width, two reference views each) and ``cli.eval
+     -d tanks --exact`` (the kernels in f32) on one view against the plain
+     f32 forward (EXACT_BOUNDS);
+  6b. fusion — ``python -m mdfnet_tpu_torch.cli.fuse -m filter|vote|pcd`` on
+     the card over an 11-view synthetic DTU scan at 1600x1184 with GT depth:
+     each cloud holds FUSION_MIN_SHARE of the pixels and lies on the plane
+     (FUSION_SURFACE); seconds per view, pcd's split (the native election's
+     share); one reference view's per-view functions on the card (TF32
+     allowed) against the CPU under the tie rule (tests/_fusion_scenes.py);
+  6c. metric — ``cli.dtu_eval`` on a cloud fused (vote, on the card) from a
+     400x296 11-view scan: Acc, Comp and Overall (METRIC_BOUND);
   7. train kernels — the training step's kernels at the DTU train shapes
      (640x512, 5 views, batch 4): the sample kernel (K6) vs its plain
      version at stages 0 and 2; the splat kernel (K7) and the fused train
@@ -92,8 +108,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      losses; ms/step, peak memory, and the aggregates' forward and backward
      time beside the unfused path's.
 
-The line before the last is one JSON object with every kernel's launches,
-error and times; the last line is ``{"ok": true, "device": {...}}``.
+Before them, ``total:`` gives the script's seconds. The line before the last
+is one JSON object with every kernel's launches, error and times; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import hashlib
@@ -137,6 +154,30 @@ DEPTH_RANGE = (425.0, 935.0)
 # the DTU eval configuration: 1600x1200 images cropped to 1184 rows, 5 views
 HEIGHT, WIDTH, NVIEWS, SERVE_HEIGHT = 1184, 1600, 5, 1200
 NDEPTHS, NGROUPS = (48, 24, 8), (32, 16, 8)
+# Tanks & Temples eval: 1080-high images cropped to 1056 rows, 11 views (10
+# sources), at the two widths its scenes come in; the synthetic scenes' focal
+# (x width) and camera spacing keep view 10 over most of the reference
+TANKS_WIDTHS, TANKS_SCENES = (1920, 2048), ("Family", "Horse")
+TANKS_HEIGHT, TANKS_IMAGE_HEIGHT, TANKS_NVIEWS = 1056, 1080, 11
+TANKS_FOCAL, TANKS_BASELINE = 1.2, 6.0
+# eval --exact (the kernels in f32) against the plain f32 forward: the
+# kernels sum in other orders than the plain versions (REL_TOL f32 1e-4 a
+# kernel); depth error over the depth range and confidence, ~40x below the
+# bf16 forward gate
+EXACT_BOUNDS = {"depth median": 1e-4, "depth p95": 1e-3,
+                "confidence mean |diff|": 1e-4}
+# fusion: an 11-view synthetic DTU scan at the eval size, GT depth of the
+# plane z = 600 + 0.05 x with unit confidence. Each backend's cloud holds at
+# least FUSION_MIN_SHARE of the pixels and lies on the plane: residual
+# median and 99th percentile within FUSION_SURFACE world units (a pixel
+# spans 600 / 320 = 1.9 there). The card's masks equal the CPU's but at
+# ties (tests/_fusion_scenes.py: a compared quantity within TIE, relative,
+# of its threshold, at most MAX_TIE_SHARE of the entries)
+FUSION_VIEWS, FUSION_PLANE, FUSION_MIN_SHARE = 11, (600.0, 0.05), 0.5
+FUSION_SURFACE = (0.1, 0.5)
+# the metric's scan: smaller, so that the host KD-tree takes seconds; Acc,
+# Comp and Overall of a GT-depth cloud under the pixel footprint
+METRIC_SIZE, METRIC_BOUND = (296, 400), 1.5
 DEV = "cuda"
 _SRC = "mdfnet_tpu_torch/ops/cuda/csrc/"
 # the least time an H100 SXM could take (its published peak rates): bytes
@@ -392,9 +433,10 @@ def dtu_scene():
                             tilt=0.05, focal=1.8 * WIDTH)
 
 
-def k1_inputs(gen, scene, dt):
-    """K1's arguments at the three DTU eval stages (S = 4 sources; stage 0
-    uniform planes, stages 1-2 per-pixel planes), drawn from ``gen``."""
+def k1_inputs(gen, scene, dt, height=HEIGHT, width=WIDTH, nviews=NVIEWS):
+    """K1's arguments at the three eval stages of a ``height`` x ``width``
+    x ``nviews`` forward (the DTU eval's: S = 4 sources; stage 0 uniform
+    planes, stages 1-2 per-pixel planes), drawn from ``gen``."""
     from mdfnet_tpu_torch import geometry
 
     def rnd(*shape, scale=1.0):
@@ -404,7 +446,7 @@ def k1_inputs(gen, scene, dt):
     extr = torch.from_numpy(scene.extrinsics)[None].to(DEV)
     stages = []
     for stage, (d, g) in enumerate(zip(NDEPTHS, NGROUPS)):
-        h, w = HEIGHT >> (3 - stage), WIDTH >> (3 - stage)
+        h, w = height >> (3 - stage), width >> (3 - stage)
         ref_proj, src_projs = geometry.projection_matrices(
             intr, extr, stage, num_stages=4)
         if stage == 0:
@@ -412,7 +454,7 @@ def k1_inputs(gen, scene, dt):
         else:
             hyp = 560.0 + torch.arange(d).reshape(1, d, 1, 1) * 4.0 \
                 + torch.rand(1, 1, h, w, generator=gen) * 40.0
-        src = rnd(1, NVIEWS - 1, h, w, g).to(dt)
+        src = rnd(1, nviews - 1, h, w, g).to(dt)
         ref = rnd(1, h, w, g).to(dt)
         k0 = rnd(g, scale=0.3)
         sc = [torch.tensor(v).to(DEV) for v in (0.9, 0.1, 1.2, -0.2)]
@@ -1136,77 +1178,20 @@ def stage_volumes(model, args, plain):
     return out, vols
 
 
-def forward_phase(build_s, scene):
-    from mdfnet_tpu_torch.data import make_batch
-    from mdfnet_tpu_torch.models.conv_routes import eval_conv_routes
-    from mdfnet_tpu_torch.models.registry import build_model
-    from mdfnet_tpu_torch.ops.cuda import aggregate_kernel, conv_kernel
-
-    counters = (aggregate_kernel.LAUNCHES, conv_kernel.LAUNCHES)
-    model = build_model(compute_dtype="bfloat16", seed=0, device=DEV)
-    sharpen(model)
-    plain_model = build_model(seed=0, device=DEV)
-    plain_model.load_state_dict(model.state_dict())
-    batch = make_batch(scene, batch=1)
-    args = [torch.from_numpy(batch[k]).to(DEV)
-            for k in ("imgs", "extrinsics", "intrinsics", "depth_range")]
-
-    for c in (*counters, conv_kernel.TC_LAUNCHES):
-        for k in c:
-            c[k] = 0
-    conv_kernel.TRACE = traced = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = model(*args)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    conv_kernel.TRACE = None
-    # the eval path's kernels (the *_dgrad counters belong to training)
-    launches = {k: v for c in counters for k, v in c.items() if k in KERNELS}
-    tc = {k: conv_kernel.TC_LAUNCHES[k] for k in launches
-          if k in conv_kernel.TC_LAUNCHES}
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel of the main path never launched: {launches}")
-    # each kernel once per conv and transposed conv that the rule sends to
-    # it, from the model's layers: the chain kernel once per fused chain
-    # (conv_kernel.chain_route), the tc kernel, the co1 kernel (the
-    # ProbConvs, refine's tail) and the direct kernel (the Ci = 3 and 1
-    # heads of the chains on the per-layer route); none of the transposed
-    # convs on the direct kernel
-    routes = eval_conv_routes(model)
-    ran = {"chain": conv_kernel.LAUNCHES["conv2d_chain"],
-           "tc": conv_kernel.LAUNCHES["conv_tc"],
-           "co1": conv_kernel.LAUNCHES["conv_co1"]}
-    ran["direct"] = sum(launches[k] for k in tc) - ran["tc"] - ran["co1"]
-    rule = {r: routes.count(r) for r in ran}
-    require(ran == rule and min(ran[r] for r in ("chain", "tc", "co1")) > 0,
-            f"launches by route {ran}, the rule gives {rule}")
-    require(launches["trconv3d_bn_act"] == tc["trconv3d_bn_act"],
-            f"a transposed conv left the tc kernel: {launches}, tc {tc}")
-    print(f"routes: {rule} launches per forward, as the rule gives for the "
-          f"model's chains, convs and transposed convs ({len(routes)} "
-          f"launches); tc per wrapper {tc}", flush=True)
-
-    times = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(7):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = model(*args)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    ms_map = statistics.median(times[1:])
-
+def forward_gate(model, plain_model, args) -> dict:
+    """The forward gate (PERF.md section 2): the kernel forward against the
+    plain f32 forward on the card on the same inputs: depth error over the
+    depth range (median, p95, max), confidence, and each stage's cost and
+    probability volumes (FORWARD_BOUNDS); "line" says it in words."""
     out, vols = stage_volumes(model, args, plain=False)
     t0 = time.perf_counter()
     ref, ref_vols = stage_volumes(plain_model, args, plain=True)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-
+    h, w = args[0].shape[2:4]
     depth, ref_depth = out["depth"].float(), ref["depth"].float()
     conf = out["confidence"].float()
-    require(depth.shape == (1, HEIGHT, WIDTH) and conf.shape == depth.shape,
+    require(depth.shape == (1, h, w) and conf.shape == depth.shape,
             f"forward shapes {tuple(depth.shape)} {tuple(conf.shape)}")
     require(bool(torch.isfinite(depth).all() & torch.isfinite(conf).all()),
             "forward produced non-finite values")
@@ -1220,22 +1205,112 @@ def forward_phase(build_s, scene):
         diffs[key] = d / r.std().item() if key.startswith("cost") else d
     peaks = [round(ref_vols[f"prob {s}"].amax(1).mean().item(), 4)
              for s in range(len(NDEPTHS))]
+    line = (f"depth err median {med:.2e} p95 {p95:.2e} max {err.max():.2e} "
+            f"of range; " + ", ".join(
+                f"{k} {v:.2e} (bound {FORWARD_BOUNDS[k]:.1e})"
+                for k, v in diffs.items())
+            + f"; mean peak probability per stage {peaks} (flat: "
+            f"{[round(1 / d, 4) for d in NDEPTHS]})")
+    return dict(median=med, p95=p95, diffs=diffs, plain_s=plain_s,
+                line=line)
+
+
+def require_gate(gate: dict, what: str) -> None:
+    require(gate["median"] <= MEDIAN_BOUND and gate["p95"] <= P95_BOUND,
+            f"{what}: depth disagrees with the plain f32 forward")
+    for k, v in gate["diffs"].items():
+        require(v <= FORWARD_BOUNDS[k],
+                f"{what}: {k} {v:.2e} > {FORWARD_BOUNDS[k]:.1e}")
+
+
+def reset_launches() -> None:
+    """Every eval kernel's launch count (and the tc kernel's per wrapper)
+    to 0."""
+    from mdfnet_tpu_torch.ops.cuda import aggregate_kernel, conv_kernel
+    for c in (aggregate_kernel.LAUNCHES, conv_kernel.LAUNCHES,
+              conv_kernel.TC_LAUNCHES):
+        for k in c:
+            c[k] = 0
+
+
+def eval_launches(model, what: str) -> tuple[dict, dict, dict]:
+    """The launches of one eval forward since reset_launches: every kernel
+    of the path launched, and each once per conv and transposed conv that
+    the rule sends to it, from the model's layers: the chain kernel once
+    per fused chain (conv_kernel.chain_route), the tc kernel, the co1
+    kernel (the ProbConvs, refine's tail) and the direct kernel (the Ci = 3
+    and 1 heads of the chains on the per-layer route); none of the
+    transposed convs on the direct kernel. Returns (launches per wrapper,
+    launches per route, tc launches per wrapper)."""
+    from mdfnet_tpu_torch.models.conv_routes import eval_conv_routes
+    from mdfnet_tpu_torch.ops.cuda import aggregate_kernel, conv_kernel
+    # the eval path's kernels (the *_dgrad counters belong to training)
+    launches = {k: v for c in (aggregate_kernel.LAUNCHES,
+                               conv_kernel.LAUNCHES)
+                for k, v in c.items() if k in KERNELS}
+    tc = {k: conv_kernel.TC_LAUNCHES[k] for k in launches
+          if k in conv_kernel.TC_LAUNCHES}
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of {what} never launched: {launches}")
+    routes = eval_conv_routes(model)
+    ran = {"chain": conv_kernel.LAUNCHES["conv2d_chain"],
+           "tc": conv_kernel.LAUNCHES["conv_tc"],
+           "co1": conv_kernel.LAUNCHES["conv_co1"]}
+    ran["direct"] = sum(launches[k] for k in tc) - ran["tc"] - ran["co1"]
+    rule = {r: routes.count(r) for r in ran}
+    require(ran == rule and min(ran[r] for r in ("chain", "tc", "co1")) > 0,
+            f"{what}: launches by route {ran}, the rule gives {rule}")
+    require(launches["trconv3d_bn_act"] == tc["trconv3d_bn_act"],
+            f"{what}: a transposed conv left the tc kernel: {launches}, "
+            f"tc {tc}")
+    return launches, rule, tc
+
+
+def forward_phase(build_s, scene):
+    from mdfnet_tpu_torch.data import make_batch
+    from mdfnet_tpu_torch.models.registry import build_model
+    from mdfnet_tpu_torch.ops.cuda import conv_kernel
+
+    model = build_model(compute_dtype="bfloat16", seed=0, device=DEV)
+    sharpen(model)
+    plain_model = build_model(seed=0, device=DEV)
+    plain_model.load_state_dict(model.state_dict())
+    batch = make_batch(scene, batch=1)
+    args = [torch.from_numpy(batch[k]).to(DEV)
+            for k in ("imgs", "extrinsics", "intrinsics", "depth_range")]
+
+    reset_launches()
+    conv_kernel.TRACE = traced = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model(*args)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    conv_kernel.TRACE = None
+    launches, rule, tc = eval_launches(model, "the main path")
+    print(f"routes: {rule} launches per forward, as the rule gives for the "
+          f"model's chains, convs and transposed convs "
+          f"({sum(rule.values())} launches); tc per wrapper {tc}",
+          flush=True)
+
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    ms_map = statistics.median(times[1:])
+
+    gate = forward_gate(model, plain_model, args)
     print(f"forward {WIDTH}x{HEIGHT}x{NVIEWS} bf16: {ms_map:.2f} ms/map (median of "
           f"{len(times) - 1}; runs {[round(t, 2) for t in times]}), first map "
           f"{first_s:.2f} s + build {build_s:.1f} s, peak "
-          f"{peak_mb:.0f} MiB; vs plain f32 ({plain_s:.2f} s): depth err "
-          f"median {med:.2e} p95 {p95:.2e} max {err.max():.2e} of range; "
-          + ", ".join(f"{k} {v:.2e} (bound {FORWARD_BOUNDS[k]:.1e})"
-                      for k, v in diffs.items())
-          + f"; mean peak probability per stage {peaks} (flat: "
-          f"{[round(1 / d, 4) for d in NDEPTHS]}); launches {launches}",
-          flush=True)
-    require(med <= MEDIAN_BOUND and p95 <= P95_BOUND,
-            "bf16 kernel forward: depth disagrees with the plain f32 forward")
-    for k, v in diffs.items():
-        require(v <= FORWARD_BOUNDS[k],
-                f"bf16 kernel forward: {k} {v:.2e} > {FORWARD_BOUNDS[k]:.1e}")
-    del vols, ref_vols
+          f"{peak_mb:.0f} MiB; vs plain f32 ({gate['plain_s']:.2f} s): "
+          + gate["line"] + f"; launches {launches}", flush=True)
+    require_gate(gate, "bf16 kernel forward")
     profile_phase(model, args, ms_map)
     route_table(traced, "the eval forward")
     return model, args, launches, tc
@@ -1395,6 +1470,511 @@ def serve_phase(model):
                     f"view {ref}: depth {depth.shape} not finite/full-size")
         print(f"serve: eval CLI wrote 3 views in {cli_s:.1f} s; "
               f"{log[-1].split(': ', 1)[-1]}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ------------------------------------ Tanks & Temples, fusion and the metric
+
+
+def smoke_dir(name: str) -> str:
+    """An empty scratch directory under the checkout's git-ignored build/."""
+    path = os.path.join(ROOT, "build", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def tanks_scene(width: int, height: int = TANKS_HEIGHT):
+    """A Tanks-size synthetic scene: a textured tilted plane seen by 11
+    cameras in a row (10 sources to one side of the reference)."""
+    from mdfnet_tpu_torch.data import make_plane_scene
+    return make_plane_scene(height=height, width=width, nviews=TANKS_NVIEWS,
+                            tilt=0.05, focal=TANKS_FOCAL * width,
+                            baseline=TANKS_BASELINE)
+
+
+def tanks_phase(model, smi: str) -> None:
+    """The eval forward at the Tanks shapes (11 views, 1920x1056 and
+    2048x1056): K1 against its plain version at the three stages (S = 10),
+    in bf16 and f32; the bf16 kernel forward with every kernel of the path
+    launched (counts set to 0 just before, read just after), its ms per
+    map, peak memory and the forward gate, then its device busy time and
+    time by layer (profile_phase)."""
+    from mdfnet_tpu_torch.data import make_batch
+    from mdfnet_tpu_torch.models.registry import build_model
+    from mdfnet_tpu_torch.ops.cuda import aggregate_kernel
+
+    plain_model = build_model(seed=0, device=DEV)
+    plain_model.load_state_dict(model.state_dict())
+    gen = torch.Generator().manual_seed(12)
+    for width in TANKS_WIDTHS:
+        scene = tanks_scene(width)
+        k1 = []
+        for dt in (torch.bfloat16, torch.float32):
+            for stage, a in enumerate(k1_inputs(gen, scene, dt, TANKS_HEIGHT,
+                                                width, TANKS_NVIEWS)):
+                got = aggregate_kernel.rowsweep_aggregate(*a)
+                ref = aggregate_kernel.rowsweep_aggregate(*a, plain=True)
+                rel = ((got.float() - ref.float()).abs().max().item()
+                       / max(ref.float().abs().max().item(), 1e-6))
+                ms = (kernel_device_ms(
+                    lambda a=a: aggregate_kernel.rowsweep_aggregate(*a),
+                    "rowsweep_aggregate_kernel") if dt == torch.bfloat16
+                    else None)
+                k1.append((stage, str(dt)[6:], tuple(got.shape), rel, ms))
+                require(rel <= REL_TOL[dt] and math.isfinite(rel),
+                        f"K1 at the Tanks stage {stage} ({width} wide, "
+                        f"S = {TANKS_NVIEWS - 1}, {dt}) disagrees with its "
+                        f"plain version: rel err {rel:.2e}")
+        print(f"tanks K1 {width}x{TANKS_HEIGHT}, S = {TANKS_NVIEWS - 1}: "
+              + "; ".join(f"stage {s} {dt} {shape} rel err {rel:.2e}"
+                          + (f", {ms:.3f} ms device" if ms else "")
+                          for s, dt, shape, rel, ms in k1)
+              + f" (tol bf16 {REL_TOL[torch.bfloat16]:.0e}, f32 "
+              f"{REL_TOL[torch.float32]:.0e}); {smi}", flush=True)
+
+        batch = make_batch(scene, batch=1)
+        args = [torch.from_numpy(batch[k]).to(DEV)
+                for k in ("imgs", "extrinsics", "intrinsics", "depth_range")]
+        reset_launches()
+        torch.cuda.synchronize()
+        model(*args)
+        torch.cuda.synchronize()
+        launches, rule, _ = eval_launches(
+            model, f"the Tanks forward at {width}x{TANKS_HEIGHT}")
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        ms_map = statistics.median(times[1:])
+        gate = forward_gate(model, plain_model, args)
+        print(f"tanks forward {width}x{TANKS_HEIGHT}x{TANKS_NVIEWS} bf16: "
+              f"{ms_map:.2f} ms/map (median of {len(times) - 1}; runs "
+              f"{[round(t, 2) for t in times]}), peak {peak_mb:.0f} MiB; "
+              f"vs plain f32 ({gate['plain_s']:.2f} s): " + gate["line"]
+              + f"; launches {launches}, by route {rule} as the rule "
+              f"gives; {smi}", flush=True)
+        require_gate(gate, f"bf16 kernel forward at {width}x{TANKS_HEIGHT}")
+        profile_phase(model, args, ms_map)   # device busy time, by layer
+        del args, batch
+    zbuffer_at_tanks(scene, smi)
+
+
+def zbuffer_at_tanks(scene, smi: str) -> None:
+    """pcd's z-buffer for one reference view at the last Tanks shape (GT
+    depths, 10 sources): (1 + S) x H x W candidates and their violation
+    counts on the card, their copy to the host, the native election."""
+    from mdfnet_tpu_torch.fusion.pcd_fusion import zbuffer_fusion
+    d, k, e = scene.depths, scene.intrinsics, scene.extrinsics
+    times = {}
+    for _ in range(2):   # the first call builds the native library
+        times.clear()
+        t0 = time.perf_counter()
+        fused = zbuffer_fusion(d[0], k[0], e[0], d[1:], k[1:], e[1:],
+                               device=DEV, times=times)
+        total = time.perf_counter() - t0
+    m = d.size
+    print(f"tanks zbuffer {d.shape[2]}x{d.shape[1]}, S = {len(d) - 1}: "
+          f"{m / 1e6:.1f}M candidates, {m * 16 / 2**20:.0f} MiB copied to "
+          f"the host; " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                     times.items())
+          + f", {total:.3f} s in all; {int((fused > 0).sum())} of "
+          f"{fused.size} pixels elected; {smi}", flush=True)
+    require(int((fused > 0).sum()) > fused.size // 2,
+            "zbuffer at the Tanks shape elected too few pixels")
+
+
+def tanks_serve_phase(model, smi: str) -> None:
+    """``python -m mdfnet_tpu_torch.cli.eval -d tanks`` on a synthetic Tanks
+    tree (a 1920- and a 2048-wide scene of 1080-high images, 11 views, two
+    reference views each), then ``--exact`` (the kernels in f32) on one
+    view, held to the plain f32 forward of the same item (EXACT_BOUNDS)."""
+    from mdfnet_tpu_torch.data import (TanksEvalDataset, read_pair_file,
+                                       read_pfm, write_pair_file,
+                                       write_tanks_eval_tree)
+    from mdfnet_tpu_torch.models.registry import build_model
+    from mdfnet_tpu_torch.utils.weights import load_checkpoint, save_checkpoint
+
+    work = smoke_dir("smoke_tanks")
+    try:
+        root = os.path.join(work, "TankandTemples", "intermediate")
+        for scene, width in zip(TANKS_SCENES, TANKS_WIDTHS):
+            write_tanks_eval_tree(root, scenes=(scene,), nviews=TANKS_NVIEWS,
+                                  height=TANKS_IMAGE_HEIGHT, width=width,
+                                  tilt=0.05, focal=TANKS_FOCAL * width,
+                                  baseline=TANKS_BASELINE)
+            pair = os.path.join(root, scene, "pair.txt")
+            _, pairs = read_pair_file(pair)
+            write_pair_file(pair, [pairs[0], pairs[5]])
+        ckpt = os.path.join(work, "seed0.pth")
+        save_checkpoint(model, ckpt)
+
+        def cli(out, *extra):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "mdfnet_tpu_torch.cli.eval", "-p", ckpt,
+                 "-d", "tanks", "--root", work, "-o", out, *extra],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            log = (proc.stdout + proc.stderr).strip().splitlines()
+            require(proc.returncode == 0,
+                    "eval CLI (tanks) failed:\n" + "\n".join(log[-30:]))
+            return time.perf_counter() - t0, log[-1].split(": ", 1)[-1]
+
+        out = os.path.join(work, "outputs")
+        cli_s, last = cli(out, "--scans", ",".join(TANKS_SCENES))
+        for scene, width in zip(TANKS_SCENES, TANKS_WIDTHS):
+            for ref in (0, 5):
+                depth, _ = read_pfm(os.path.join(out, scene, "depth_est",
+                                                 f"{ref:08d}.pfm"))
+                require(depth.shape == (TANKS_HEIGHT, width)
+                        and np.isfinite(depth).all(),
+                        f"tanks {scene} view {ref}: depth {depth.shape}")
+        print(f"tanks serve: eval CLI -d tanks wrote 4 views "
+              f"({'/'.join(TANKS_SCENES)}: "
+              f"{'/'.join(map(str, TANKS_WIDTHS))}x{TANKS_HEIGHT}, "
+              f"{TANKS_NVIEWS} views) in {cli_s:.1f} s; {last}; {smi}",
+              flush=True)
+
+        # --exact on one view, against the plain f32 forward of that item
+        pair = os.path.join(root, TANKS_SCENES[0], "pair.txt")
+        _, pairs = read_pair_file(pair)
+        write_pair_file(pair, pairs[:1])
+        exact = os.path.join(work, "exact")
+        cli_s, last = cli(exact, "--scans", TANKS_SCENES[0], "--exact")
+        got = [read_pfm(os.path.join(exact, TANKS_SCENES[0], sub,
+                                     "00000000.pfm"))[0]
+               for sub in ("depth_est", "confidence")]
+        item = TanksEvalDataset(root, [TANKS_SCENES[0]])[0]
+        plain = build_model(seed=1, device=DEV)
+        load_checkpoint(plain, ckpt)
+        with torch.no_grad():
+            ref = plain(*(torch.from_numpy(item[k])[None].to(DEV) for k in (
+                "imgs", "extrinsics", "intrinsics", "depth_range")),
+                plain=True)
+        want = [ref[k][0].float().cpu().numpy()
+                for k in ("depth", "confidence")]
+        err = np.abs(got[0] - want[0]) / (DEPTH_RANGE[1] - DEPTH_RANGE[0])
+        reads = {"depth median": float(np.median(err)),
+                 "depth p95": float(np.percentile(err, 95)),
+                 "confidence mean |diff|":
+                     float(np.abs(got[1] - want[1]).mean())}
+        print(f"tanks exact: eval CLI -d tanks --exact (the kernels in f32) "
+              f"on one {TANKS_WIDTHS[0]}x{TANKS_HEIGHT} view in "
+              f"{cli_s:.1f} s vs the plain f32 forward: "
+              + ", ".join(f"{k} {v:.2e} (bound {EXACT_BOUNDS[k]:.0e})"
+                          for k, v in reads.items())
+              + f", depth err max {err.max():.2e}; {last}; {smi}", flush=True)
+        for k, v in reads.items():
+            require(v <= EXACT_BOUNDS[k],
+                    f"eval --exact: {k} {v:.2e} > {EXACT_BOUNDS[k]:.0e}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def write_gt_outputs(out: str, scene, scan: str = "scan9") -> None:
+    """GT depths and unit confidence in the eval CLI's output schema."""
+    from mdfnet_tpu_torch.data import write_pfm
+    for sub in ("depth_est", "confidence"):
+        os.makedirs(os.path.join(out, scan, sub), exist_ok=True)
+    for v, depth in enumerate(scene.depths):
+        write_pfm(os.path.join(out, scan, "depth_est", f"{v:08d}.pfm"), depth)
+        write_pfm(os.path.join(out, scan, "confidence", f"{v:08d}.pfm"),
+                  np.ones_like(depth))
+
+
+def tie_rule():
+    """The fusion tests' tie rule, tests/_fusion_scenes.py (TIE,
+    MAX_TIE_SHARE, near, near_integer)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _fusion_scenes
+    return _fusion_scenes
+
+
+def tie_check(name: str, got, want, ties) -> str:
+    """``got`` (the card) equals ``want`` (the CPU) but at ties (the tie
+    rule of tests/_fusion_scenes.py): an entry that differs must lie where
+    ``ties()`` (computed from the CPU's quantities, only when something
+    differs) is set, and at most MAX_TIE_SHARE of the entries may
+    differ."""
+    got, want = np.asarray(got), np.asarray(want)
+    require(got.shape == want.shape, f"{name}: {got.shape} vs {want.shape}")
+    differ = got != want
+    if got.dtype.kind == "f":
+        differ &= ~(np.isnan(got) & np.isnan(want))
+    n = int(differ.sum())
+    if n:
+        tie = np.broadcast_to(ties(), differ.shape)
+        require(not (differ & ~tie).any(),
+                f"{name}: {int((differ & ~tie).sum())} entries differ on "
+                f"the card from the CPU away from every threshold")
+        require(n <= tie_rule().MAX_TIE_SHARE * differ.size,
+                f"{name}: {n} of {differ.size} entries differ")
+    return f"{name} {n}/{differ.size}"
+
+
+def fusion_device_check(scene, smi: str) -> None:
+    """One reference view (0, its 10 sources) of the fusion scan through
+    each backend's per-view functions on the card, with TF32 allowed, and
+    on the CPU: masks and counts equal under the tie rule (the card's
+    projections are elementwise f32 with explicit FMAs, so none should
+    differ), continuous outputs bit for bit where they do. pcd's
+    violation counts are recomputed on the CPU for every 8th candidate."""
+    from mdfnet_tpu_torch import geometry
+    from mdfnet_tpu_torch.fusion import consistency_vote as vote
+    from mdfnet_tpu_torch.fusion import dynamic_filter as filt
+    from mdfnet_tpu_torch.fusion import pcd_fusion as pcd
+    from mdfnet_tpu_torch.ops.sample import bilinear_sample_2d
+    rule = tie_rule()
+    near, near_integer = rule.near, rule.near_integer
+
+    d, k, e = (torch.from_numpy(a) for a in (
+        scene.depths, scene.intrinsics, scene.extrinsics))
+    cpu = (d[0], k[0], e[0], d[1:], k[1:], e[1:])
+    card = tuple(a.to(DEV) for a in cpu)
+    h, w = d.shape[1:]
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    lines, secs = [], {}
+
+    def both(fn, *extra):
+        t0 = time.perf_counter()
+        on_card = fn(*card, *(x.to(DEV) for x in extra))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        on_cpu = fn(*cpu, *extra)
+        secs[fn.__name__] = (t1 - t0, time.perf_counter() - t1)
+        return ([x.cpu().numpy() for x in on_card],
+                [x.numpy() for x in on_cpu])
+    try:
+        # filter: the per-rung counts, the strict count, the depth sum
+        (cnt, strict, dsum), (cnt_c, strict_c, dsum_c) = both(
+            filt.geometric_consistency)
+
+        def filter_ties():
+            dre, xre, yre = (x.numpy() for x in filt._reproject(*cpu))
+            yy, xx = np.mgrid[0:h, 0:w]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                rel = np.abs(dre - cpu[0].numpy()) / cpu[0].numpy()
+            steps = np.arange(2, 11, dtype=np.float64)
+            return (near(np.hypot(xre - xx, yre - yy), steps / 4)
+                    | near(rel, steps / 1300)).any(0)
+        lines += [tie_check("filter rung counts", cnt, cnt_c, filter_ties),
+                  tie_check("strict count", strict, strict_c, filter_ties),
+                  tie_check("depth sum", dsum, dsum_c, filter_ties)]
+
+        # vote: accept, points
+        (pts, acc), (pts_c, acc_c) = both(vote.consistency_vote)
+
+        def vote_ties(points: bool):
+            """Accept: the disparity difference at its threshold or a
+            projection on the border; points: a truncated pixel at an
+            integer."""
+            xw = geometry.unproject(*(a[None] for a in cpu[:3]))
+            xs, ys, dx = geometry.project(xw.expand(10, 3, h * w), *cpu[4:])
+            if points:
+                return (near_integer(xs.numpy())
+                        | near_integer(ys.numpy())).any(0)[:, None]
+            ds = bilinear_sample_2d(cpu[3][..., None], xs, ys,
+                                    fused=True)[..., 0]
+            c = lambda m: -m[..., :3, :3].transpose(-1, -2).double() @ \
+                m[..., :3, 3:].double()
+            fb = (cpu[1][0, 0].double()
+                  * (c(cpu[2])[None] - c(cpu[5])).norm(dim=1))
+            with np.errstate(divide="ignore", invalid="ignore"):
+                diff = (fb / dx.double() - fb / ds.double()).abs().numpy()
+            xs, ys = xs.numpy(), ys.numpy()
+            border = (np.minimum(np.abs(xs), np.abs(xs - w)) <= rule.TIE * w) \
+                | (np.minimum(np.abs(ys), np.abs(ys - h)) <= rule.TIE * h)
+            return (near(diff, [0.25]) | border).any(0)
+        lines += [tie_check("vote accept", acc, acc_c,
+                            lambda: vote_ties(False)),
+                  tie_check("vote points", pts, pts_c,
+                            lambda: vote_ties(True))]
+
+        # pcd: the reprojection, the visibility masks, the candidates
+        (xr, yr, dr, rng), (xr_c, yr_c, dr_c, rng_c) = both(
+            pcd.reproject_all)
+
+        def cell_ties():
+            world = pcd._img2world(pcd._centers(h, w), cpu[0].reshape(-1),
+                                   *cpu[1:3])
+            xs, ys, _ = pcd._world2img(world.expand(10, 3, h * w), *cpu[4:])
+            return (near_integer(xs.numpy())
+                    | near_integer(ys.numpy())).reshape(10, h, w)
+        lines += [tie_check("pcd in range", rng, rng_c, cell_ties)]
+        lines += [tie_check(f"pcd reprojected {n}", a, b, cell_ties)
+                  for n, a, b in (("x", xr, xr_c), ("y", yr, yr_c),
+                                  ("d", dr, dr_c))]
+        vis = [x.cpu().numpy() for x in pcd.visibility_masks(
+            card[0], *(torch.from_numpy(a).to(DEV)
+                       for a in (xr, yr, dr, rng)))]
+        vis_c = [x.numpy() for x in pcd.visibility_masks(
+            cpu[0], *map(torch.from_numpy, (xr, yr, dr, rng)))]
+
+        def vis_ties():
+            yy, xx = np.mgrid[0:h, 0:w] + 0.5
+            ref = cpu[0].numpy().astype(np.float64)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                rel = np.abs(ref - dr) / np.maximum(ref, dr)
+            return near(np.hypot(xr - xx, yr - yy), [1.0]) | \
+                near(rel, [0.01])
+        lines += [tie_check("pcd visibility masks", vis[0], vis_c[0],
+                            vis_ties),
+                  tie_check("pcd visibility vote", vis[1], vis_c[1],
+                            lambda: vis_ties().any(0))]
+        t0 = time.perf_counter()
+        xy, dc, vio, ok = pcd._candidates_and_violations(*card)
+        torch.cuda.synchronize()
+        secs["candidates"] = (time.perf_counter() - t0, None)
+        sub = slice(None, None, 8)
+        x_c, y_c, d_c = (a.cpu()[sub] for a in (xy[:, 0], xy[:, 1], dc))
+        vio_c = pcd._violations(x_c, y_c, d_c, *cpu[1:3], *cpu[3:]).numpy()
+
+        def vio_ties():
+            world = pcd._img2world(torch.stack([x_c, y_c, torch.ones_like(
+                x_c)]), d_c, *cpu[1:3])
+            tie = np.zeros(len(d_c), bool)
+            for i in range(10):
+                xs, ys, dz = pcd._world2img(world, cpu[4][i], cpu[5][i])
+                ds, _ = pcd._nearest_sample(cpu[3][i], xs, ys)
+                tie |= (near_integer(xs.numpy()) | near_integer(ys.numpy())
+                        | (np.abs(ds.numpy() - dz.numpy().astype(np.float64))
+                           <= rule.TIE * np.abs(dz.numpy())))
+            return tie
+        lines += [tie_check("pcd violations (every 8th candidate)",
+                            vio.cpu().numpy()[sub], vio_c, vio_ties)]
+        require(ok.any().item() and int(vio.sum()) > 0,
+                "pcd: no valid candidate or no violation")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    print(f"fusion card vs CPU (reference view 0 of {h}x{w}, 10 sources, "
+          f"TF32 allowed; entries that differ / entries): "
+          + ", ".join(lines) + "; seconds card / CPU: "
+          + ", ".join(f"{k} {a:.3f}" + (f" / {b:.2f}" if b else "")
+                      for k, (a, b) in secs.items()) + f"; {smi}",
+          flush=True)
+
+
+def fusion_phase(smi: str) -> None:
+    """``mdfnet_tpu_torch.cli.fuse -m filter|vote|pcd`` on the card over an
+    11-view synthetic DTU scan at 1600x1184 with GT depths (a tilted plane,
+    unit confidence): each cloud non-empty and on the true surface
+    (FUSION_SURFACE), seconds per view and pcd's split (its native
+    election's share); then the per-view functions on the card against the
+    CPU (fusion_device_check)."""
+    from mdfnet_tpu_torch.cli.fuse import main as fuse_main
+    from mdfnet_tpu_torch.data import write_dtu_eval_tree
+    from mdfnet_tpu_torch.fusion.ply import read_ply
+
+    work = smoke_dir("smoke_fusion")
+    try:
+        scene = write_dtu_eval_tree(
+            os.path.join(work, "dtu1600x1200"), scans=(9,),
+            nviews=FUSION_VIEWS, height=HEIGHT, width=WIDTH,
+            plane_depth=FUSION_PLANE[0], tilt=FUSION_PLANE[1], baseline=12.0)
+        write_gt_outputs(os.path.join(work, "outputs"), scene)
+        pixels = FUSION_VIEWS * HEIGHT * WIDTH
+        for method in ("filter", "vote", "pcd"):
+            res = fuse_main(["-m", method, "-d", "dtu", "--root", work,
+                             "--scans", "9", "-e",
+                             os.path.join(work, "outputs"), "-o",
+                             os.path.join(work, f"plys_{method}")])[0]
+            xyz, _ = read_ply(res["ply"])
+            # world z of the plane: plane_depth + tilt * x (camera 0's
+            # frame is the world's)
+            resid = np.abs(xyz[:, 2].astype(np.float64) - FUSION_PLANE[0]
+                           - FUSION_PLANE[1] * xyz[:, 0])
+            med, p99 = np.median(resid), np.percentile(resid, 99)
+            times = res["times"]
+            split = (", ".join(f"{k} {v:.2f} s" for k, v in times.items())
+                     + f"; the native election {times['election']:.2f} s = "
+                     f"{times['election'] / res['seconds']:.1%} of the scan"
+                     if times else "no native part")
+            print(f"fusion {method}: cli.fuse on the card, {FUSION_VIEWS} "
+                  f"views {WIDTH}x{HEIGHT}: {len(xyz)} points "
+                  f"({len(xyz) / pixels:.1%} of the pixels) in "
+                  f"{res['seconds']:.2f} s "
+                  f"({res['seconds'] / FUSION_VIEWS:.3f} s/view, host I/O "
+                  f"included; {split}); plane residual "
+                  f"median {med:.2e} p99 {p99:.2e} (bounds "
+                  f"{FUSION_SURFACE[0]:.0e}, {FUSION_SURFACE[1]:.2f}); "
+                  f"{smi}", flush=True)
+            require(len(xyz) >= FUSION_MIN_SHARE * pixels,
+                    f"fusion {method}: {len(xyz)} points")
+            require(med <= FUSION_SURFACE[0] and p99 <= FUSION_SURFACE[1],
+                    f"fusion {method}: the cloud is off the GT surface")
+        fusion_device_check(scene, smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def metric_phase(smi: str) -> None:
+    """``mdfnet_tpu_torch.cli.dtu_eval`` (host code: numpy, a scipy
+    KD-tree) on the cloud that ``cli.fuse -m vote`` fuses on the card from
+    a smaller scan, METRIC_SIZE, 11 views of the plane with GT depths,
+    against a SampleSet made from the GT surface (view 0 back-projected):
+    Acc, Comp and Overall."""
+    from scipy.io import savemat
+    from mdfnet_tpu_torch.cli.dtu_eval import main as metric_main
+    from mdfnet_tpu_torch.cli.fuse import main as fuse_main
+    from mdfnet_tpu_torch.data import write_dtu_eval_tree
+    from mdfnet_tpu_torch.fusion.ply import write_ply
+
+    work = smoke_dir("smoke_metric")
+    try:
+        h, w = METRIC_SIZE
+        scene = write_dtu_eval_tree(
+            os.path.join(work, "dtu1600x1200"), scans=(9,),
+            nviews=FUSION_VIEWS, height=h, width=w,
+            plane_depth=FUSION_PLANE[0], tilt=FUSION_PLANE[1], baseline=3.0)
+        write_gt_outputs(os.path.join(work, "outputs"), scene)
+        res = fuse_main(["-m", "vote", "-d", "dtu", "--root", work,
+                         "--scans", "9", "-e", os.path.join(work, "outputs"),
+                         "-o", os.path.join(work, "plys")])[0]
+        k = scene.intrinsics[0].astype(np.float64)
+        ys, xs = np.mgrid[0:h, 0:w]
+        cam = np.linalg.inv(k) @ np.stack([xs.ravel(), ys.ravel(),
+                                           np.ones(h * w)])
+        stl = (cam * scene.depths[0].ravel()).T   # camera 0's frame: world
+        sample = os.path.join(work, "SampleSet")
+        os.makedirs(os.path.join(sample, "Points", "stl"))
+        os.makedirs(os.path.join(sample, "ObsMask"))
+        write_ply(os.path.join(sample, "Points", "stl", "stl009_total.ply"),
+                  stl.astype(np.float32))
+        lo, hi, vox = stl.min(0) - 5.0, stl.max(0) + 5.0, 2.0
+        mask = np.zeros(tuple(int(np.ceil((hi[i] - lo[i]) / vox)) + 2
+                              for i in range(3)), np.uint8)
+        q = np.round((stl - lo) / vox).astype(int) + 1
+        mask[q[:, 0], q[:, 1], q[:, 2]] = 1
+        savemat(os.path.join(sample, "ObsMask", "ObsMask9_10.mat"),
+                {"ObsMask": mask, "BB": np.stack([lo, hi]),
+                 "Res": np.array([[vox]])})
+        savemat(os.path.join(sample, "ObsMask", "Plane9.mat"),
+                {"P": np.array([0.0, 0.0, 1.0, -(stl[:, 2].min() - 5.0)])
+                 .reshape(4, 1)})
+        t0 = time.perf_counter()
+        result = metric_main(["--ply_dir", os.path.dirname(res["ply"]),
+                              "--sample_set", sample, "--scans", "9"])
+        metric_s = time.perf_counter() - t0
+        print(f"metric: cli.dtu_eval on scan 9 ({w}x{h}, {FUSION_VIEWS} "
+              f"views, vote on the card: {res['points']} points in "
+              f"{res['seconds']:.2f} s; stl {len(stl)} points): acc "
+              f"{result['acc']:.4f} comp {result['comp']:.4f} overall "
+              f"{result['overall']:.4f} in {metric_s:.1f} s on the host "
+              f"(bound {METRIC_BOUND}: the pixel footprint "
+              f"{FUSION_PLANE[0] / 320:.2f}); {smi}", flush=True)
+        require(all(np.isfinite(result[k]) and result[k] <= METRIC_BOUND
+                    for k in ("acc", "comp", "overall")),
+                f"metric: {result}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2670,6 +3250,7 @@ def main():
     if sys.argv[1:2] == ["--device-ms"] and len(sys.argv) == 3:
         device_ms_mode(sys.argv[2])
         return
+    start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -2748,7 +3329,11 @@ def main():
     kernels += [entry(n, info, report, pair_launches)
                 for n, info in PAIR_KERNEL.items()]
     serve_phase(model)
+    tanks_phase(model, smi)
+    tanks_serve_phase(model, smi)
     del model, args
+    fusion_phase(smi)
+    metric_phase(smi)
 
     batch = train_batch()
     report = check_train_kernels(batch)
@@ -2763,6 +3348,7 @@ def main():
                 for n, info in FUSED_KERNELS.items()]
     fused_learn_phase(batch, smi, unfused_layers)
 
+    print(f"total: {time.perf_counter() - start:.1f} s; {smi}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

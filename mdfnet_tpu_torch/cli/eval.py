@@ -1,13 +1,17 @@
 """Evaluation CLI of the port (twin of ``mdfnet_tpu/cli/eval.py``):
 
-    python -m mdfnet_tpu_torch.cli.eval -p CKPT.pth [--root DIR]
-        [-o OUTPUT] [--scans ...] [--device cuda|cpu]
+    python -m mdfnet_tpu_torch.cli.eval -p CKPT.pth -d dtu|tanks
+        [-s intermediate|advanced] [--root DIR] [-o OUTPUT] [--scans ...]
+        [--exact] [--device cuda|cpu]
 
-The DTU eval set only (Tanks & Temples is not ported yet). CKPT is a
-reference-schema ``.pth`` ({'epoch', 'model'}). On the card (``--device
-cuda``, the default; with no card it exits with an error) the model runs the
-hand-written kernels with bf16 convs (f32 geometry, softmax and fitting);
-``--device cpu`` runs the plain versions in f32.
+CKPT is a reference-schema ``.pth`` ({'epoch', 'model'}). DTU runs 5 views
+at 1600x1184; Tanks & Temples 11 views cropped to 1056 rows, per-scene
+``pair.txt`` and ``cams_1``. On the card (``--device cuda``, the default;
+with no card it exits with an error) the model runs the hand-written kernels
+with bf16 convs (f32 geometry, softmax and fitting); ``--exact`` runs the
+same kernels in f32, the port's counterpart of the JAX package's f32 gather
+path. ``--device cpu`` runs the plain versions in f32. The JAX CLI's
+``--spatial`` is not ported.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import os
 import torch
 
 from mdfnet_tpu_torch.config import DataConfig, EvalConfig, ModelConfig
-from mdfnet_tpu_torch.data import DTUEvalDataset
+from mdfnet_tpu_torch.data import DTUEvalDataset, TanksEvalDataset
 from mdfnet_tpu_torch.evaluate import run_eval
 from mdfnet_tpu_torch.models.registry import build_model, resolve_device
 from mdfnet_tpu_torch.utils.weights import load_checkpoint
@@ -32,10 +36,18 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="mdfnet_tpu_torch evaluation")
     parser.add_argument("-p", "--pre_model", required=True,
                         help="reference-schema .pth checkpoint")
+    parser.add_argument("-d", "--dataset", default="dtu",
+                        choices=["dtu", "tanks"])
+    parser.add_argument("-s", "--set", default="intermediate",
+                        choices=["intermediate", "advanced"])
     parser.add_argument("--root", default=None)
     parser.add_argument("-o", "--output", default="outputs")
     parser.add_argument("--scans", default=None,
-                        help="comma-separated DTU scan ids")
+                        help="comma-separated scan ids (dtu) or scene names "
+                             "(tanks)")
+    parser.add_argument("--exact", action="store_true",
+                        help="run the kernels in f32 on the card (the CPU "
+                             "always runs f32)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda (default; fails without a card) or cpu "
                              "(the plain versions in f32)")
@@ -47,18 +59,27 @@ def main(argv=None):
 
     data_cfg = DataConfig(root_dir=args.root) if args.root else DataConfig()
     on_card = device.type == "cuda"
-    model = build_model(ModelConfig(
-        compute_dtype="bfloat16" if on_card else "float32"), device=device)
+    dtype = "bfloat16" if on_card and not args.exact else "float32"
+    model = build_model(ModelConfig(compute_dtype=dtype), device=device)
     epoch = load_checkpoint(model, args.pre_model)
-    log.info("loaded %s (epoch %d) on %s", args.pre_model, epoch,
-             torch.cuda.get_device_name(0) if on_card else "cpu")
+    log.info("loaded %s (epoch %d) on %s, %s", args.pre_model, epoch,
+             torch.cuda.get_device_name(0) if on_card else "cpu", dtype)
 
-    scans = ([int(s) for s in args.scans.split(",")] if args.scans
-             else data_cfg.dtu_eval_scans)
-    dataset = DTUEvalDataset(
-        os.path.join(data_cfg.root_dir, data_cfg.dtu_eval_subdir),
-        scans=scans, nviews=EvalConfig().nviews,
-        crop_height=data_cfg.dtu_eval_crop_height)
+    if args.dataset == "dtu":
+        scans = ([int(s) for s in args.scans.split(",")] if args.scans
+                 else data_cfg.dtu_eval_scans)
+        dataset = DTUEvalDataset(
+            os.path.join(data_cfg.root_dir, data_cfg.dtu_eval_subdir),
+            scans=scans, nviews=EvalConfig().nviews,
+            crop_height=data_cfg.dtu_eval_crop_height)
+    else:
+        scenes = (args.scans.split(",") if args.scans else
+                  (data_cfg.tanks_intermediate if args.set == "intermediate"
+                   else data_cfg.tanks_advanced))
+        dataset = TanksEvalDataset(
+            os.path.join(data_cfg.root_dir, data_cfg.tanks_subdir, args.set),
+            scenes=scenes, nviews=11,
+            crop_height=data_cfg.tanks_crop_height)
     stats = run_eval(model, dataset, args.output)
     log.info("done: first map %.3f s; %.4f s/view device, %.4f s/view wall "
              "(incl. IO) over %d views", stats["first_map_sec"],

@@ -1,10 +1,9 @@
-"""Dataset samplers for DTU and BlendedMVS (counterpart of
+"""Dataset samplers for DTU, BlendedMVS and Tanks & Temples (counterpart of
 ``mdfnet_tpu/data/datasets.py``).
 
 Host-side, numpy-only index->item samplers that produce exactly the per-item
 dicts the reference loaders emit, decoupled from any framework DataLoader:
-batching and shuffling live in data/pipeline.py. The Tanks & Temples sampler
-comes with the eval CLI's Tanks branch.
+batching and shuffling live in data/pipeline.py.
 
 Directory layouts (reference load/getpath.py:4-45):
     DTU train:   <root>/Rectified/scan{X}_train/rect_{v+1:03d}_{l}_r5000.png
@@ -14,6 +13,7 @@ Directory layouts (reference load/getpath.py:4-45):
                  <root>/pair.txt
     BlendedMVS:  <root>/<scene>/blended_images|cams|rendered_depth_maps/...
                  <root>/training_list.txt, per-scene cams/pair.txt
+    Tanks:       <root>/<scene>/images|cams_1/..., per-scene pair.txt
 """
 from __future__ import annotations
 
@@ -218,3 +218,47 @@ class BlendedMVSTrainDataset:
             "depth_range": depth_range,
         }
 
+
+class TanksEvalDataset:
+    """Tanks & Temples eval: 1080-high images cropped to 1056, per-scene
+    pair.txt and cams_1 camera files, ref view's depth range
+    (reference load/tankseval.py)."""
+
+    def __init__(self, root: str, scenes: Sequence[str], nviews: int = 11,
+                 crop_height: int = 1056):
+        self.root = root
+        self.nviews = nviews
+        self.crop_height = crop_height
+        self.items: List[Tuple[str, int, List[int]]] = []
+        for scene in scenes:
+            _, pairs = read_pair_file(os.path.join(root, scene, "pair.txt"))
+            for ref, srcs in pairs:
+                self.items.append((scene, ref, srcs))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx: int) -> Dict:
+        scene, ref, srcs = self.items[idx]
+        views = [ref] + srcs[:self.nviews - 1]
+        imgs, intr, extr = [], [], []
+        depth_range = None
+        for i, vid in enumerate(views):
+            img = read_image(os.path.join(self.root, scene, "images",
+                                          f"{vid:08d}.jpg"))
+            imgs.append(img[:self.crop_height])
+            k, e, info = read_cam_file(os.path.join(
+                self.root, scene, "cams_1", f"{vid:08d}_cam.txt"))
+            intr.append(k)
+            extr.append(e)
+            if i == 0:
+                # the reference feeds the raw info line and the model reads
+                # columns 0/1 as min/max (tankseval.py:58-66, core.py:37)
+                depth_range = np.array([info[0], info[1]], dtype=np.float32)
+        return {
+            "imgs": np.stack(imgs).astype(np.float32),
+            "intrinsics": np.stack(intr),
+            "extrinsics": np.stack(extr),
+            "depth_range": depth_range,
+            "filename": scene + "/{}/" + f"{ref:08d}" + "{}",
+        }

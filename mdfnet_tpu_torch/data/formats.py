@@ -141,6 +141,13 @@ def write_depth_png(path: str, depth: np.ndarray) -> None:
     Image.fromarray((np.asarray(depth) - 500.0) / 2.0).convert("L").save(path)
 
 
+def write_mask_png(path: str, mask: np.ndarray) -> None:
+    """Binary mask as 0/255 PNG (reference tools/data_io.py:110-113)."""
+    from PIL import Image
+    assert mask.dtype == np.bool_
+    Image.fromarray(mask.astype(np.uint8) * 255).save(path)
+
+
 def ensure_dir(path: str) -> str:
     os.makedirs(path, exist_ok=True)
     return path

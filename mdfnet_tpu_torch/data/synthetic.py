@@ -269,6 +269,43 @@ def write_dtu_eval_tree(root: str, scans=(9,), nviews: int = 5,
     return scene
 
 
+def write_tanks_eval_tree(root: str, scenes=("Family",), nviews: int = 11,
+                          height: int = 64, width: int = 96,
+                          plane_depth: float = 600.0, tilt: float = 0.05,
+                          baseline: float = 12.0, focal: float = 320.0,
+                          depth_range=(425.0, 935.0)) -> "SyntheticScene":
+    """Materialise a synthetic tilted plane in the Tanks & Temples EVAL
+    layout (<scene>/images/{v:08d}.jpg, <scene>/cams_1/{v:08d}_cam.txt and
+    a per-scene pair.txt, every other view a source) for the eval CLI's
+    Tanks branch. The cams' info line starts with the depth range, the
+    columns the Tanks sampler reads. Returns the scene.
+    """
+    import os
+    from PIL import Image
+    from mdfnet_tpu_torch.data.formats import write_cam_file, write_pair_file
+
+    scene = make_plane_scene(height=height, width=width, nviews=nviews,
+                             plane_depth=plane_depth, tilt=tilt,
+                             baseline=baseline, focal=focal,
+                             depth_range=depth_range)
+    pairs = [(r, sorted((s for s in range(nviews) if s != r),
+                        key=lambda s: abs(s - r))) for r in range(nviews)]
+    for name in scenes:
+        imgd = os.path.join(root, name, "images")
+        camd = os.path.join(root, name, "cams_1")
+        os.makedirs(imgd, exist_ok=True)
+        os.makedirs(camd, exist_ok=True)
+        write_pair_file(os.path.join(root, name, "pair.txt"), pairs)
+        for v in range(nviews):
+            img8 = (scene.imgs[v] * 255).astype(np.uint8)
+            Image.fromarray(img8).save(
+                os.path.join(imgd, f"{v:08d}.jpg"), quality=98)
+            write_cam_file(os.path.join(camd, f"{v:08d}_cam.txt"),
+                           scene.intrinsics[v], scene.extrinsics[v],
+                           (*depth_range, 0.0, 0.0))
+    return scene
+
+
 def make_batch(scene: SyntheticScene, batch: int = 1) -> dict:
     """Package a scene as the model's input dict (channels-last, batched)."""
     def rep(x):

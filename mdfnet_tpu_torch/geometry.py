@@ -6,6 +6,7 @@ coordinates on pixel centres.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -85,3 +86,63 @@ def reference_grid_coords(x_src: torch.Tensor, y_src: torch.Tensor,
     ``x_eff = x * W / (W - 1) - 0.5`` (see ``mdfnet_tpu/geometry.py``)."""
     return (x_src * (width / (width - 1.0)) - 0.5,
             y_src * (height / (height - 1.0)) - 0.5)
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` in f32 with one rounding, as a fused multiply-add
+    gives it (the JAX package's CPU backend contracts a product that feeds
+    an add into one). The product of two f32 values is exact in f64, so
+    the f64 sum rounded to f32 is the FMA's result (but where that double
+    rounding meets a tie, ~2^-29 of sums), whether or not the f64 add is
+    itself fused: the CPU and the card give the same bits."""
+    return torch.addcmul(c.double(), a.double(), b.double()).float()
+
+
+def matmul(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``m @ v`` for small ``m`` (..., I, J) and ``v`` (..., J, N) in f32,
+    as the JAX package's CPU dot sums it: a chain of FMAs over j in order
+    (XLA's order; for one 4x4 matrix beyond 8192 columns its CPU backend
+    pairs the terms instead). Elementwise, so neither TF32 nor a library's
+    order enters."""
+    m64, v64 = m.double(), v.double()
+    acc = m[..., :, :1] * v[..., :1, :]
+    for j in range(1, m.shape[-1]):
+        acc = torch.addcmul(acc.double(), m64[..., :, j:j + 1],
+                            v64[..., j:j + 1, :]).float()
+    return acc
+
+
+def inverse(m: torch.Tensor) -> torch.Tensor:
+    """Inverse of small f32 matrices (..., n, n), a camera's K or E: LU
+    with partial pivoting and its solve against the identity (LAPACK
+    ``getrf`` / ``getrs`` through scipy), the JAX package's own route and
+    bits on the CPU. Computed on the host and returned on ``m``'s device,
+    so the card's projections start from the CPU's bits."""
+    from scipy.linalg import lu_factor, lu_solve
+    a = m.detach().float().cpu().numpy().reshape(-1, *m.shape[-2:])
+    eye = np.eye(m.shape[-1], dtype=np.float32)
+    inv = np.stack([lu_solve(lu_factor(x), eye) for x in a]).astype(np.float32)
+    return torch.from_numpy(inv.reshape(m.shape)).to(m.device)
+
+
+def unproject(depth: torch.Tensor, intrinsics: torch.Tensor,
+              extrinsics: torch.Tensor) -> torch.Tensor:
+    """Back-project depth maps (B, H, W) through K (B, 3, 3) and E (B, 4, 4)
+    world -> cam to world points (B, 3, H*W)."""
+    b, h, w = depth.shape
+    grid = pixel_grid(h, w, device=depth.device).expand(b, 3, h * w)
+    cam = matmul(inverse(intrinsics), grid) * depth.reshape(b, 1, -1)
+    ones = torch.ones(b, 1, h * w, device=depth.device)
+    return matmul(inverse(extrinsics), torch.cat([cam, ones], 1))[:, :3]
+
+
+def project(xyz_world: torch.Tensor, intrinsics: torch.Tensor,
+            extrinsics: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """World points (B, 3, N) into cameras K (B, 3, 3), E (B, 4, 4): (x, y,
+    z_cam), each (B, N); z_cam is the camera-frame depth."""
+    b, _, n = xyz_world.shape
+    ones = torch.ones(b, 1, n, device=xyz_world.device)
+    cam = matmul(extrinsics, torch.cat([xyz_world, ones], 1))[:, :3]
+    pix = matmul(intrinsics, cam)
+    return pix[:, 0] / pix[:, 2], pix[:, 1] / pix[:, 2], cam[:, 2]

@@ -10,14 +10,19 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from mdfnet_tpu_torch.geometry import fma
+
 
 def bilinear_sample_2d(image: torch.Tensor, x: torch.Tensor,
-                       y: torch.Tensor) -> torch.Tensor:
+                       y: torch.Tensor, fused: bool = False) -> torch.Tensor:
     """Sample ``image`` at float pixel coordinates with zero padding.
 
     Args:
         image: (B, H, W, C) channels-last.
         x, y: (B, ...) float pixel coordinates (x along W).
+        fused: blend the taps with fused multiply-adds where the JAX
+            package's CPU backend contracts them (f32 ``image``), which
+            gives its bits on any device (the fusion backends' resampling).
     Returns:
         (B, ..., C) samples.
     """
@@ -41,9 +46,14 @@ def bilinear_sample_2d(image: torch.Tensor, x: torch.Tensor,
                            * (hp * wp))[:, None]
     v00, v01 = flat[base], flat[base + 1]
     v10, v11 = flat[base + wp], flat[base + wp + 1]
-    top = v00 * (1 - wx) + v01 * wx
-    bot = v10 * (1 - wx) + v11 * wx
-    out = top * (1 - wy) + bot * wy
+    if fused:
+        top = fma(v01, wx, v00 * (1 - wx))
+        bot = fma(v11, wx, v10 * (1 - wx))
+        out = fma(top, 1 - wy, bot * wy)
+    else:
+        top = v00 * (1 - wx) + v01 * wx
+        bot = v10 * (1 - wx) + v11 * wx
+        out = top * (1 - wy) + bot * wy
     return out.reshape((b,) + tuple(out_shape) + (c,))
 
 

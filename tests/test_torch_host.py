@@ -183,3 +183,141 @@ def test_variables_to_state_dict():
                            for k, v in got.items()}, strict=True)
     for k, v in model.state_dict().items():
         torch.testing.assert_close(other.state_dict()[k], v, rtol=0, atol=0)
+
+
+# ----------------------------------------------- fusion and Tanks host copies
+
+from mdfnet_tpu.fusion import pairs as jax_pairs  # noqa: E402
+from mdfnet_tpu.fusion import ply as jax_ply  # noqa: E402
+from mdfnet_tpu.fusion import presets as jax_presets  # noqa: E402
+from mdfnet_tpu.fusion import view_store as jax_view_store  # noqa: E402
+from mdfnet_tpu_torch.fusion import pairs as port_pairs  # noqa: E402
+from mdfnet_tpu_torch.fusion import ply as port_ply  # noqa: E402
+from mdfnet_tpu_torch.fusion import presets as port_presets  # noqa: E402
+from mdfnet_tpu_torch.fusion import view_store as port_view_store  # noqa: E402
+
+
+@pytest.mark.parametrize("fields", ["xyz", "rgb", "normals", "all"])
+def test_ply_bytes_and_round_trip(tmp_path, fields):
+    rng = np.random.RandomState(2)
+    xyz = rng.randn(37, 3).astype(np.float32)
+    rgb = rng.randint(0, 256, (37, 3)).astype(np.uint8) \
+        if fields in ("rgb", "all") else None
+    nrm = rng.randn(37, 3).astype(np.float32) \
+        if fields in ("normals", "all") else None
+    a, b = str(tmp_path / "port.ply"), str(tmp_path / "jax.ply")
+    port_ply.write_ply(a, xyz, rgb, nrm)
+    jax_ply.write_ply(b, xyz, rgb, nrm)
+    assert open(a, "rb").read() == open(b, "rb").read()
+    got, got_rgb = port_ply.read_ply(a)
+    want, want_rgb = jax_ply.read_ply(a)
+    np.testing.assert_array_equal(got, xyz)
+    np.testing.assert_array_equal(got, want)
+    if rgb is None:
+        assert got_rgb is None and want_rgb is None
+    else:
+        np.testing.assert_array_equal(got_rgb, rgb)
+        np.testing.assert_array_equal(got_rgb, want_rgb)
+
+
+def test_ply_ascii_read(tmp_path):
+    path = tmp_path / "ascii.ply"
+    path.write_text("ply\nformat ascii 1.0\nelement vertex 2\n"
+                    "property float x\nproperty float y\nproperty float z\n"
+                    "property uchar red\nproperty uchar green\n"
+                    "property uchar blue\nend_header\n"
+                    "1 2 3 10 20 30\n4.5 5 6 40 50 60\n")
+    for got, want in zip(port_ply.read_ply(str(path)),
+                         jax_ply.read_ply(str(path))):
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == want.dtype
+
+
+def test_vote_presets():
+    for table in ("DTU_VOTE", "TANKS_INTERMEDIATE_VOTE",
+                  "TANKS_ADVANCED_VOTE"):
+        assert getattr(port_presets, table) == getattr(jax_presets, table)
+    for dataset, scene in (("dtu", "scan9"), ("intermediate", "Family"),
+                           ("intermediate", "Unknown"),
+                           ("advanced", "Temple")):
+        assert port_presets.vote_preset(dataset, scene) == \
+            jax_presets.vote_preset(dataset, scene)
+
+
+def test_find_pair_file(tmp_path):
+    (tmp_path / "scan1").mkdir()
+    (tmp_path / "scene").mkdir()
+    (tmp_path / "pair.txt").write_text("0\n")
+    (tmp_path / "scene" / "pair.txt").write_text("0\n")
+    for scan in ("scan1", "scene", "scan1/"):
+        d = str(tmp_path / scan)
+        assert port_pairs._find_pair_file(d) == jax_pairs._find_pair_file(d)
+    with pytest.raises(FileNotFoundError):
+        port_pairs._find_pair_file(str(tmp_path / "scan1" / "missing"))
+
+
+def test_view_store_lru_and_spill(tmp_path):
+    """tests/test_fusion_memory.py's LRU and exact spill, on the port's
+    copy."""
+    loads = []
+
+    def load(vid):
+        loads.append(vid)
+        return {"depth": np.full((4, 4), float(vid), np.float32)}
+
+    with port_view_store.ViewStore(load, maxsize=2) as store:
+        assert store.get(0)["depth"][0, 0] == 0
+        assert store.get(1)["depth"][0, 0] == 1
+        store.update(0, depth=np.full((4, 4), 100.0, np.float32))
+        assert store.get(2)["depth"][0, 0] == 2     # evicts dirty 0 -> spill
+        assert store.get(3)["depth"][0, 0] == 3     # evicts clean 1
+        assert store.get(0)["depth"][0, 0] == 100.0
+        assert store.get(1)["depth"][0, 0] == 1
+        assert loads.count(0) == 1
+        assert loads.count(1) >= 2
+        assert store.peak_resident <= 2
+        spill = store._spill
+    assert not os.path.exists(spill)
+
+
+def test_pad_sources():
+    d = np.arange(2 * 3 * 4, dtype=np.float32).reshape(2, 3, 4)
+    k = np.stack([np.eye(3), 2 * np.eye(3)]).astype(np.float32)
+    (dp, kp), valid = port_view_store.pad_sources([d, k], 5)
+    assert dp.shape == (5, 3, 4) and kp.shape == (5, 3, 3)
+    assert valid.tolist() == [True, True, False, False, False]
+    np.testing.assert_array_equal(dp[2:], np.repeat(d[:1], 3, axis=0))
+    (d2,), valid2 = port_view_store.pad_sources([d], 2)
+    assert d2 is not dp and valid2.all()
+    for max_s in (2, 5):
+        got, got_valid = port_view_store.pad_sources([d, k], max_s)
+        want, want_valid = jax_view_store.pad_sources([d, k], max_s)
+        np.testing.assert_array_equal(got_valid, want_valid)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_mask_png_bytes(tmp_path):
+    mask = np.random.RandomState(4).rand(9, 13) > 0.5
+    a, b = str(tmp_path / "port.png"), str(tmp_path / "jax.png")
+    port_formats.write_mask_png(a, mask)
+    jax_formats.write_mask_png(b, mask)
+    assert open(a, "rb").read() == open(b, "rb").read()
+    with pytest.raises(AssertionError):
+        port_formats.write_mask_png(a, mask.astype(np.uint8))
+
+
+def test_tanks_eval_items(tmp_path):
+    root = str(tmp_path / "intermediate")
+    port_synthetic.write_tanks_eval_tree(root, scenes=("Family", "Horse"),
+                                         nviews=6, height=20, width=28)
+    kw = dict(scenes=("Family", "Horse"), nviews=4, crop_height=16)
+    got = port_datasets.TanksEvalDataset(root, **kw)
+    want = jax_datasets.TanksEvalDataset(root, **kw)
+    assert len(got) == len(want) == 12
+    for i in (0, 5, 11):
+        _assert_items_equal(got[i], want[i])
+    item = got[5]
+    assert item["imgs"].shape == (4, 16, 28, 3)
+    assert item["filename"] == "Family/{}/00000005{}"
+    np.testing.assert_array_equal(item["depth_range"], [425.0, 935.0])
