@@ -4,6 +4,7 @@
     python3 chip_smoke.py --gate-spread   # the bf16 step gate's readings
     python3 chip_smoke.py --device-ms ROOT   # K1, K7, K9 device time, ROOT's
     python3 chip_smoke.py --chain-tiles [ROOT]   # the chain kernel at each tile
+    python3 chip_smoke.py --eval-profile ROOT   # the eval forward, ROOT's
 
 ``--gate-spread`` reads the bf16 and f32 step gates' metrics over equally
 correct summation orders and over the injected faults (gate_spread), from
@@ -18,6 +19,10 @@ commits' chain kernels side by side in one call).
 (the stats kernel and K1's train launch) at the three DTU train stages with
 the package of the checkout at ROOT (device_ms_mode), with digests of their
 outputs, to hold two commits' kernels side by side in one call.
+``--eval-profile ROOT`` runs the bf16 eval forward at DTU and Tanks
+2048x1056 with the package of the checkout at ROOT (eval_profile_mode):
+ms/map, peak memory, device ms, ATen's elementwise and ``cat`` device ms,
+time by layer.
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device  — needs CUDA; prints the card's name and power limit;
@@ -39,14 +44,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
      chain kernel beside its per-layer route, read in turn CHAIN_ROUNDS
      times, the rule's route the faster by the median of the rounds'
      ratios; K1's device time at the three stages,
-     and K1 on stress cameras at stage 0 (f32); how near the exact (f64)
+     and K1 on stress cameras at stage 0 (f32); K6 at the variance
+     aggregate's eval shapes (k6_eval_cases: one source, DTU stages 0 and
+     2), grid_sample beside it; how near the exact (f64)
      sums the tc kernels' f32 sums come beside the direct kernel's (K2, K3,
      K4, the chain kernel's Ci = 3 and 1 heads);
   4. forward — the CoreNet eval forward at 1600x1184, 5 views, B=1, bf16
      convs, seeded random weights with a sharpened posterior: every kernel's
      launch counter must move, the chain kernel must launch once for each
      chain that chain_route fuses and the tc, co1 and direct kernels once
-     for each conv and transposed conv that the route rule sends to them,
+     for each conv and transposed conv that the route rule sends to them
+     (the backbone's top-down path: three composed 1x1 convs on tc),
      and the output must agree with the plain f32
      forward on the card: depth (median <= 0.4%, p95 <= 3% of the depth
      range, the bounds of tools/check_fused_oracle.py), confidence, and each
@@ -56,6 +64,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
      against the two conv3d launches (tc route) each pair replaces;
   6. serve   — ``python -m mdfnet_tpu_torch.cli.eval`` on a synthetic DTU
      eval tree (1600x1200 cropped to 1184, 3 reference views);
+  6'. alternatives — each alternative unit (ALT_CONFIGS: the variance
+     aggregate, ATV hypotheses, RefineNet v1, gauss0 curves, all four) at
+     the DTU eval shape: the f32 kernel forward vs the plain f32 forward
+     (EXACT_BOUNDS), its launches by route as the rule gives and K6's (or
+     K1's); the bf16 forward's ms/map and peak memory, its output against
+     the plain f32 forward (the forward gate, FORWARD_BOUNDS), and each of
+     its conv launches (the tc kernel at Ci = C under the variance
+     aggregate, RefineNet v1's convs) against its plain version on the
+     same inputs (REL_TOL, uncounted launches); one train step of
+     all four at DTU train, f32 kernels vs plain f32 (STEP_BOUNDS_F32),
+     with K6, K7 and K8 launched;
   6a. tanks  — the eval forward at the Tanks & Temples shapes (11 views,
      1920x1056 and 2048x1056): K1 against its plain version at the three
      stages with S = 10 sources (bf16 and f32), every kernel of the path
@@ -108,7 +127,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      losses; ms/step, peak memory, and the aggregates' forward and backward
      time beside the unfused path's.
 
-Before them, ``total:`` gives the script's seconds. The line before the last
+The profile lines (DTU, both Tanks widths) give device busy time, ATen's
+elementwise and ``cat`` device time and the time by layer. After the
+phases, ``total:`` gives the script's seconds. The line before the last
 is one JSON object with every kernel's launches, error and times; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -262,6 +283,21 @@ FUSED_KERNELS = {
         source=_SRC + "rowsweep_aggregate.cu",
         replaces="mdfnet_tpu/ops/pallas/aggregate_kernel.py:427"),
 }
+# K6 in eval: the variance aggregate's warp (ModelConfig(aggregate_impl=
+# "variance")); its launches are that config's bf16 forward's in the
+# alternatives phase
+ALT_KERNELS = {"sample_2d_eval": dict(
+    source=_SRC + "sample_2d.cu",
+    replaces="mdfnet_tpu/ops/pallas/warp_kernel.py:143")}
+# the alternatives phase's configurations (the units of JAX core.py:78-132,
+# 203-238, each alone and all four together), at the DTU eval shape
+ALT_CONFIGS = {"variance": dict(aggregate_impl="variance"),
+               "atv": dict(hypo_impl="atv"),
+               "refine1": dict(refine_impl="refine1"),
+               "gauss0": dict(curve_classes=(None, "gauss0", "gauss0")),
+               "all four": dict(aggregate_impl="variance", hypo_impl="atv",
+                                refine_impl="refine1",
+                                curve_classes=(None, "gauss0", "gauss0"))}
 # the reference's training configuration: DTU train 640x512, 5 views, batch 4
 TRAIN_HEIGHT, TRAIN_WIDTH, TRAIN_BATCH = 512, 640, 4
 # Step gates at this configuration (PERF.md section 2).
@@ -771,8 +807,9 @@ def kernel_cases(gen, scene):
             cases.append(("trconv3d_bn_act", dt, lambda p, x=x, wt=wt, r=res,
                           e=e: trconv3d_bn_act(x, wt, *e, residual=r,
                                                plain=p), meta))
-        # K4 — backbone conv23_0 (5x5 stride 2), lat2 (1x1 + residual),
-        # refine's C->1 tail (f32 out)
+        # K4 — backbone conv23_0 (5x5 stride 2), the top-down path's last
+        # composed 1x1 (out2 lat2 differenced, 16 -> 8, the upsampled addend
+        # as its residual), refine's C->1 tail (f32 out)
         x = rnd(NVIEWS, h2, w2, 16).to(dt)
         w5 = rnd(32, 16, 5, 5, scale=0.05).to(dt)
         e5 = epi(32)
@@ -784,11 +821,11 @@ def kernel_cases(gen, scene):
                         x, wt, *e, stride=2, route="direct"))
         cases.append(("conv2d_bn_act", dt, lambda p, x=x, wt=w5, e=e5:
                       conv2d_bn_act(x, wt, *e, stride=2, plain=p), meta))
-        w1 = rnd(64, 16, 1, 1, scale=0.2).to(dt)
-        r1 = rnd(NVIEWS, h2, w2, 64).to(dt)
+        w1 = rnd(8, 16, 1, 1, scale=0.2).to(dt)
+        r1 = rnd(NVIEWS, h2, w2, 8).to(dt)
         cases.append(("conv2d_bn_act", dt, lambda p, x=x, wt=w1, r=r1,
-                      e=epi(64): conv2d_bn_act(x, wt, *e, relu=False,
-                                               residual=r, plain=p), None))
+                      e=epi(8): conv2d_bn_act(x, wt, *e, relu=False,
+                                              residual=r, plain=p), None))
         # refine's C -> 1 tail on the co1 kernel
         xt = rnd(1, HEIGHT, WIDTH, 8).to(dt)
         wt1 = rnd(1, 8, 3, 3, scale=0.2).to(dt)
@@ -858,6 +895,48 @@ def kernel_cases(gen, scene):
             cases.append(("conv3d_pair_bn_act", dt, lambda p, x=x, wa=wa,
                           wb=wb, e1=e1, e2=e2: conv3d_pair_bn_act(
                               x, wa, *e1, wb, *e2, plain=p), meta))
+    return cases + k6_eval_cases(scene)
+
+
+def k6_eval_cases(scene):
+    """K6 in eval: the variance aggregate's warp of one source view's
+    C-channel features at DTU eval stage 0 (48 uniform planes, 148x200, C =
+    64) and stage 2 (8 per-pixel planes, 592x800, C = 16), bf16 and f32;
+    the yardstick is grid_sample on the same samples. Its own generator
+    keeps the other cases' inputs as they were."""
+    import torch.nn.functional as F
+    from mdfnet_tpu_torch import geometry
+    from mdfnet_tpu_torch.ops.cuda.warp_kernel import sample_2d
+    from mdfnet_tpu_torch.ops.warp import sweep_sample_coords
+    gen = torch.Generator().manual_seed(6)
+    intr = torch.from_numpy(scene.intrinsics)[None].to(DEV)
+    extr = torch.from_numpy(scene.extrinsics)[None].to(DEV)
+    chs = (64, 32, 16)      # the backbone's C at stages 0-2
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        for stage in (0, 2):
+            d, c = NDEPTHS[stage], chs[stage]
+            h, w = HEIGHT >> (3 - stage), WIDTH >> (3 - stage)
+            ref_proj, src_projs = geometry.projection_matrices(
+                intr, extr, stage, num_stages=4)
+            if stage == 0:
+                hyp = torch.linspace(*DEPTH_RANGE, d).reshape(1, d, 1, 1)
+            else:
+                hyp = 560.0 + torch.arange(d).reshape(1, d, 1, 1) * 4.0 \
+                    + torch.rand(1, 1, h, w, generator=gen) * 40.0
+            x, y = sweep_sample_coords(src_projs[:, :1], ref_proj,
+                                       hyp.to(DEV), h, w)
+            img = torch.randn(1, h, w, c, generator=gen).to(DEV, dt)
+            grid = torch.stack([(2.0 * x + 1.0) / w - 1.0,
+                                (2.0 * y + 1.0) / h - 1.0], -1)
+            meta = dict(in_bytes=size(img, x, y), ops=x.numel() * (10 + 9 * c),
+                        kernel="sample_2d_kernel",
+                        library=lambda img=cl(img), gd=grid.reshape(
+                            1, d, h * w, 2).to(dt): F.grid_sample(
+                                img, gd, mode="bilinear",
+                                padding_mode="zeros", align_corners=False))
+            cases.append(("sample_2d_eval", dt, lambda p, img=img, x=x, y=y:
+                          sample_2d(img, x, y, plain=p), meta))
     return cases
 
 
@@ -1226,11 +1305,29 @@ def require_gate(gate: dict, what: str) -> None:
 def reset_launches() -> None:
     """Every eval kernel's launch count (and the tc kernel's per wrapper)
     to 0."""
-    from mdfnet_tpu_torch.ops.cuda import aggregate_kernel, conv_kernel
+    from mdfnet_tpu_torch.ops.cuda import (aggregate_kernel, conv_kernel,
+                                           warp_kernel)
     for c in (aggregate_kernel.LAUNCHES, conv_kernel.LAUNCHES,
-              conv_kernel.TC_LAUNCHES):
+              conv_kernel.TC_LAUNCHES, warp_kernel.LAUNCHES):
         for k in c:
             c[k] = 0
+
+
+def launches_by_route(model) -> tuple[dict, dict]:
+    """The conv launches since reset_launches by route (the chain, tc, co1
+    and direct kernels), and what the route rule gives for one eval forward
+    of ``model`` (eval_conv_routes)."""
+    from mdfnet_tpu_torch.models.conv_routes import eval_conv_routes
+    from mdfnet_tpu_torch.ops.cuda import conv_kernel
+    counts = conv_kernel.LAUNCHES
+    ran = {"chain": counts["conv2d_chain"], "tc": counts["conv_tc"],
+           "co1": counts["conv_co1"]}
+    ran["direct"] = sum(counts[k] for k in ("conv3d_bn_act",
+                                            "trconv3d_bn_act",
+                                            "conv2d_bn_act")) \
+        - ran["tc"] - ran["co1"]
+    routes = eval_conv_routes(model)
+    return ran, {r: routes.count(r) for r in ran}
 
 
 def eval_launches(model, what: str) -> tuple[dict, dict, dict]:
@@ -1242,7 +1339,6 @@ def eval_launches(model, what: str) -> tuple[dict, dict, dict]:
     and 1 heads of the chains on the per-layer route); none of the
     transposed convs on the direct kernel. Returns (launches per wrapper,
     launches per route, tc launches per wrapper)."""
-    from mdfnet_tpu_torch.models.conv_routes import eval_conv_routes
     from mdfnet_tpu_torch.ops.cuda import aggregate_kernel, conv_kernel
     # the eval path's kernels (the *_dgrad counters belong to training)
     launches = {k: v for c in (aggregate_kernel.LAUNCHES,
@@ -1252,12 +1348,7 @@ def eval_launches(model, what: str) -> tuple[dict, dict, dict]:
           if k in conv_kernel.TC_LAUNCHES}
     require(all(v > 0 for v in launches.values()),
             f"a kernel of {what} never launched: {launches}")
-    routes = eval_conv_routes(model)
-    ran = {"chain": conv_kernel.LAUNCHES["conv2d_chain"],
-           "tc": conv_kernel.LAUNCHES["conv_tc"],
-           "co1": conv_kernel.LAUNCHES["conv_co1"]}
-    ran["direct"] = sum(launches[k] for k in tc) - ran["tc"] - ran["co1"]
-    rule = {r: routes.count(r) for r in ran}
+    ran, rule = launches_by_route(model)
     require(ran == rule and min(ran[r] for r in ("chain", "tc", "co1")) > 0,
             f"{what}: launches by route {ran}, the rule gives {rule}")
     require(launches["trconv3d_bn_act"] == tc["trconv3d_bn_act"],
@@ -1288,10 +1379,16 @@ def forward_phase(build_s, scene):
     first_s = time.perf_counter() - t0
     conv_kernel.TRACE = None
     launches, rule, tc = eval_launches(model, "the main path")
+    # the backbone's linearised top-down path: three composed 1x1 convs
+    top_down = [t for t in traced if t[2] == 1]
     print(f"routes: {rule} launches per forward, as the rule gives for the "
           f"model's chains, convs and transposed convs "
-          f"({sum(rule.values())} launches); tc per wrapper {tc}",
-          flush=True)
+          f"({sum(rule.values())} launches); tc per wrapper {tc}; the "
+          f"top-down path's 1x1 launches (route, x, Co): "
+          f"{[(t[0], t[4], t[5]) for t in top_down]}", flush=True)
+    require(len(top_down) == 3 and all(t[0] == "tc" for t in top_down),
+            f"the top-down path made {len(top_down)} 1x1 launches, not "
+            f"three on the tc kernel: {top_down}")
 
     times = []
     torch.cuda.reset_peak_memory_stats()
@@ -1392,21 +1489,43 @@ def device_profile(fn, ntop: int) -> tuple[float, float, str]:
     return sum(t for _, t in rows), wall_us, top
 
 
-def profile_phase(model, args, ms_map):
+def glue_ms(split: dict) -> dict:
+    """ATen's elementwise and ``cat`` kernels' device ms in a device_split."""
+    return {"elementwise": sum(v for k, v in split.items()
+                               if "elementwise_kernel" in k),
+            "cat": sum(v for k, v in split.items()
+                       if "CatArrayBatchedCopy" in k)}
+
+
+def profile_phase(model, args, ms_map) -> dict:
     """Where one forward's time goes: device time by kernel (torch.profiler,
-    CUPTI) and by layer (CUDA events around the top-level modules).
+    CUPTI), ATen's elementwise and ``cat`` kernels among it (per forward,
+    over 3), and by layer (CUDA events around the top-level modules), which
+    it returns.
 
     The idle share is measured within the profiled forward, whose host time
     the profiler inflates; the share of an unprofiled forward is estimated
     from this forward's device time and ``ms_map``, the median host time of
     the unprofiled forwards of the same run."""
     busy, wall_us, top = device_profile(lambda: model(*args), 12)
+    glue = glue_ms(device_split(lambda: model(*args), iters=3))
     print(f"profile: device busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms "
           f"wall of the profiled forward (idle {1 - busy / wall_us:.1%}); "
           f"estimated idle of an unprofiled forward (vs its median "
-          f"{ms_map:.2f} ms) {1 - busy / 1e3 / ms_map:.1%}; top: {top}",
+          f"{ms_map:.2f} ms) {1 - busy / 1e3 / ms_map:.1%}; ATen elementwise "
+          f"{glue['elementwise']:.3f} ms, cat {glue['cat']:.3f} ms device a "
+          f"forward; top: {top}", flush=True)
+    layers, total = layer_ms(model, args)
+    print("layers (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                      layers.items())
+          + f", other {total - sum(layers.values()):.2f}, total {total:.2f}",
           flush=True)
+    return layers
 
+
+def layer_ms(model, args) -> tuple[dict, float]:
+    """One forward's time by top-level layer (CUDA events around each
+    module) and in all, ms."""
     events, hooks = {}, []
     for name in _layer_names(model):
         mod = model.get_submodule(name)
@@ -1426,12 +1545,8 @@ def profile_phase(model, args, ms_map):
     torch.cuda.synchronize()
     for h in hooks:
         h.remove()
-    total = start.elapsed_time(end)
-    layers = {k: a.elapsed_time(b) for k, (a, b) in events.items()}
-    rest = total - sum(layers.values())
-    print("layers (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in
-                                      layers.items())
-          + f", other {rest:.2f}, total {total:.2f}", flush=True)
+    return ({k: a.elapsed_time(b) for k, (a, b) in events.items()},
+            start.elapsed_time(end))
 
 
 def serve_phase(model):
@@ -1472,6 +1587,197 @@ def serve_phase(model):
               f"{log[-1].split(': ', 1)[-1]}", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def alt_launches(model, what: str) -> dict:
+    """The launches of one eval forward of an alternatives config since
+    reset_launches: the aggregate's kernel (K6 for the variance aggregate,
+    one launch a source a stage; K1 for the vector one), and every conv on
+    the kernel the rule gives it (eval_conv_routes; in f32 no chain and no
+    tc). Returns the launches per counter."""
+    from mdfnet_tpu_torch.models.aggregate_variance import VarianceAggregate
+    from mdfnet_tpu_torch.ops.cuda import (aggregate_kernel, conv_kernel,
+                                           warp_kernel)
+    counts = {k: v for c in (aggregate_kernel.LAUNCHES, conv_kernel.LAUNCHES,
+                             warp_kernel.LAUNCHES) for k, v in c.items()}
+    stages = len(model.Homoaggre)
+    if isinstance(model.Homoaggre[0], VarianceAggregate):
+        want = {"sample_2d": stages * (NVIEWS - 1), "rowsweep_aggregate": 0}
+    else:
+        want = {"sample_2d": 0, "rowsweep_aggregate": stages}
+    require(all(counts[k] == v for k, v in want.items()),
+            f"{what}: aggregate launches {counts}, want {want}")
+    ran, rule = launches_by_route(model)
+    require(ran == rule and ran["co1"] > 0 and ran["direct"] + ran["tc"] > 0,
+            f"{what}: launches by route {ran}, the rule gives {rule}")
+    return counts
+
+
+def checked_launches(errs: dict) -> list:
+    """Patches under which every conv launch (conv_kernel._launch) also
+    runs its plain version on the same inputs: ``errs`` gets, per (route,
+    kd, k, stride, transposed, input shape, Co), the largest max |diff|
+    over the plain result's max |value| of the launches there."""
+    from mdfnet_tpu_torch.ops.cuda import conv_kernel
+    launch = conv_kernel._launch
+
+    def checked(counter, x5, w_kio, scale, offset, residual, out_dtype,
+                **kw):
+        y = launch(counter, x5, w_kio, scale, offset, residual, out_dtype,
+                   **kw)
+        kd, k, stride = kw["kd"], kw["k"], kw["stride"]
+        transposed = kw.get("transposed", False)
+        ci, co = w_kio.shape[-2:]
+        route = kw.get("route") or conv_kernel.conv_route(
+            x5.dtype, kd, k, stride, ci, co, transposed)
+        nd = w_kio.dim()
+        # back to torch's layout: (Ci, Co, *taps) transposed, else (Co, Ci,
+        # *taps); a 2D conv's (k, k, Ci, Co) on x (N, 1, H, W, Ci)
+        w = w_kio.permute(nd - 2, nd - 1, *range(nd - 2)) if transposed \
+            else w_kio.permute(nd - 1, nd - 2, *range(nd - 2))
+        x, res = (x5, residual) if kd > 1 else (
+            x5[:, 0], None if residual is None else residual[:, 0])
+        ref = conv_kernel._conv_plain(
+            x, w, scale, offset, stride=stride, relu=kw["relu"],
+            residual=res, out_dtype=out_dtype, transposed=transposed)
+        ref = ref.float() if kd > 1 else ref.float()[:, None]
+        err = (y.float() - ref).abs().max().item()
+        rel = err / max(ref.abs().max().item(), 1e-6)
+        key = (route, kd, k, stride, transposed, tuple(x5.shape), co)
+        errs[key] = max(errs.get(key, 0.0), rel)
+        return y
+    return [(conv_kernel, "_launch", checked)]
+
+
+def alternatives_phase(scene, smi: str) -> int:
+    """The alternative units (ALT_CONFIGS: the variance aggregate, ATV
+    hypotheses, RefineNet v1, gauss0 curves, all four together) at the DTU
+    eval shape (1600x1184, 5 views, B=1; seeded random weights, sharpened):
+    each config's forward on the kernels in f32 against the plain f32
+    forward on the card (EXACT_BOUNDS) with its kernels launched
+    (alt_launches), then its bf16 forward's launches, ms/map and peak
+    memory, the forward gate (FORWARD_BOUNDS) against the plain f32 forward
+    and each of its conv launches against its plain version
+    (checked_launches, REL_TOL). Then one train step of the all-four config at the DTU train
+    configuration on the kernels in f32 against the plain f32 step
+    (STEP_BOUNDS_F32's loss and gradient bounds), with K6, K7 and K8
+    launched and a finite loss. Returns K6's launches in the variance
+    config's bf16 forward."""
+    from mdfnet_tpu_torch.config import ModelConfig
+    from mdfnet_tpu_torch.data import make_batch
+    from mdfnet_tpu_torch.models.registry import build_model
+    from mdfnet_tpu_torch.ops.cuda import conv_kernel, splat_kernel, warp_kernel
+    batch = make_batch(scene, batch=1)
+    args = [torch.from_numpy(batch[k]).to(DEV)
+            for k in ("imgs", "extrinsics", "intrinsics", "depth_range")]
+    k6_launches = 0
+    for name, fields in ALT_CONFIGS.items():
+        config = ModelConfig(**fields)
+        models = {}
+        for dtype in ("float32", "bfloat16"):
+            models[dtype] = build_model(config, compute_dtype=dtype, seed=0,
+                                        device=DEV)
+        sharpen(models["float32"])
+        models["bfloat16"].load_state_dict(models["float32"].state_dict())
+        reset_launches()
+        out = models["float32"](*args)
+        torch.cuda.synchronize()
+        f32_counts = alt_launches(models["float32"], f"{name} f32 forward")
+        t0 = time.perf_counter()
+        ref = models["float32"](*args, plain=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = ((out["depth"] - ref["depth"]).abs()
+               / (DEPTH_RANGE[1] - DEPTH_RANGE[0])).flatten().cpu().numpy()
+        got = {"depth median": float(np.median(err)),
+               "depth p95": float(np.percentile(err, 95)),
+               "confidence mean |diff|": (out["confidence"]
+                                          - ref["confidence"]).abs().mean()
+               .item()}
+        require(bool(torch.isfinite(out["depth"]).all()
+                     & torch.isfinite(out["confidence"]).all()),
+                f"{name}: the f32 kernel forward is not finite")
+        del out, ref
+        reset_launches()
+        models["bfloat16"](*args)
+        torch.cuda.synchronize()
+        counts = alt_launches(models["bfloat16"], f"{name} bf16 forward")
+        if name == "variance":
+            k6_launches = counts["sample_2d"]
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = models["bfloat16"](*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        require(bool(torch.isfinite(out["depth"]).all()),
+                f"{name}: the bf16 kernel forward is not finite")
+        del out
+        gate = forward_gate(models["bfloat16"], models["float32"], args)
+        errs = {}
+        with patched(checked_launches(errs)):
+            models["bfloat16"](*args)
+        torch.cuda.synchronize()
+        reset_launches()
+        tc = {key: rel for key, rel in errs.items() if key[0] == "tc"}
+        worst = max(errs, key=errs.get)
+        print(f"alternatives {name} bf16 kernels vs plain f32: "
+              + gate["line"] + f"; each conv launch vs its plain version "
+              f"({len(errs)} shapes, {len(tc)} on tc): worst rel "
+              f"{errs[worst]:.3e} at {worst} (tol "
+              f"{REL_TOL[torch.bfloat16]:.0e}); tc (kd, k, stride, "
+              f"transposed, x, Co): rel "
+              + ", ".join(f"{key[1:]}: {rel:.2e}"
+                          for key, rel in sorted(tc.items())), flush=True)
+        require_gate(gate, f"alternatives {name} bf16 kernel forward")
+        for key, rel in errs.items():
+            require(rel <= REL_TOL[torch.bfloat16] and math.isfinite(rel),
+                    f"alternatives {name}: the {key[0]} launch {key[1:]} "
+                    f"disagrees with its plain version: rel {rel:.3e}")
+        print(f"alternatives {name} ({fields}) {WIDTH}x{HEIGHT}x{NVIEWS}: "
+              f"f32 kernels vs plain f32 ({plain_s:.2f} s): " + ", ".join(
+                  f"{k} {v:.2e} (bound {EXACT_BOUNDS[k]:.0e})"
+                  for k, v in got.items())
+              + f", depth max {err.max():.2e}; f32 launches "
+              f"{ {k: v for k, v in f32_counts.items() if v} }; bf16 "
+              f"{statistics.median(times[1:]):.2f} ms/map (median of "
+              f"{len(times) - 1}; runs {[round(t, 2) for t in times]}), peak "
+              f"{peak_mb:.0f} MiB, launches "
+              f"{ {k: v for k, v in counts.items() if v} }; {smi}",
+              flush=True)
+        for k, b in EXACT_BOUNDS.items():
+            require(got[k] <= b, f"alternatives {name}: {k} {got[k]:.2e} > "
+                    f"{b:.0e}")
+        del models
+
+    config = ModelConfig(**ALT_CONFIGS["all four"])
+    train = train_batch()
+    counters = (warp_kernel.LAUNCHES, splat_kernel.LAUNCHES,
+                conv_kernel.LAUNCHES)
+    loss_k, grads_k, _, counts = _step("float32", False, train,
+                                       launches=counters, config=config)
+    loss_p, grads_p, _, _ = _step("float32", True, train, config=config)
+    m32 = f32_gate_metrics(loss_k, f32_param_stats(grads_k, grads_p), loss_p)
+    step_kernels = ("sample_2d", "splat_2d", "conv3d_dgrad",
+                    "trconv3d_dgrad", "conv2d_dgrad")
+    print(f"alternatives all four, train step {TRAIN_WIDTH}x{TRAIN_HEIGHT}x"
+          f"{NVIEWS} batch {TRAIN_BATCH}, f32 kernels vs plain f32 "
+          f"({len(grads_p)} parameters): loss {loss_k:.6f} vs {loss_p:.6f}; "
+          + ", ".join(f"{k} {m32[k]:.2e}" + (
+              f" (bound {STEP_BOUNDS_F32[k]:.1e})" if k in STEP_BOUNDS_F32
+              else "") for k in m32 if k not in ("worst", "raw worst"))
+          + f"; worst {m32['worst']}; launches "
+          f"{ {k: counts[k] for k in step_kernels} }; {smi}", flush=True)
+    require(math.isfinite(loss_k), f"alternatives train step: loss {loss_k}")
+    require(all(counts[k] > 0 for k in step_kernels),
+            f"alternatives train step: a kernel never launched: {counts}")
+    for k, b in STEP_BOUNDS_F32.items():
+        require(m32[k] <= b, f"alternatives train step: {k} {m32[k]:.2e} > "
+                f"{b:.1e} ({m32['worst']})")
+    return k6_launches
 
 
 # ------------------------------------ Tanks & Temples, fusion and the metric
@@ -2284,17 +2590,19 @@ def check_train_kernels(batch):
 
 
 def _step(dtype: str, plain: bool, batch, *, launches=None,
-          warp_impl: str = "dense"):
+          warp_impl: str = "dense", config=None):
     """One train step's loss, gradients and per-stage volumes from the
     seed-0 weights, convs in ``dtype`` ("bfloat16" or "float32").
     ``launches``: the counters to zero before the step and read after it
     (the main path's run); ``warp_impl="fused"``: the fused train
-    aggregate."""
+    aggregate; ``config``: a ModelConfig in place of the default one with
+    that ``warp_impl``."""
     from mdfnet_tpu_torch.config import ModelConfig
     from mdfnet_tpu_torch.models.registry import build_model
     from mdfnet_tpu_torch.train_lib import loss_and_grads
-    model = build_model(ModelConfig(warp_impl=warp_impl), compute_dtype=dtype,
-                        seed=0, device=DEV).requires_grad_(True)
+    model = build_model(config or ModelConfig(warp_impl=warp_impl),
+                        compute_dtype=dtype, seed=0,
+                        device=DEV).requires_grad_(True)
     vols, hooks = {}, []
     for kind, mods in (("cost", model.Homoaggre), ("prob", model.Regular)):
         for s, mod in enumerate(mods):
@@ -3189,6 +3497,48 @@ def device_ms_mode(root: str) -> None:
     print("TRAIN_STEP " + json.dumps({"root": root, **steps}), flush=True)
 
 
+def eval_profile_mode(root: str) -> None:
+    """The bf16 eval forward (seed-0 weights, sharpened) with the package
+    of the checkout at ``root``, at the DTU eval shape and at Tanks
+    2048x1056 (11 views): ms/map (median of 6 after one), peak memory,
+    device busy ms, ATen's elementwise and ``cat`` device ms (device_split,
+    3 forwards) and the time by layer (CUDA events): one line
+    ``EVAL_PROFILE {...}``. Run it for two checkouts in one call (parent,
+    change, change, parent) to compare them on one card."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from mdfnet_tpu_torch.data import make_batch
+    from mdfnet_tpu_torch.models.registry import build_model
+    require(build_model.__module__ == "mdfnet_tpu_torch.models.registry"
+            and sys.modules[build_model.__module__].__file__.startswith(
+                root + os.sep), f"the package is not the one under {root}")
+    model = build_model(compute_dtype="bfloat16", seed=0, device=DEV)
+    sharpen(model)
+    out = {"root": root}
+    for name, scene in (("dtu", dtu_scene()), ("tanks 2048", tanks_scene(
+            TANKS_WIDTHS[1]))):
+        batch = make_batch(scene, batch=1)
+        args = [torch.from_numpy(batch[k]).to(DEV)
+                for k in ("imgs", "extrinsics", "intrinsics", "depth_range")]
+        model(*args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            model(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        split = device_split(lambda: model(*args), iters=3)
+        layers, total = layer_ms(model, args)
+        out[name] = {"ms_map": statistics.median(times[1:]),
+                     "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                     "device_ms": sum(split.values()), **glue_ms(split),
+                     "layers_ms": layers, "total_ms": total}
+        del args, batch
+    print("EVAL_PROFILE " + json.dumps(out), flush=True)
+
+
 def sass_counts(lib_path, prefix: str) -> dict:
     """The special-function instructions of the kernels named ``prefix``*
     in the library's SASS (cuobjdump -sass), per instantiation: (MUFU.EX2,
@@ -3249,6 +3599,9 @@ def main():
         return
     if sys.argv[1:2] == ["--device-ms"] and len(sys.argv) == 3:
         device_ms_mode(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--eval-profile"] and len(sys.argv) == 3:
+        eval_profile_mode(sys.argv[2])
         return
     start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3329,6 +3682,9 @@ def main():
     kernels += [entry(n, info, report, pair_launches)
                 for n, info in PAIR_KERNEL.items()]
     serve_phase(model)
+    k6_launches = alternatives_phase(scene, smi)
+    kernels += [entry(n, info, report, k6_launches)
+                for n, info in ALT_KERNELS.items()]
     tanks_phase(model, smi)
     tanks_serve_phase(model, smi)
     del model, args

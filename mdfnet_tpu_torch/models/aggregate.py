@@ -7,7 +7,9 @@ channels; ref and each warped source are correlated per group; a tiny
 1x1x1 Conv3d+BN+ReLU+Conv3d+sigmoid net (DepthWeight) gives each source a
 per-voxel visibility weight for a weighted average. With C/G == 2 (the
 reference configuration) the softmax collapses to sigmoids of channel-pair
-differences and the whole eval chain is the fused aggregate kernel (K1).
+differences and the whole eval chain is the fused aggregate kernel (K1);
+the eval backbone then emits those differences itself (its out-convs
+differenced, ``models/backbone.py``), which K1 takes as they come.
 
 Train (C/G == 2) has two paths, as in JAX. With ``warp_impl="fused"``
 (JAX ``aggregate.py:202-225``) it is the fused train aggregate
@@ -79,10 +81,12 @@ class VectorAggregate(nn.Module):
 
     def forward(self, feats: torch.Tensor, ref_proj: torch.Tensor,
                 src_projs: torch.Tensor, depth_hypos: torch.Tensor,
-                plain: bool = False, train: bool = False) -> torch.Tensor:
+                plain: bool = False, train: bool = False,
+                diffs: bool = False) -> torch.Tensor:
         """
         Args:
-            feats: (B, V, H, W, C) per-view features, view 0 = reference.
+            feats: (B, V, H, W, C) per-view features, view 0 = reference;
+                with ``diffs`` (eval), (B, V, H, W, G) pair differences.
             ref_proj: (B, 4, 4); src_projs: (B, V-1, 4, 4).
             depth_hypos: (B, D, H, W) or (B, D, 1, 1).
         Returns:
@@ -98,11 +102,13 @@ class VectorAggregate(nn.Module):
                     "the train aggregate takes C/G == 2 only")
             return self._train_path(feats, ref_proj, src_projs, depth_hypos,
                                     plain)
-        if c == 2 * g:
-            diffs = feats[..., 0::2] - feats[..., 1::2]     # (B, V, H, W, G)
+        if diffs or c == 2 * g:
+            d = feats if diffs else feats[..., 0::2] - feats[..., 1::2]
+            # no copy where the stack is dense (B = 1, a whole K4 output);
+            # K1 takes dense operands, so a channel slice is copied
             return rowsweep_aggregate(
-                diffs[:, 1:].contiguous(), diffs[:, 0].contiguous(),
-                src_projs, ref_proj, depth_hypos, *self.depth_weight.fold(),
+                d[:, 1:].contiguous(), d[:, 0].contiguous(), src_projs,
+                ref_proj, depth_hypos, *self.depth_weight.fold(),
                 plain=plain)
         if feats.is_cuda and not plain:
             raise NotImplementedError(

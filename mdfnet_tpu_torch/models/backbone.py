@@ -7,9 +7,28 @@ y2: 1/2 x c1), coarsest first. Channels-last (N, H, W, C).
 
 The trunk's same-scale runs go through the conv chain (K5): the full-res
 pair plus the first stride-2 conv is one chain, as in the TPU trunk
-(``backbone.py:208-219``); the other stride-2 convs and the 1x1 convs run on
-the 2D conv kernel (K4), with each lateral's upsampled addend fused into its
-epilogue as a residual.
+(``backbone.py:208-219``); the other stride-2 convs run on the 2D conv
+kernel (K4).
+
+Eval runs the top-down path linearised, as the JAX eval path does
+(``backbone.py:242-316``): the upsample and the 1x1 convs commute, so the
+out-convs apply first, at the coarsest scale, and each lateral is composed
+with the out-convs after it into one 1x1 conv (its bias folded into the
+offsets, in f32, the composed weights rounded to the compute dtype once):
+
+    y4 = out4 x4
+    y3 = up2(out3 x4) + (out3 lat3) x3
+    y2 = up2(up2(out2 x4) + (out2 lat3) x3) + (out2 lat2) x2
+
+That is three K4 launches, the convs that share an input in one launch with
+their output channels concatenated (x4 by [out4 | out3 | out2], x3 by
+[out3 lat3 | out2 lat3], x2 by out2 lat2), each upsampled addend in the next
+launch's epilogue as its residual; only c2 + c1 channels are upsampled to
+1/4 and c1 to 1/2. With ``emit_diffs`` (JAX ``core.py:108-114``: the vector
+aggregate with C == 2G at every stage) the out-convs' even and odd output
+channels are differenced before composing, so the backbone emits the
+G-channel pair differences that the aggregate consumes (exact: the convs
+are linear).
 
 Train (JAX ``backbone.py:80-126``) runs every conv, the 1x1 laterals and
 outputs included, as a differentiable conv (``conv2d_train``, K4 forward and
@@ -22,8 +41,9 @@ import torch
 from torch import nn
 
 from mdfnet_tpu_torch.models.layers import ConvBNReLU, ConvND
-from mdfnet_tpu_torch.ops.cuda.conv_kernel import conv2d_chain
-from mdfnet_tpu_torch.ops.sample import resize_bilinear_2x
+from mdfnet_tpu_torch.ops.cuda import f32_matmul
+from mdfnet_tpu_torch.ops.cuda.conv_kernel import conv2d_bn_act, conv2d_chain
+from mdfnet_tpu_torch.ops.sample import upsample_2x_nhwc
 
 
 def _chain(x: torch.Tensor, layers, *, final_stride: int = 1,
@@ -33,15 +53,14 @@ def _chain(x: torch.Tensor, layers, *, final_stride: int = 1,
                         final_stride=final_stride, plain=plain)
 
 
-def _up2(v: torch.Tensor) -> torch.Tensor:
-    """2x bilinear upsample of (N, H, W, C)."""
-    return resize_bilinear_2x(v.permute(0, 3, 1, 2)).permute(0, 2, 3, 1) \
-        .contiguous()
-
-
 class FPN4Scales(nn.Module):
-    def __init__(self, chs=(8, 16, 32, 64)):
+    """``emit_diffs``: the eval forward returns the G = C/2-channel pair
+    differences (even minus odd channels) of each output instead of the
+    C-channel features; training always returns the features."""
+
+    def __init__(self, chs=(8, 16, 32, 64), emit_diffs: bool = False):
         super().__init__()
+        self.emit_diffs = emit_diffs
         c0, c1, c2, c3 = chs
         self.conv01 = nn.Sequential(ConvBNReLU(3, c0, 3),
                                     ConvBNReLU(c0, c0, 3))
@@ -59,6 +78,7 @@ class FPN4Scales(nn.Module):
         self.out2 = ConvND(c3, c1, 1)
         self.out3 = ConvND(c3, c2, 1)
         self.out4 = ConvND(c3, c3, 1)
+        self._composed = None    # (key, top_down_weights' result)
 
     def forward(self, x: torch.Tensor, plain: bool = False,
                 train: bool = False, vgroups: int = 1):
@@ -75,12 +95,55 @@ class FPN4Scales(nn.Module):
         v = self.conv34[0](x3, plain=plain)
         x4 = _chain(v, c34[0], plain=plain)
 
-        y4 = self.out4(x4, plain=plain)
-        x3 = self.lat3(x3, residual=_up2(x4), plain=plain)   # up2(x4) + lat3
-        y3 = self.out3(x3, plain=plain)
-        x2 = self.lat2(x2, residual=_up2(x3), plain=plain)   # up2(x3) + lat2
-        y2 = self.out2(x2, plain=plain)
-        return y4, y3, y2
+        return self._top_down(x2, x3, x4, plain)
+
+    def top_down_weights(self, dtype) -> list[tuple[torch.Tensor, ...]]:
+        """The eval top-down path's three 1x1 convs as (weight (Co, Ci, 1,
+        1) in ``dtype``, scale (Co,) of ones, offset (Co,) f32), for x4, x3
+        and x2 in turn: [out4 | out3 | out2], [out3 lat3 | out2 lat3] with
+        the offsets lat3's bias gives, out2 lat2 with lat2's. Composed in
+        f32 once per set of weights: the result is kept until a parameter
+        changes (its version or storage: an in-place write through
+        ``.data`` is not seen), ``dtype`` or ``emit_diffs``."""
+        params = (self.out4.weight, self.out3.weight, self.out2.weight,
+                  self.lat3.weight, self.lat2.weight, self.lat3.bias,
+                  self.lat2.bias)
+        key = (dtype, self.emit_diffs, params[0].device) + tuple(
+            (p.data_ptr(), p._version) for p in params)
+        if self._composed is None or self._composed[0] != key:
+            with torch.no_grad(), f32_matmul():
+                self._composed = (key, self._compose(dtype))
+        return self._composed[1]
+
+    def _compose(self, dtype):
+        def out(m):      # (Co, c3): with emit_diffs, even minus odd rows
+            w = m.weight[:, :, 0, 0].float()
+            return w[0::2] - w[1::2] if self.emit_diffs else w
+        k4, k3, k2 = out(self.out4), out(self.out3), out(self.out2)
+        l3, l2 = (m.weight[:, :, 0, 0].float() for m in (self.lat3,
+                                                         self.lat2))
+        b3, b2 = self.lat3.bias.float(), self.lat2.bias.float()
+        w4 = torch.cat([k4, k3, k2])
+        convs = [(w4, torch.zeros_like(w4[:, 0])),
+                 (torch.cat([k3 @ l3, k2 @ l3]), torch.cat([k3 @ b3,
+                                                           k2 @ b3])),
+                 (k2 @ l2, k2 @ b2)]
+        return [(w.to(dtype)[..., None, None], torch.ones_like(o), o)
+                for w, o in convs]
+
+    def _top_down(self, x2, x3, x4, plain):
+        """The linearised top-down path: three 1x1 launches (K4)."""
+        (w4, s4, o4), (w3, s3, o3), (w2, s2, o2) = \
+            self.top_down_weights(x4.dtype)
+        n4, n3 = w4.shape[0] - w3.shape[0], w3.shape[0] - w2.shape[0]
+
+        def conv(x, w, scale, offset, residual=None):
+            return conv2d_bn_act(x, w, scale, offset, relu=False,
+                                 residual=residual, plain=plain)
+        v4 = conv(x4, w4, s4, o4)                   # y4 | t3 | u2
+        v3 = conv(x3, w3, s3, o3, upsample_2x_nhwc(v4[..., n4:]))  # y3 | s2
+        y2 = conv(x2, w2, s2, o2, upsample_2x_nhwc(v3[..., n3:]))
+        return v4[..., :n4], v3[..., :n3], y2
 
     def eval_chains(self) -> list:
         """The eval forward's chains (K5), in order: (ConvBNReLU layers,
@@ -104,8 +167,8 @@ class FPN4Scales(nn.Module):
         x3 = run(self.conv23, x2)
         x4 = run(self.conv34, x3)
         y4 = self.out4.train_forward(x4, plain=plain)
-        x3 = _up2(x4) + self.lat3.train_forward(x3, plain=plain)
+        x3 = upsample_2x_nhwc(x4) + self.lat3.train_forward(x3, plain=plain)
         y3 = self.out3.train_forward(x3, plain=plain)
-        x2 = _up2(x3) + self.lat2.train_forward(x2, plain=plain)
+        x2 = upsample_2x_nhwc(x3) + self.lat2.train_forward(x2, plain=plain)
         y2 = self.out2.train_forward(x2, plain=plain)
         return y4, y3, y2

@@ -8,6 +8,7 @@ from __future__ import annotations
 from torch import nn
 
 from mdfnet_tpu_torch.models.layers import (ConvBNReLU, ConvND,
+                                            ConvTranspose2dWeight,
                                             ConvTranspose3dWeight)
 from mdfnet_tpu_torch.ops.cuda.conv_kernel import (CHAIN_FUSED, chain_plan,
                                                    chain_route, conv_route)
@@ -28,6 +29,8 @@ def conv_classes(module: nn.Module, skip=frozenset()
             classes.append((w.shape[2] if w.dim() == 5 else 1, w.shape[-1],
                             strides.get(id(m), 1), w.shape[1], w.shape[0],
                             False))
+        elif isinstance(m, ConvTranspose2dWeight):
+            classes.append((1, 3, 1, w.shape[0], w.shape[1], False))
         elif isinstance(m, ConvTranspose3dWeight):
             classes.append((3, 3, 2, w.shape[0], w.shape[1], True))
     return classes
@@ -40,9 +43,13 @@ def eval_conv_routes(model: nn.Module) -> list[str]:
     "co1" or "direct" once for every other conv and transposed conv of the
     backbone, the U-Nets and refine (a chain on the per-layer route, and a
     layer of a fused chain that no segment takes, launch each such layer
-    by conv_route)."""
-    routes, chained = [], set()
-    for mod in (model.Backbone, model.Refine):
+    by conv_route). The backbone's lateral and out 1x1 convs run as the
+    three composed convs of its linearised top-down path."""
+    bb = model.Backbone
+    routes = [conv_route(model.dtype, 1, 1, 1, w.shape[1], w.shape[0])
+              for w, *_ in bb.top_down_weights(model.dtype)]
+    skip = {id(m) for m in (bb.lat2, bb.lat3, bb.out2, bb.out3, bb.out4)}
+    for mod in (bb, model.Refine):
         for layers, relus, residuals, final_stride in mod.eval_chains():
             convs = [getattr(m, "conv", m) for m in layers]
             specs = tuple((c.weight.shape[-1], c.weight.shape[1],
@@ -51,8 +58,7 @@ def eval_conv_routes(model: nn.Module) -> list[str]:
             if chain_route(model.dtype, *key) == "fused":
                 for seg in chain_plan(*key, CHAIN_FUSED[key]):
                     routes.append("chain")
-                    chained |= {id(c)
-                                for c in convs[seg.first:seg.last + 1]}
+                    skip |= {id(c) for c in convs[seg.first:seg.last + 1]}
     return routes + [conv_route(model.dtype, *c)
-                     for m in (model.Backbone, *model.Regular, model.Refine)
-                     for c in conv_classes(m, chained)]
+                     for m in (bb, *model.Regular, model.Refine)
+                     for c in conv_classes(m, skip)]

@@ -17,14 +17,16 @@ from torch import nn
 
 from mdfnet_tpu_torch import geometry
 from mdfnet_tpu_torch.models.aggregate import VectorAggregate
+from mdfnet_tpu_torch.models.aggregate_variance import VarianceAggregate
 from mdfnet_tpu_torch.models.backbone import FPN4Scales
-from mdfnet_tpu_torch.models.refine import RefineNet2
+from mdfnet_tpu_torch.models.refine import RefineNet, RefineNet2
 from mdfnet_tpu_torch.models.regularize import (RegularNet3Scales,
                                                 RegularNet4Scales)
-from mdfnet_tpu_torch.ops.fitting import refined_hypotheses, uniform_hypotheses
+from mdfnet_tpu_torch.ops.fitting import (atv_hypos, refined_hypotheses,
+                                          uniform_hypotheses)
 from mdfnet_tpu_torch.ops.regress import (confidence_regression,
                                           depth_regression)
-from mdfnet_tpu_torch.ops.sample import resize_nearest_2x
+from mdfnet_tpu_torch.ops.sample import resize_bilinear_2x, resize_nearest_2x
 
 
 class CoreNet(nn.Module):
@@ -34,26 +36,43 @@ class CoreNet(nn.Module):
     The topology comes from ``ModelConfig`` (through
     ``registry.build_model``). ``dtype`` is the conv compute dtype; geometry,
     softmax, fitting and regression run in f32. ``warp_impl="fused"``
-    trains the aggregates on the fused train aggregate (K9).
+    trains the aggregates on the fused train aggregate (K9). The
+    alternative units, as JAX ``core.py:78-132,203-238`` builds them:
+    ``aggregate_impl="variance"`` (the U-Nets then take C channels, not
+    G), ``hypo_impl="atv"`` (adaptive-thin-volume hypotheses from stage 1
+    on) and ``refine_impl="refine1"`` (RefineNet v1, which also takes the
+    reference image).
     """
 
     def __init__(self, *, chs: Sequence[int], ndepths: Sequence[int],
                  curve_classes: Sequence[str | None],
                  prob_threshs: Sequence[float], ngroups: Sequence[int],
-                 dtype: torch.dtype, warp_impl: str = "dense"):
+                 dtype: torch.dtype, warp_impl: str = "dense",
+                 aggregate_impl: str = "vector", hypo_impl: str = "fit",
+                 refine_impl: str = "refine2"):
         super().__init__()
         self.ndepths = tuple(ndepths)
         self.curve_classes = tuple(curve_classes)
         self.prob_threshs = tuple(prob_threshs)
         self.dtype = dtype
+        self.hypo_impl = hypo_impl
         nstages = len(self.ndepths)
-        self.Backbone = FPN4Scales(tuple(chs))
-        self.Homoaggre = nn.ModuleList(VectorAggregate(ngroups[s], warp_impl)
-                                       for s in range(nstages))
+        vector = aggregate_impl == "vector"
+        # the eval backbone emits the pair differences where the vector
+        # aggregate consumes only those (C == 2G at every stage)
+        self.Backbone = FPN4Scales(tuple(chs), emit_diffs=vector and all(
+            chs[len(chs) - 1 - s] == 2 * ngroups[s] for s in range(nstages)))
+        self.Homoaggre = nn.ModuleList(
+            VectorAggregate(ngroups[s], warp_impl) if vector
+            else VarianceAggregate() for s in range(nstages))
+        # the U-Nets' input channels: G (vector) or C (variance)
+        cin = [ngroups[s] if vector else chs[len(chs) - 1 - s]
+               for s in range(nstages)]
         self.Regular = nn.ModuleList(
-            [RegularNet3Scales(ngroups[0], 16)]
-            + [RegularNet4Scales(ngroups[s], 8) for s in range(1, nstages)])
-        self.Refine = RefineNet2()
+            [RegularNet3Scales(cin[0], 16)]
+            + [RegularNet4Scales(cin[s], 8) for s in range(1, nstages)])
+        self.Refine = RefineNet2() if refine_impl == "refine2" \
+            else RefineNet()
 
     def forward(self, imgs: torch.Tensor, extrinsics: torch.Tensor,
                 intrinsics: torch.Tensor, depth_range: torch.Tensor,
@@ -81,6 +100,14 @@ class CoreNet(nn.Module):
                                       depth_range, plain)
 
     def _hypotheses(self, stage, depth_range, depth, prob, hypos):
+        if self.hypo_impl == "atv" and depth is not None:
+            # the band: the previous depth +- its posterior's expected
+            # deviation sqrt(E[(hypo - depth)^2])
+            with torch.no_grad():
+                dev = torch.sqrt(torch.clamp(depth_regression(
+                    prob, (hypos - depth[:, None]) ** 2), min=0.0))
+                return atv_hypos(resize_bilinear_2x(depth), dev, depth_range,
+                                 self.ndepths[stage])
         if self.curve_classes[stage] is None:
             return uniform_hypotheses(depth_range, self.ndepths[stage])
         return refined_hypotheses(depth, depth_range, prob, hypos,
@@ -113,9 +140,13 @@ class CoreNet(nn.Module):
                                        train=True)
             depth = depth_regression(prob, hypos)
             depths.append(depth)
-        depths.append(self.Refine(depth, depth_range, dtype=self.dtype,
-                                  plain=plain, train=True))
+        depths.append(self._refine(imgs, depth, depth_range, plain, True))
         return {"depth": depths}
+
+    def _refine(self, imgs, depth, depth_range, plain, train):
+        extra = (imgs[:, 0],) if isinstance(self.Refine, RefineNet) else ()
+        return self.Refine(*extra, depth, depth_range, dtype=self.dtype,
+                           plain=plain, train=train)
 
     def _eval_forward(self, imgs, extrinsics, intrinsics, depth_range,
                       plain):
@@ -131,12 +162,13 @@ class CoreNet(nn.Module):
                 intrinsics, extrinsics, stage, num_stages=nstages + 1)
             hypos = self._hypotheses(stage, depth_range, depth, prob, hypos)
             feats = fs[stage].reshape((b, v) + fs[stage].shape[1:])
+            kw = {"diffs": True} if self.Backbone.emit_diffs else {}
             cost = self.Homoaggre[stage](feats, ref_proj, src_projs, hypos,
-                                         plain=plain)
+                                         plain=plain, **kw)
             prob = self.Regular[stage](cost.to(self.dtype), plain=plain)
             depth = depth_regression(prob, hypos)
 
-        depth = self.Refine(depth, depth_range, dtype=self.dtype, plain=plain)
+        depth = self._refine(imgs, depth, depth_range, plain, False)
         confidence = resize_nearest_2x(confidence_regression(prob))
         return {"depth": depth, "confidence": confidence,
                 "coverage_ok": torch.ones((), dtype=torch.bool,

@@ -165,6 +165,51 @@ class ConvTranspose3dWeight(nn.Module):
         self.weight = nn.Parameter(torch.empty(in_ch, out_ch, 3, 3, 3))
 
 
+class ConvTranspose2dWeight(nn.Module):
+    """ConvTranspose2d(k3, s2, p1, output_padding 1, no bias) weight holder,
+    torch layout (I, O, 3, 3)."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_ch, out_ch, 3, 3))
+
+
+def trconv2d_as_conv(x: torch.Tensor, weight: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """ConvTranspose2d(k3, stride 2, pad 1, output_padding 1) as a stride-1
+    3x3 conv with padding 1: (x (N, H, W, C) with zeros between its pixels
+    and after the last, (N, 2H, 2W, C); the flipped, transposed weight
+    (O, I, 3, 3)). The transposed conv is the forward conv of the input
+    dilated by 2 and padded (1, 2) with the flipped kernel; the trailing zero
+    row and column make that padding the conv's symmetric 1."""
+    n, h, w, c = x.shape
+    z = x.new_zeros(n, h, 2, w, 2, c)
+    z[:, :, 0, :, 0] = x
+    return (z.reshape(n, 2 * h, 2 * w, c),
+            weight.flip(-1, -2).transpose(0, 1))
+
+
+class TrConvBNReLU2D(nn.Module):
+    """ConvTranspose2d(k3, s2, p1, output_padding 1, no bias) + BN + ReLU
+    (reference net/unit/base.py:28-47, RefineNet v1's depth upsampling);
+    keys ``conv.weight`` (I, O, 3, 3), ``bn.*``. Runs as a stride-1 conv on
+    the zero-interleaved input (:func:`trconv2d_as_conv`): K4 in eval, the
+    differentiable conv (K8) in training."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.conv = ConvTranspose2dWeight(in_ch, out_ch)
+        self.bn = BatchNorm(out_ch)
+
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                train: bool = False) -> torch.Tensor:
+        z, w = trconv2d_as_conv(x, self.conv.weight.to(x.dtype))
+        if train:
+            y = conv2d_train(z, w, plain=plain)
+            return torch.relu(self.bn(y, train=True))
+        return conv2d_bn_act(z, w, *self.bn.fold(), relu=True, plain=plain)
+
+
 def trconv_bn_relu(x: torch.Tensor, conv: ConvTranspose3dWeight,
                    bn: BatchNorm, *, residual=None, plain: bool = False,
                    train: bool = False) -> torch.Tensor:
@@ -226,7 +271,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.fill_(0.0)
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
-            elif isinstance(m, (ConvND, ConvTranspose3dWeight)):
+            elif isinstance(m, (ConvND, ConvTranspose2dWeight,
+                                ConvTranspose3dWeight)):
                 w = m.weight
                 bound = 1.0 / math.sqrt(w.shape[1] * math.prod(w.shape[2:]))
                 w.uniform_(-bound, bound, generator=generator)

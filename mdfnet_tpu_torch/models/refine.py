@@ -1,5 +1,7 @@
-"""Depth refinement head: 1/2-res depth -> full res via PixelShuffle (port of
-``mdfnet_tpu/models/refine.py`` RefineNet2, reference net/unit/refine.py:8-46).
+"""Depth refinement heads: 1/2-res depth -> full res (port of
+``mdfnet_tpu/models/refine.py``): RefineNet2 by PixelShuffle (reference
+net/unit/refine.py:8-46), and the image-guided RefineNet v1 (reference
+refine.py:49-95), the alternative that ``refine_impl="refine1"`` selects.
 
 The depth is normalised to [0, 1] by the scene range; the half-res stack
 (conv0, 3 Res blocks, conv1 + skip, conv2_0) is ONE conv chain (K5) with the
@@ -18,9 +20,21 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mdfnet_tpu_torch.models.layers import ConvND, Res, pixel_shuffle_2x
+from mdfnet_tpu_torch.models.layers import (ConvBNReLU, ConvND, Res,
+                                            TrConvBNReLU2D, pixel_shuffle_2x)
 from mdfnet_tpu_torch.ops.cuda.conv_kernel import conv2d_chain
 from mdfnet_tpu_torch.ops.cuda.conv_vjp import conv2d_train
+from mdfnet_tpu_torch.ops.sample import resize_bilinear_2x_align_corners
+
+
+def _normalised(depth, depth_range, dtype):
+    """(depth (B, h, w) detached, in [0, 1] by each item's range, as (B, h,
+    w, 1) in ``dtype``; dmin, dmax as (B, 1, 1) f32)."""
+    b = depth.shape[0]
+    dmin = depth_range[:, 0].float().reshape(b, 1, 1)
+    dmax = depth_range[:, 1].float().reshape(b, 1, 1)
+    x = (depth.detach().float() - dmin) / (dmax - dmin)
+    return x, x[..., None].to(dtype), dmin, dmax
 
 
 class RefineNet2(nn.Module):
@@ -40,11 +54,7 @@ class RefineNet2(nn.Module):
                 train: bool = False) -> torch.Tensor:
         """depth (B, H/2, W/2) f32, depth_range (B, 2) -> (B, H, W) f32.
         ``dtype``: compute dtype of the convs."""
-        b = depth.shape[0]
-        dmin = depth_range[:, 0].float().reshape(b, 1, 1)
-        dmax = depth_range[:, 1].float().reshape(b, 1, 1)
-        x = ((depth.detach().float() - dmin)
-             / (dmax - dmin))[..., None].to(dtype)
+        _, x, dmin, dmax = _normalised(depth, depth_range, dtype)
         if train:
             out = self._train_convs(x, plain)
             return dmin + out * (dmax - dmin)
@@ -88,3 +98,52 @@ class RefineNet2(nn.Module):
         v = skip + conv(self.conv1, v)
         v = pixel_shuffle_2x(conv(self.conv2[0], v))
         return conv(self.conv2[2], v)[..., 0].float()
+
+
+class RefineNet(nn.Module):
+    """RefineNet v1 (JAX ``refine.py:213-260``): the normalised half-res
+    depth through conv_depth0, conv_depth1 and the 2x transposed conv
+    conv_depth2, the full-res reference image through conv_img; their
+    concatenation through conv_res0 and the C -> 1 conv_res1 gives a
+    residual on the align-corners 2x upsample of the normalised depth.
+
+    Keys (the port's own: the reference's names for this unused unit are
+    not in the JAX package's ``.pth`` map): ``conv_img``, ``conv_depth0``,
+    ``conv_depth1``, ``conv_res0`` (ConvBNReLU: ``conv.weight``, ``bn.*``),
+    ``conv_depth2`` (``conv.weight`` (I, O, 3, 3), ``bn.*``),
+    ``conv_res1.weight``. Its convs run on K4 in eval (the 2D transposed
+    conv as a stride-1 conv on the zero-interleaved input) and on
+    ``conv2d_train`` (K8) in training."""
+
+    def __init__(self, base_chs: int = 8):
+        super().__init__()
+        c = base_chs
+        self.conv_img = ConvBNReLU(3, c, 3)
+        self.conv_depth0 = ConvBNReLU(1, c, 3)
+        self.conv_depth1 = ConvBNReLU(c, c, 3)
+        self.conv_depth2 = TrConvBNReLU2D(c, c)
+        self.conv_res0 = ConvBNReLU(2 * c, c, 3)
+        self.conv_res1 = ConvND(c, 1, 3)
+
+    def forward(self, ref_img: torch.Tensor, depth: torch.Tensor,
+                depth_range: torch.Tensor, dtype=torch.float32,
+                plain: bool = False, train: bool = False) -> torch.Tensor:
+        """ref_img (B, H, W, 3), depth (B, H/2, W/2) f32, depth_range (B, 2)
+        -> (B, H, W) f32. ``dtype``: compute dtype of the convs."""
+        x, xin, dmin, dmax = _normalised(depth, depth_range, dtype)
+        kw = dict(plain=plain, train=train)
+        img = self.conv_img(ref_img.to(dtype), **kw)
+        d = self.conv_depth1(self.conv_depth0(xin, **kw), **kw)
+        d = self.conv_depth2(d, **kw)
+        res = self.conv_res0(torch.cat([img, d], dim=-1), **kw)
+        if train:
+            res = self.conv_res1.train_forward(res, plain=plain)[..., 0]
+        else:
+            res = self.conv_res1(res, out_dtype=torch.float32,
+                                 plain=plain)[..., 0]
+        out = resize_bilinear_2x_align_corners(x) + res.float()
+        return dmin + out * (dmax - dmin)
+
+    def eval_chains(self) -> list:
+        """No conv chain (K5): every conv is its own launch."""
+        return []

@@ -1,7 +1,9 @@
 """Config-driven model assembly (port of ``mdfnet_tpu/models/registry.py``).
 
-Reads the topology fields of :class:`mdfnet_tpu_torch.config.ModelConfig`,
-its ``compute_dtype`` and its ``warp_impl``: ``"fused"`` selects the fused
+Reads the topology fields of :class:`mdfnet_tpu_torch.config.ModelConfig`
+(the alternative units ``aggregate_impl``, ``hypo_impl``, ``refine_impl``
+and ``gauss0`` curves among them), its ``compute_dtype`` and its
+``warp_impl``: ``"fused"`` selects the fused
 train aggregate (``ops/aggregate_train.py``: the stats kernel, then the
 aggregate kernel with a per-view BatchNorm affine) in training, as
 ``warp_impl="fused"`` does in the JAX package; eval runs the same kernels
@@ -44,19 +46,24 @@ def build_model(config: ModelConfig | None = None, *,
     config = config or ModelConfig()
     if compute_dtype is not None:
         config = dataclasses.replace(config, compute_dtype=compute_dtype)
-    alternatives = {"aggregate_impl": "vector", "hypo_impl": "fit",
-                    "refine_impl": "refine2"}
-    for field, ported in alternatives.items():
-        if getattr(config, field) != ported:
-            raise NotImplementedError(
-                f"{field}={getattr(config, field)!r} is not ported yet")
+    alternatives = (config.aggregate_impl != "vector"
+                    or config.hypo_impl != "fit"
+                    or config.refine_impl != "refine2")
+    if alternatives and config.warp_impl == "fused":
+        raise ValueError(
+            "warp_impl='fused' trains the vector aggregate (K9) only: the "
+            "alternative units (aggregate_impl, hypo_impl, refine_impl) take "
+            "another warp_impl, as in the JAX package")
     device = resolve_device(device)
     model = CoreNet(chs=config.chs, ndepths=config.ndepths,
                     curve_classes=config.curve_classes,
                     prob_threshs=config.prob_threshs,
                     ngroups=config.ngroups,
                     dtype=_DTYPES[config.compute_dtype],
-                    warp_impl=config.warp_impl)
+                    warp_impl=config.warp_impl,
+                    aggregate_impl=config.aggregate_impl,
+                    hypo_impl=config.hypo_impl,
+                    refine_impl=config.refine_impl)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval().requires_grad_(False)
 

@@ -62,7 +62,46 @@ def fit_gauss1(depth: torch.Tensor, prob_volume: torch.Tensor,
     return torch.abs(-1.0 / (det0 / det))
 
 
-_FITTERS = {"gauss1": fit_gauss1, "laplace": fit_laplace}
+def fit_gauss0(depth: torch.Tensor, prob_volume: torch.Tensor,
+               depth_hypos: torch.Tensor) -> torch.Tensor:
+    """Gaussian width |-1/b0| of the centred parabola log p = b0 (x - d)² +
+    b1 over the D hypotheses, from the 2x2 normal equations in closed form.
+    Returns (B, H, W)."""
+    z = torch.log(torch.clamp(prob_volume.float(), min=_PROB_FLOOR))
+    x = depth_hypos.float().expand_as(z)
+    q = (x - depth.float()[:, None]) ** 2
+    d = float(z.shape[1])
+    s2 = torch.sum(q * q, dim=1)
+    s1 = torch.sum(q, dim=1)
+    v0 = torch.sum(q * z, dim=1)
+    v1 = torch.sum(z, dim=1)
+    det = s2 * d - s1 * s1
+    return torch.abs(-1.0 / ((v0 * d - s1 * v1) / det))
+
+
+@torch.no_grad()
+def atv_hypos(depth: torch.Tensor | None, exp_deviation: torch.Tensor | None,
+              depth_range: torch.Tensor, ndepths: int,
+              eps: float = 1e-12) -> torch.Tensor:
+    """Adaptive-thin-volume hypotheses (reference depthhypos.py:218-253):
+    uniform planes at stage 0 (``depth is None``); later, the band [depth -
+    min(depth, dev), depth + dev] around the fine-scale ``depth`` (B, H, W),
+    with the coarse deviation ``exp_deviation`` (B, H/2, W/2) upsampled
+    2x bilinear. Both are taken without gradient. Returns (B, D, H, W)
+    ((B, D, 1, 1) at stage 0)."""
+    if depth is None:
+        return uniform_hypotheses(depth_range, ndepths)
+    depth = depth.float()
+    dev = resize_bilinear_2x(exp_deviation.float())
+    low = -torch.minimum(depth, dev)
+    step = (dev - low) / (ndepths - 1)
+    i = torch.arange(ndepths, dtype=torch.float32,
+                     device=depth.device).reshape(1, ndepths, 1, 1)
+    return depth[:, None] + low[:, None] + step[:, None] * i + eps
+
+
+_FITTERS = {"gauss0": fit_gauss0, "gauss1": fit_gauss1,
+            "laplace": fit_laplace}
 
 
 @torch.no_grad()
@@ -74,13 +113,13 @@ def refined_hypotheses(depth: torch.Tensor, depth_range: torch.Tensor,
 
     1. fit the curve width s on the previous stage's volume;
     2. 2x-bilinear-upsample s and depth to the next scale;
-    3. radius: gauss sqrt(-s ln t), laplace |s ln t|;
+    3. radius: gauss0/gauss1 sqrt(-s ln t), laplace |s ln t|;
     4. clamp to [1e-6, global range / 2], then to 20% of each item's range;
     5. lay ndepths planes over [depth - r/2, depth + r/2];
     6. clamp the planes into [dmin, dmax].
     """
     if curve_class not in _FITTERS:
-        raise NotImplementedError(f"curve class {curve_class!r} is not ported")
+        raise ValueError(f"unknown curve class {curve_class!r}")
     dmin = depth_range[:, 0].float()
     dmax = depth_range[:, 1].float()
     s = _FITTERS[curve_class](depth, prob_volume, depth_hypos)
@@ -89,7 +128,7 @@ def refined_hypotheses(depth: torch.Tensor, depth_range: torch.Tensor,
 
     # log of the f32 threshold, as the reference computes it
     log_t = float(torch.log(torch.tensor(prob_thresh, dtype=torch.float32)))
-    if curve_class == "gauss1":
+    if curve_class in ("gauss0", "gauss1"):
         res = torch.sqrt(-1.0 * s * log_t)
     else:
         res = torch.abs(s * log_t)

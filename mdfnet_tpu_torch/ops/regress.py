@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from mdfnet_tpu_torch.ops.sample import resize_bicubic_2x
+
 
 def depth_regression(prob_volume: torch.Tensor,
                      depth_hypos: torch.Tensor) -> torch.Tensor:
@@ -14,13 +16,19 @@ def depth_regression(prob_volume: torch.Tensor,
 _WINDOW = 4   # bins summed around the regressed index
 
 
-def confidence_regression(prob_volume: torch.Tensor) -> torch.Tensor:
+def confidence_regression(prob_volume: torch.Tensor,
+                          last_confidence: torch.Tensor | None = None
+                          ) -> torch.Tensor:
     """Posterior mass of the 4 bins [i-1, i+2] around the floored
     soft-argmax index i (reference net/unit/regress.py:9-18: ``n *
     avg_pool3d`` over a D-padded (1 front, 2 back) volume).
 
     Args:
         prob_volume: (B, D, H, W).
+        last_confidence: (B, H/2, W/2) or None: the previous stage's
+            confidence, blended in as ``0.8 * bicubic_2x(last) + 0.2 *
+            conf`` (the reference's optional EMA, regress.py:20-23, which
+            its CoreNet does not use).
     Returns:
         (B, H, W) confidence.
     """
@@ -35,4 +43,7 @@ def confidence_regression(prob_volume: torch.Tensor) -> torch.Tensor:
     # float -> int truncates, i.e. floors the non-negative expectation
     depth_index = torch.sum(prob_volume * index, dim=1).to(torch.int64)
     depth_index = depth_index.clamp(0, d - 1)
-    return torch.gather(window_sum, 1, depth_index[:, None])[:, 0]
+    conf = torch.gather(window_sum, 1, depth_index[:, None])[:, 0]
+    if last_confidence is not None:
+        conf = 0.8 * resize_bicubic_2x(last_confidence) + 0.2 * conf
+    return conf

@@ -31,11 +31,27 @@ torch.set_num_threads(2)
 # narrow widths with C/G == 2 at every stage, as in the default config
 SMALL = ModelConfig(chs=(8, 8, 16, 32), ngroups=(16, 8, 4))
 DEPTH_EXTENT = 935.0 - 425.0   # the synthetic scenes' depth range
+# the alternative units (JAX core.py:78-132, 203-238), each alone and all
+# four together, as ModelConfig fields
+ALTERNATIVES = {
+    "variance": dict(aggregate_impl="variance"),
+    "atv": dict(hypo_impl="atv"),
+    "refine1": dict(refine_impl="refine1"),
+    "gauss0": dict(curve_classes=(None, "gauss0", "gauss0")),
+    "all four": dict(aggregate_impl="variance", hypo_impl="atv",
+                     refine_impl="refine1",
+                     curve_classes=(None, "gauss0", "gauss0")),
+}
 
 
 def port_config(config: ModelConfig) -> port_config_module.ModelConfig:
     """The port's ModelConfig with the same fields as a JAX one."""
     return port_config_module.ModelConfig(**dataclasses.asdict(config))
+
+
+def alternative(name: str) -> ModelConfig:
+    """SMALL with the alternative units ``ALTERNATIVES[name]``."""
+    return dataclasses.replace(SMALL, **ALTERNATIVES[name])
 
 
 def build_port(config: ModelConfig, **kw):

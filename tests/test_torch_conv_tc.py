@@ -282,15 +282,17 @@ def test_mirror_input_gradient_matches_jax_vjp(kind, shape, ci, co):
 def test_default_model_routes():
     """One bf16 eval forward of the default model: 2 launches of the chain
     kernel (conv_kernel.CHAIN_FUSED: the trunk's first two layers, the
-    16-channel pair), 50 tc launches (22 of K2's 25, all 8 of K3's, 7 of
-    K4's 8, the trunk's stride-2 tail and 12 of the other chains' layers),
+    16-channel pair), 48 tc launches (22 of K2's 25, all 8 of K3's, 5 of
+    K4's 6: the two stride-2 convs and the top-down path's three composed
+    1x1 convs; the trunk's stride-2 tail and 12 of the other chains'
+    layers),
     4 on the co1 kernel
     (Co = 1: three ProbConvs, refine's tail) and a direct remainder of Ci =
     1 (refine's head, on the per-layer route); in f32 every conv is direct
     but the four to Co = 1."""
     model = build_model(compute_dtype="bfloat16", device="cpu")
     routes = eval_conv_routes(model)
-    assert collections.Counter(routes) == {"tc": 50, "co1": 4, "direct": 1,
+    assert collections.Counter(routes) == {"tc": 48, "co1": 4, "direct": 1,
                                            "chain": 2}
     per_part = {
         "Backbone": conv_classes(model.Backbone),
@@ -309,7 +311,7 @@ def test_default_model_routes():
     assert routed("co1") == [(1, 3, 1, 8, 1), (3, 3, 1, 8, 1),
                              (3, 3, 1, 8, 1), (3, 3, 1, 16, 1)]
     f32 = build_model(device="cpu")
-    assert collections.Counter(eval_conv_routes(f32)) == {"direct": 55,
+    assert collections.Counter(eval_conv_routes(f32)) == {"direct": 53,
                                                           "co1": 4}
 
 

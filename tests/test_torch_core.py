@@ -70,12 +70,25 @@ def test_pth_round_trip(full_width, tmp_path):
                                atol=0)
 
 
-@pytest.mark.parametrize("field,value", [("aggregate_impl", "variance"),
-                                         ("hypo_impl", "atv"),
-                                         ("refine_impl", "refine1")])
-def test_alternative_units_not_ported(field, value):
-    with pytest.raises(NotImplementedError):
-        build_model(ModelConfig(**{field: value}), device="cpu")
+@pytest.mark.parametrize("field,value", [
+    ("aggregate_impl", "variance"), ("hypo_impl", "atv"),
+    ("refine_impl", "refine1"), ("curve_classes", (None, "gauss0", "gauss0"))])
+def test_alternative_units_build(field, value):
+    """Each alternative unit builds at the default widths on the CPU and
+    runs a forward to finite maps of the input's size."""
+    model = build_model(ModelConfig(**{field: value}), device="cpu")
+    args = to_torch(*scene_args(64, 96, nviews=3, structure="plane"))
+    out = model(*args)
+    assert out["depth"].shape == out["confidence"].shape == (1, 64, 96)
+    assert bool(torch.isfinite(out["depth"]).all()
+                & torch.isfinite(out["confidence"]).all())
+
+
+def test_alternative_units_refuse_the_fused_warp():
+    """``warp_impl="fused"`` trains the vector aggregate only, as in JAX."""
+    with pytest.raises(ValueError, match="fused"):
+        build_model(ModelConfig(warp_impl="fused", refine_impl="refine1"),
+                    device="cpu")
 
 
 def test_port_imports_no_jax():

@@ -452,7 +452,8 @@ def test_conv_tc_routes_and_failures():
 
 def test_eval_forward_tc_launches_follow_the_rule():
     """A small bf16 eval forward launches the tc kernel once per conv and
-    transposed conv that the rule sends there (50 at the default widths),
+    transposed conv that the rule sends there (48 at the default widths,
+    the backbone's three composed 1x1 convs among them),
     the co1 kernel once per conv to Co = 1 (the three ProbConvs, refine's
     tail), and the chain kernel once per launch of a fused chain (2: the
     trunk's first two layers, the 16-channel pair)."""
@@ -467,7 +468,7 @@ def test_eval_forward_tc_launches_follow_the_rule():
     torch.cuda.synchronize()
     routes = eval_conv_routes(model)
     assert conv_kernel.LAUNCHES["conv_tc"] - before["conv_tc"] == \
-        routes.count("tc") == 50
+        routes.count("tc") == 48
     assert conv_kernel.LAUNCHES["conv_co1"] - before["conv_co1"] == \
         routes.count("co1") == 4
     assert conv_kernel.LAUNCHES["conv2d_chain"] - before["conv2d_chain"] == \
@@ -567,6 +568,84 @@ def test_sample_2d(dtype, c, stress):
     before = warp_kernel.LAUNCHES["sample_2d"]
     _agree(lambda p: warp_kernel.sample_2d(img, x, y, plain=p), dtype)
     assert warp_kernel.LAUNCHES["sample_2d"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,w,d,c,per_pixel", [(148, 200, 48, 64, False),
+                                               (592, 800, 8, 16, True)])
+def test_sample_2d_at_the_variance_eval_shapes(dtype, h, w, d, c, per_pixel):
+    """K6 as the variance aggregate's eval warp runs it: one source's
+    C-channel features at DTU eval stage 0 (48 uniform planes) and stage 2
+    (8 per-pixel planes)."""
+    k = torch.tensor([[1.8 * w, 0, w / 2], [0, 1.8 * w, h / 2], [0, 0, 1]])
+    e = torch.eye(4).repeat(2, 1, 1)
+    e[1, 0, 3] = -12.0
+    ref_proj, src_projs = geometry.projection_matrices(
+        k[None].repeat(1, 2, 1, 1).cuda(), e[None].cuda(), 3, num_stages=4)
+    hyp = torch.linspace(425.0, 935.0, d).reshape(1, d, 1, 1)
+    if per_pixel:
+        hyp = hyp + torch.rand(1, 1, h, w) * 40.0
+    x, y = sweep_sample_coords(src_projs, ref_proj, hyp.cuda(), h, w)
+    img = torch.randn(1, h, w, c).cuda().to(dtype)
+    before = warp_kernel.LAUNCHES["sample_2d"]
+    _agree(lambda p: warp_kernel.sample_2d(img, x, y, plain=p), dtype)
+    assert warp_kernel.LAUNCHES["sample_2d"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("emit_diffs", [True, False])
+def test_top_down_path_matches_the_plain_conv(dtype, emit_diffs):
+    """The backbone's linearised top-down path at the default widths (x4,
+    x3, x2 of 5 views at 1/8, 1/4, 1/2 of 128x160): three K4 launches (tc
+    in bf16) with the upsampled addends as residuals, against the same
+    structure on the plain conv."""
+    from mdfnet_tpu_torch.models.backbone import FPN4Scales
+    from mdfnet_tpu_torch.models.layers import init_parameters
+    bb = FPN4Scales(emit_diffs=emit_diffs)
+    init_parameters(bb, torch.Generator().manual_seed(0))
+    bb = bb.cuda()
+    xs = [torch.randn(5, 128 >> s, 160 >> s, c).cuda().to(dtype)
+          for s, c in ((1, 16), (2, 32), (3, 64))]
+    before = dict(conv_kernel.LAUNCHES)
+    got = bb._top_down(*xs, plain=False)
+    torch.cuda.synchronize()
+    assert conv_kernel.LAUNCHES["conv2d_bn_act"] \
+        - before["conv2d_bn_act"] == 3
+    assert conv_kernel.LAUNCHES["conv_tc"] - before["conv_tc"] == \
+        (3 if dtype == torch.bfloat16 and emit_diffs else
+         2 if dtype == torch.bfloat16 else 0)
+    ref = bb._top_down(*xs, plain=True)
+    for g, r, c in zip(got, ref, (64, 32, 16)):
+        assert g.shape[-1] == r.shape[-1] == (c // 2 if emit_diffs else c)
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= REL_TOL[dtype] * r.float().abs().max().item()
+
+
+@pytest.mark.parametrize("fields", [
+    dict(aggregate_impl="variance"), dict(hypo_impl="atv"),
+    dict(refine_impl="refine1"), dict(curve_classes=(None, "gauss0",
+                                                     "gauss0"))])
+def test_alternative_units_on_the_kernels(fields):
+    """Each alternative unit's small f32 forward on the kernels against
+    the plain f32 forward (the kernels sum in other orders); the variance
+    aggregate warps on K6, one launch a source a stage."""
+    model = build_model(ModelConfig(**fields), device="cuda")
+    h, w, v = 128, 160, 3
+    k = torch.tensor([[1.8 * w, 0, w / 2], [0, 1.8 * w, h / 2], [0, 0, 1]])
+    e = torch.eye(4).repeat(v, 1, 1)
+    e[:, 0, 3] = -torch.arange(v) * 12.0
+    args = (torch.rand(1, v, h, w, 3).cuda(), e[None].cuda(),
+            k.repeat(1, v, 1, 1).cuda(), torch.tensor([[425.0, 935.0]]).cuda())
+    before = warp_kernel.LAUNCHES["sample_2d"]
+    out = model(*args)
+    torch.cuda.synchronize()
+    launches = warp_kernel.LAUNCHES["sample_2d"] - before
+    assert launches == (3 * (v - 1) if "aggregate_impl" in fields else 0)
+    ref = model(*args, plain=True)
+    err = ((out["depth"] - ref["depth"]).abs() / 510.0).flatten()
+    assert torch.isfinite(out["depth"]).all()
+    assert err.median() <= 1e-4 and err.quantile(0.95) <= 1e-3
+    assert (out["confidence"] - ref["confidence"]).abs().mean() <= 1e-4
 
 
 # name -> (H, W, planes, views, channels, coordinates): the sweep of

@@ -43,13 +43,25 @@ def _close(a, b, atol=ATOL, rtol=RTOL):
                                rtol=rtol)
 
 
-def test_fpn4scales(small):
+@pytest.mark.parametrize("emit_diffs", [True, False])
+def test_fpn4scales(small, emit_diffs):
+    """SMALL has C == 2G at every stage, so the eval backbone emits the pair
+    differences of the features; with emit_diffs off it returns the
+    C-channel features. Either against JAX's XLA backbone."""
     variables, port = small
     x = np.random.RandomState(1).rand(3, 64, 96, 3).astype(np.float32)
     ref = JaxFPN(SMALL.chs).apply(_sub(variables, "backbone"),
                                   jnp.asarray(x), False)
-    got = port.Backbone(*to_torch(x))
+    assert port.Backbone.emit_diffs
+    port.Backbone.emit_diffs = emit_diffs
+    try:
+        got = port.Backbone(*to_torch(x))
+    finally:
+        port.Backbone.emit_diffs = True
     for r, g in zip(ref, got):
+        r = np.asarray(r)
+        if emit_diffs:
+            r = r[..., 0::2] - r[..., 1::2]
         assert g.shape == r.shape
         _close(g.numpy(), r)
 
