@@ -65,7 +65,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
   6. serve   — ``python -m mdfnet_tpu_torch.cli.eval`` on a synthetic DTU
      eval tree (1600x1200 cropped to 1184, 3 reference views);
   6'. alternatives — each alternative unit (ALT_CONFIGS: the variance
-     aggregate, ATV hypotheses, RefineNet v1, gauss0 curves, all four) at
+     aggregate, ATV hypotheses, RefineNet v1, gauss0 curves, all four, and
+     the vector aggregate at C/G = 4, ngroups=(16, 8, 4), on K6) at
      the DTU eval shape: the f32 kernel forward vs the plain f32 forward
      (EXACT_BOUNDS), its launches by route as the rule gives and K6's (or
      K1's); the bf16 forward's ms/map and peak memory, its output against
@@ -73,8 +74,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      its conv launches (the tc kernel at Ci = C under the variance
      aggregate, RefineNet v1's convs) against its plain version on the
      same inputs (REL_TOL, uncounted launches); one train step of
-     all four at DTU train, f32 kernels vs plain f32 (STEP_BOUNDS_F32),
-     with K6, K7 and K8 launched;
+     all four and one of C/G = 4 (ALT_TRAIN) at DTU train, f32 kernels vs
+     plain f32 (STEP_BOUNDS_F32), with K6, K7 and K8 launched;
   6a. tanks  — the eval forward at the Tanks & Temples shapes (11 views,
      1920x1056 and 2048x1056): K1 against its plain version at the three
      stages with S = 10 sources (bf16 and f32), every kernel of the path
@@ -93,7 +94,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      400x296 11-view scan: Acc, Comp and Overall (METRIC_BOUND);
   7. train kernels — the training step's kernels at the DTU train shapes
      (640x512, 5 views, batch 4): the sample kernel (K6) vs its plain
-     version at stages 0 and 2; the splat kernel (K7) and the fused train
+     version at stages 0 and 2 (and at C/G = 4: one source's 64 or 16
+     channels, with K7); the splat kernel (K7) and the fused train
      aggregate's kernels (K9: the stats kernel, on K1's lane groups with
      all planes a block, and K1 with a per-view affine) at stages 0, 1 and
      2 and on stress cameras at stage 0, each stage timed in bf16 and f32,
@@ -125,7 +127,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the stats kernel, K1 with the affine, K6 and K7 must all launch;
   12. fused learn — 10 Adam steps of the fused model: finite, falling
      losses; ms/step, peak memory, and the aggregates' forward and backward
-     time beside the unfused path's.
+     time beside the unfused path's;
+  13. data parallel — DP_WORLD spawned ranks split the DTU train batch
+     (parallel/mesh.py; a card a rank over NCCL, else both on one card
+     over gloo, a check of correctness, not scaling): rank 0's reduced
+     gradients and averaged running statistics after one f32 step against
+     the one-process emulation (train_lib.data_parallel_reference) under
+     STEP_BOUNDS_F32 and DP_STATS_BOUND; rank 0 skipping the gradient
+     reduction must read >= 2x a bound; equal digests of every parameter,
+     buffer and Adam moment after DP_BF16_STEPS bf16 steps; ms/step and
+     peak a rank; then the train CLI with --world-size 2 (one checkpoint,
+     strict load); every rank joined within DP_TIMEOUT;
+  14. remat — ModelConfig(remat=True): one f32 step against the plain one
+     (STEP_BOUNDS_F32, running statistics bit-equal), and the bf16 step's
+     peak memory and ms with and without remat at REMAT_SHAPES.
 
 The profile lines (DTU, both Tanks widths) give device busy time, ATen's
 elementwise and ``cat`` device time and the time by layer. After the
@@ -140,6 +155,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -289,15 +305,31 @@ FUSED_KERNELS = {
 ALT_KERNELS = {"sample_2d_eval": dict(
     source=_SRC + "sample_2d.cu",
     replaces="mdfnet_tpu/ops/pallas/warp_kernel.py:143")}
+# K6 and K7 at C/G != 2: the vector aggregate of ModelConfig(ngroups=(16,
+# 8, 4)) warps each source's C channels a launch in training; their
+# launches are the alternatives phase's train step of that config
+GROUPS_KERNELS = {
+    "sample_2d_groups": dict(
+        source=_SRC + "sample_2d.cu",
+        replaces="mdfnet_tpu/ops/pallas/warp_kernel.py:143",
+        counter="sample_2d"),
+    "splat_2d_groups": dict(
+        source=_SRC + "splat_2d.cu",
+        replaces="mdfnet_tpu/ops/pallas/splat_kernel.py:129",
+        counter="splat_2d")}
 # the alternatives phase's configurations (the units of JAX core.py:78-132,
-# 203-238, each alone and all four together), at the DTU eval shape
+# 203-238, each alone and all four together; the vector aggregate at C/G = 4
+# at every stage, JAX aggregate.py:291-365), at the DTU eval shape
 ALT_CONFIGS = {"variance": dict(aggregate_impl="variance"),
                "atv": dict(hypo_impl="atv"),
                "refine1": dict(refine_impl="refine1"),
                "gauss0": dict(curve_classes=(None, "gauss0", "gauss0")),
                "all four": dict(aggregate_impl="variance", hypo_impl="atv",
                                 refine_impl="refine1",
-                                curve_classes=(None, "gauss0", "gauss0"))}
+                                curve_classes=(None, "gauss0", "gauss0")),
+               "groups": dict(ngroups=(16, 8, 4))}
+# the alternatives that also take one train step at DTU train
+ALT_TRAIN = ("all four", "groups")
 # the reference's training configuration: DTU train 640x512, 5 views, batch 4
 TRAIN_HEIGHT, TRAIN_WIDTH, TRAIN_BATCH = 512, 640, 4
 # Step gates at this configuration (PERF.md section 2).
@@ -1591,20 +1623,24 @@ def serve_phase(model):
 
 def alt_launches(model, what: str) -> dict:
     """The launches of one eval forward of an alternatives config since
-    reset_launches: the aggregate's kernel (K6 for the variance aggregate,
-    one launch a source a stage; K1 for the vector one), and every conv on
-    the kernel the rule gives it (eval_conv_routes; in f32 no chain and no
-    tc). Returns the launches per counter."""
+    reset_launches: the aggregate's kernel (K6, one launch a source, at a
+    stage of the variance aggregate or of the vector aggregate at C/G != 2;
+    K1, one launch, at a stage of the vector aggregate at C/G == 2), and
+    every conv on the kernel the rule gives it (eval_conv_routes; in f32 no
+    chain and no tc). Returns the launches per counter."""
     from mdfnet_tpu_torch.models.aggregate_variance import VarianceAggregate
     from mdfnet_tpu_torch.ops.cuda import (aggregate_kernel, conv_kernel,
                                            warp_kernel)
     counts = {k: v for c in (aggregate_kernel.LAUNCHES, conv_kernel.LAUNCHES,
                              warp_kernel.LAUNCHES) for k, v in c.items()}
-    stages = len(model.Homoaggre)
-    if isinstance(model.Homoaggre[0], VarianceAggregate):
-        want = {"sample_2d": stages * (NVIEWS - 1), "rowsweep_aggregate": 0}
-    else:
-        want = {"sample_2d": 0, "rowsweep_aggregate": stages}
+    want = {"sample_2d": 0, "rowsweep_aggregate": 0}
+    outs = (model.Backbone.out4, model.Backbone.out3, model.Backbone.out2)
+    for agg, out in zip(model.Homoaggre, outs):
+        if isinstance(agg, VarianceAggregate) \
+                or out.weight.shape[0] != 2 * agg.ngroups:
+            want["sample_2d"] += NVIEWS - 1
+        else:
+            want["rowsweep_aggregate"] += 1
     require(all(counts[k] == v for k, v in want.items()),
             f"{what}: aggregate launches {counts}, want {want}")
     ran, rule = launches_by_route(model)
@@ -1649,20 +1685,22 @@ def checked_launches(errs: dict) -> list:
     return [(conv_kernel, "_launch", checked)]
 
 
-def alternatives_phase(scene, smi: str) -> int:
+def alternatives_phase(scene, smi: str) -> tuple[int, dict]:
     """The alternative units (ALT_CONFIGS: the variance aggregate, ATV
-    hypotheses, RefineNet v1, gauss0 curves, all four together) at the DTU
+    hypotheses, RefineNet v1, gauss0 curves, all four together, and the
+    vector aggregate at C/G = 4, whose warp is K6) at the DTU
     eval shape (1600x1184, 5 views, B=1; seeded random weights, sharpened):
     each config's forward on the kernels in f32 against the plain f32
     forward on the card (EXACT_BOUNDS) with its kernels launched
     (alt_launches), then its bf16 forward's launches, ms/map and peak
     memory, the forward gate (FORWARD_BOUNDS) against the plain f32 forward
     and each of its conv launches against its plain version
-    (checked_launches, REL_TOL). Then one train step of the all-four config at the DTU train
+    (checked_launches, REL_TOL). Then one train step of each config of
+    ALT_TRAIN (all four; the vector aggregate at C/G = 4) at the DTU train
     configuration on the kernels in f32 against the plain f32 step
     (STEP_BOUNDS_F32's loss and gradient bounds), with K6, K7 and K8
     launched and a finite loss. Returns K6's launches in the variance
-    config's bf16 forward."""
+    config's bf16 forward and the C/G = 4 train step's launches."""
     from mdfnet_tpu_torch.config import ModelConfig
     from mdfnet_tpu_torch.data import make_batch
     from mdfnet_tpu_torch.models.registry import build_model
@@ -1753,31 +1791,40 @@ def alternatives_phase(scene, smi: str) -> int:
                     f"{b:.0e}")
         del models
 
-    config = ModelConfig(**ALT_CONFIGS["all four"])
     train = train_batch()
     counters = (warp_kernel.LAUNCHES, splat_kernel.LAUNCHES,
                 conv_kernel.LAUNCHES)
-    loss_k, grads_k, _, counts = _step("float32", False, train,
-                                       launches=counters, config=config)
-    loss_p, grads_p, _, _ = _step("float32", True, train, config=config)
-    m32 = f32_gate_metrics(loss_k, f32_param_stats(grads_k, grads_p), loss_p)
     step_kernels = ("sample_2d", "splat_2d", "conv3d_dgrad",
                     "trconv3d_dgrad", "conv2d_dgrad")
-    print(f"alternatives all four, train step {TRAIN_WIDTH}x{TRAIN_HEIGHT}x"
-          f"{NVIEWS} batch {TRAIN_BATCH}, f32 kernels vs plain f32 "
-          f"({len(grads_p)} parameters): loss {loss_k:.6f} vs {loss_p:.6f}; "
-          + ", ".join(f"{k} {m32[k]:.2e}" + (
-              f" (bound {STEP_BOUNDS_F32[k]:.1e})" if k in STEP_BOUNDS_F32
-              else "") for k in m32 if k not in ("worst", "raw worst"))
-          + f"; worst {m32['worst']}; launches "
-          f"{ {k: counts[k] for k in step_kernels} }; {smi}", flush=True)
-    require(math.isfinite(loss_k), f"alternatives train step: loss {loss_k}")
-    require(all(counts[k] > 0 for k in step_kernels),
-            f"alternatives train step: a kernel never launched: {counts}")
-    for k, b in STEP_BOUNDS_F32.items():
-        require(m32[k] <= b, f"alternatives train step: {k} {m32[k]:.2e} > "
-                f"{b:.1e} ({m32['worst']})")
-    return k6_launches
+    train_counts = {}
+    for name in ALT_TRAIN:
+        config = ModelConfig(**ALT_CONFIGS[name])
+        loss_k, grads_k, _, counts = _step("float32", False, train,
+                                           launches=counters, config=config)
+        loss_p, grads_p, _, _ = _step("float32", True, train, config=config)
+        m32 = f32_gate_metrics(loss_k, f32_param_stats(grads_k, grads_p),
+                               loss_p)
+        print(f"alternatives {name}, train step {TRAIN_WIDTH}x{TRAIN_HEIGHT}x"
+              f"{NVIEWS} batch {TRAIN_BATCH}, f32 kernels vs plain f32 "
+              f"({len(grads_p)} parameters): loss {loss_k:.6f} vs "
+              f"{loss_p:.6f}; "
+              + ", ".join(f"{k} {m32[k]:.2e}" + (
+                  f" (bound {STEP_BOUNDS_F32[k]:.1e})"
+                  if k in STEP_BOUNDS_F32 else "")
+                  for k in m32 if k not in ("worst", "raw worst"))
+              + f"; worst {m32['worst']}; launches "
+              f"{ {k: counts[k] for k in step_kernels} }; {smi}", flush=True)
+        require(math.isfinite(loss_k),
+                f"alternatives {name} train step: loss {loss_k}")
+        require(all(counts[k] > 0 for k in step_kernels),
+                f"alternatives {name} train step: a kernel never launched: "
+                f"{counts}")
+        for k, b in STEP_BOUNDS_F32.items():
+            require(m32[k] <= b, f"alternatives {name} train step: {k} "
+                    f"{m32[k]:.2e} > {b:.1e} ({m32['worst']})")
+        train_counts[name] = counts
+        del grads_k, grads_p
+    return k6_launches, train_counts["groups"]
 
 
 # ------------------------------------ Tanks & Temples, fusion and the metric
@@ -2391,6 +2438,53 @@ def train_kernel_cases(gen, batch):
                           dt, splat, lambda p, f=splat: cuda_ms(lambda: f(p)),
                           None if stress else splat_meta))
 
+    # K6 and K7 at C/G != 2 (GROUPS_KERNELS): one source's C = 2 G channels
+    # of 4 items a launch, stage 0 (48 uniform planes, C = 64) and stage 2
+    # (8 per-pixel planes, C = 16), bf16 then f32; stage 0 in bf16 timed
+    gen_groups = torch.Generator(device=DEV).manual_seed(12)
+    for stage, d, g, h, w, src_projs, ref_proj, hyp in train_sweeps(
+            batch, gen_groups):
+        if stage == 1:
+            continue
+        c = 2 * g
+        x, y = sweep_sample_coords(src_projs[:, :1], ref_proj, hyp, h, w)
+        grid = torch.stack([(2.0 * x + 1.0) / w - 1.0,
+                            (2.0 * y + 1.0) / h - 1.0], -1).reshape(
+                                b, d, h * w, 2)
+        for dt in (torch.bfloat16, torch.float32):
+            img = torch.randn(b, h, w, c, generator=gen_groups,
+                              device=DEV).to(dt)
+            gr = torch.randn(b, d, h, w, c, generator=gen_groups,
+                             device=DEV).to(dt)
+            first = stage == 0 and dt == torch.bfloat16
+            sample = (lambda p, img=img, x=x, y=y: sample_2d(img, x, y,
+                                                             plain=p))
+            cases.append(("sample_2d_groups", dt, sample,
+                          lambda p, f=sample: cuda_ms(lambda: f(p)),
+                          dict(device=lambda f=sample: f(False),
+                               nbytes=size(img, x, y) + x.numel() * c
+                               * img.element_size(),
+                               ops=x.numel() * (10 + 9 * c),
+                               library=lambda img=cl(img), gd=grid.to(dt):
+                               F.grid_sample(img, gd, mode="bilinear",
+                                             padding_mode="zeros",
+                                             align_corners=False))
+                          if first else None))
+            splat = (lambda p, a=(gr, x, y, h, w): splat_2d(*a, plain=p))
+            cases.append(("splat_2d_groups", dt, splat,
+                          lambda p, f=splat: cuda_ms(lambda: f(p)),
+                          dict(device=lambda f=splat: f(False),
+                               nbytes=size(gr, x, y) + b * h * w * c * 4,
+                               ops=x.numel() * (10 + 8 * c),
+                               library=lambda gn=gr.reshape(
+                                   b, d, h * w, c).permute(0, 3, 1, 2),
+                               im=torch.zeros(b, c, h, w, dtype=dt,
+                                              device=DEV), gd=grid.to(dt):
+                               torch.ops.aten.grid_sampler_2d_backward(
+                                   gn, im, gd, 0, 0, False, [True, False]))
+                          if first else None))
+        del img, gr
+
     def plain_conv(kind, stride):
         def run(x, w):
             exact_cuda_math()
@@ -2519,7 +2613,7 @@ def check_train_kernels(batch):
         shape = tuple((got[0] if isinstance(got, tuple) else got).shape)
         line = (f"train kernel {name} {str(dt)[6:]} {shape}: max_abs_err "
                 f"{err:.3e} rel {rel:.3e} (tol {REL_TOL[dt]:.0e})")
-        if key in ("splat_2d", "rowsweep_stats"):
+        if key in ("splat_2d", "splat_2d_groups", "rowsweep_stats"):
             again = run(False)
             torch.cuda.synchronize()
             require(torch.equal(got, again),
@@ -3241,6 +3335,311 @@ def train_cli_phase():
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ------------------------------------- data parallelism over ranks, remat
+
+# data_parallel_phase: 2 ranks (one card each where there are two, else both
+# on one card over gloo) split the DTU train batch, 2 items a rank
+DP_WORLD, DP_BF16_STEPS = 2, 5
+# every rank is joined within DP_TIMEOUT seconds, and a collective that
+# waits longer than DP_COLLECTIVE_TIMEOUT fails: a hung rank fails the run
+DP_TIMEOUT, DP_COLLECTIVE_TIMEOUT = 300.0, 120.0
+# the averaged running statistics on rank 0 against the one-process
+# emulation: the same per-shard forwards on the same kernels, averaged in
+# the same order; the CPU tests' bound against JAX
+DP_STATS_BOUND = 1e-5
+# remat_phase: the bf16 step's peak memory with and without remat at DTU
+# train and at BlendedMVS's 768x576 with its batch of 6 (synthetic)
+REMAT_SHAPES = ((TRAIN_HEIGHT, TRAIN_WIDTH, TRAIN_BATCH), (576, 768, 6))
+
+
+def dp_batch():
+    """train_batch() with distinct items (item i's images scaled by 0.8 +
+    0.1 i), so that each shard's BatchNorm statistics are its own."""
+    batch = train_batch()
+    scale = 0.8 + 0.1 * torch.arange(TRAIN_BATCH, device=DEV)
+    batch["imgs"] = batch["imgs"] * scale.reshape(-1, 1, 1, 1, 1)
+    return batch
+
+
+def state_digest(model, optimizer) -> str:
+    """A digest of every parameter, buffer and Adam moment, in order."""
+    h = hashlib.sha256()
+    tensors = [*model.parameters(), *model.buffers()]
+    for state in optimizer.state.values():
+        tensors += [state["exp_avg"], state["exp_avg_sq"]]
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _skip_gradient_reduction(model, group):
+    """The DP fault: the rank joins the gradient all-reduce (so that the
+    collectives pair up) but keeps its own shard's gradients."""
+    from mdfnet_tpu_torch import train_lib
+    train_lib._all_reduce([p.grad.clone() for p in model.parameters()
+                           if p.grad is not None], group)
+
+
+def _dp_rank(rank, world, backend, init_method, out):
+    """One rank of data_parallel_phase (spawn_ranks starts it): one f32
+    step, the same step with rank 0 skipping the gradient reduction, then
+    DP_BF16_STEPS bf16 steps, each from the seed-0 weights on the rank's
+    shard of dp_batch(); writes what it read to <out>/rank<r>.pt."""
+    from mdfnet_tpu_torch import train_lib
+    from mdfnet_tpu_torch.config import ModelConfig
+    from mdfnet_tpu_torch.models.registry import build_model
+    from mdfnet_tpu_torch.parallel import (init_data_parallel, rank_device,
+                                           shard_batch)
+    device = rank_device(rank, "cuda")
+    group = init_data_parallel(rank, world, backend, init_method,
+                               timeout=DP_COLLECTIVE_TIMEOUT)
+    try:
+        shard = shard_batch(dp_batch(), rank, world)
+
+        def fresh(dtype):
+            model = build_model(ModelConfig(), compute_dtype=dtype, seed=0,
+                                device=device).requires_grad_(True)
+            return model, train_lib.make_optimizer(
+                model, train_lib.poly_lr(1, 1e-3, 30, 0.9))
+
+        def grads(model):
+            return {n: p.grad.float().cpu()
+                    for n, p in model.named_parameters()}
+        model, opt = fresh("float32")
+        result = {"device": torch.cuda.get_device_name(device),
+                  "f32 loss": float(train_lib.train_step(model, opt, shard,
+                                                         group=group))}
+        result["f32 grads"] = grads(model)
+        result["f32 stats"] = {n: b.cpu() for n, b in model.named_buffers()
+                               if "running" in n}
+        model, opt = fresh("float32")
+        reduce = train_lib.reduce_gradients
+        if rank == 0:
+            train_lib.reduce_gradients = _skip_gradient_reduction
+        try:
+            train_lib.train_step(model, opt, shard, group=group)
+        finally:
+            train_lib.reduce_gradients = reduce
+        result["fault grads"] = grads(model)
+        del model, opt
+        model, opt = fresh("bfloat16")
+        torch.cuda.reset_peak_memory_stats(device)
+        losses, times = [], []
+        for _ in range(DP_BF16_STEPS):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            losses.append(float(train_lib.train_step(model, opt, shard,
+                                                     group=group)))
+            torch.cuda.synchronize(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        result.update(losses=losses, times=times,
+                      peak_mb=torch.cuda.max_memory_allocated(device) / 2**20,
+                      digest=state_digest(model, opt))
+        torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def data_parallel_phase(smi: str) -> None:
+    """Data-parallel training (parallel/mesh.py, train_lib.train_step with a
+    process group) at DTU train on DP_WORLD spawned ranks: with a card a
+    rank over NCCL, else both on one card over gloo (two ranks on one card
+    check correctness, not scaling). The f32 gate: rank 0's reduced
+    gradients and averaged running statistics after one step against the
+    one-process emulation of the same semantics on the card
+    (train_lib.data_parallel_reference: each shard's forward and backward
+    with its own BatchNorm statistics, the global loss's gradient, the
+    statistics averaged) under STEP_BOUNDS_F32 and DP_STATS_BOUND; rank 0
+    skipping the gradient reduction must read >= 2x a bound; after
+    DP_BF16_STEPS bf16 steps every parameter, buffer and Adam moment must
+    have one digest on both ranks; ms/step and peak memory per rank. Then
+    the train CLI with --world-size 2."""
+    from mdfnet_tpu_torch.config import ModelConfig
+    from mdfnet_tpu_torch.models.registry import build_model
+    from mdfnet_tpu_torch.parallel import default_backend, spawn_ranks
+    from mdfnet_tpu_torch.train_lib import data_parallel_reference
+    backend = default_backend(DP_WORLD, "cuda")
+    how = (f"NCCL, a card a rank ({torch.cuda.device_count()} cards)"
+           if backend == "nccl" else
+           "gloo, both ranks on one card: a check of correctness, not a "
+           "scaling number")
+    out = smoke_dir("smoke_dp")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn_ranks(_dp_rank, DP_WORLD, (backend, f"file://{out}/pg", out),
+                timeout=DP_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"))
+             for r in range(DP_WORLD)]
+    model = build_model(ModelConfig(), compute_dtype="float32", seed=0,
+                        device=DEV).requires_grad_(True)
+    loss_ref = float(data_parallel_reference(model, dp_batch(), DP_WORLD))
+    grads_ref = {n: p.grad.float() for n, p in model.named_parameters()}
+    stats_ref = {n: b for n, b in model.named_buffers() if "running" in n}
+    del model
+    r0 = ranks[0]
+
+    def gate(grads):
+        return f32_gate_metrics(r0["f32 loss"], f32_param_stats(
+            {n: g.to(DEV) for n, g in grads.items()}, grads_ref), loss_ref)
+    clean, fault = gate(r0["f32 grads"]), gate(r0["fault grads"])
+    stats_err = max((b.to(DEV) - stats_ref[n]).abs().max().item()
+                    for n, b in r0["f32 stats"].items())
+    caught = [k for k, b in STEP_BOUNDS_F32.items() if fault[k] >= 2 * b]
+    print(f"data parallel, {DP_WORLD} ranks ({how}), DTU train "
+          f"{TRAIN_WIDTH}x{TRAIN_HEIGHT}x{NVIEWS} global batch {TRAIN_BATCH} "
+          f"(distinct items, {TRAIN_BATCH // DP_WORLD} a rank), ranks on "
+          f"{[r['device'] for r in ranks]}: f32 step on rank 0 vs the "
+          f"one-process emulation on the card: loss {r0['f32 loss']:.6f} vs "
+          f"{loss_ref:.6f}; " + ", ".join(
+              f"{k} {clean[k]:.2e} (bound {b:.1e})"
+              for k, b in STEP_BOUNDS_F32.items())
+          + f"; worst {clean['worst']}; running statistics max |diff| "
+          f"{stats_err:.2e} (bound {DP_STATS_BOUND:.0e}); rank 0 skipping "
+          f"the gradient reduction: {_show({k: fault[k] for k in STEP_BOUNDS_F32})}"
+          f", >= 2x {caught}; {smi}", flush=True)
+    print(f"data parallel bf16, {DP_BF16_STEPS} steps a rank ({how}): "
+          + "; ".join(f"rank {r}: {statistics.median(v['times'][1:]):.2f} "
+                      f"ms/step (runs {[round(t, 1) for t in v['times']]}), "
+                      f"peak {v['peak_mb']:.0f} MiB, losses "
+                      f"{[round(x, 3) for x in v['losses']]}, digest "
+                      f"{v['digest']}" for r, v in enumerate(ranks))
+          + f"; spawn to join {ranks_s:.1f} s; {smi}", flush=True)
+    for k, b in STEP_BOUNDS_F32.items():
+        require(clean[k] <= b, f"data parallel f32 gate: {k} {clean[k]:.2e} "
+                f"> {b:.1e} ({clean['worst']})")
+    require(stats_err <= DP_STATS_BOUND,
+            f"data parallel: running statistics {stats_err:.2e} from the "
+            f"emulation's")
+    require(bool(caught), "data parallel: a rank skipping the gradient "
+            "reduction stays within 2x of every f32 bound")
+    require(len({r["digest"] for r in ranks}) == 1,
+            "data parallel: the replicas differ after the bf16 steps")
+    require(all(math.isfinite(x) for r in ranks for x in r["losses"]),
+            "data parallel: a non-finite bf16 loss")
+    dp_cli_phase(backend)
+
+
+def run_session(cmd, timeout: float) -> subprocess.CompletedProcess:
+    """Run ``cmd`` in a session of its own from the checkout; past
+    ``timeout`` seconds the session (the command and what it started) is
+    sent SIGUSR1 (spawned ranks print their stacks), then killed, and this
+    raises with the end of its output."""
+    proc = subprocess.Popen(cmd, cwd=ROOT, start_new_session=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGUSR1)
+        time.sleep(5.0)
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise RuntimeError(f"{' '.join(cmd[1:4])} ran past {timeout} s:\n"
+                           + "\n".join(out.strip().splitlines()[-80:]))
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, "")
+
+
+def dp_cli_phase(backend: str) -> None:
+    """``python -m mdfnet_tpu_torch.train --fast --world-size 2`` for one
+    epoch on a synthetic DTU train tree: rank 0 alone writes one checkpoint
+    and one epoch_loss.txt line; the checkpoint loads strict=True."""
+    from mdfnet_tpu_torch.data import write_dtu_train_tree
+    from mdfnet_tpu_torch.models.registry import build_model
+    from mdfnet_tpu_torch.utils.weights import load_checkpoint
+    work = smoke_dir("smoke_dp_train")
+    try:
+        write_dtu_train_tree(os.path.join(work, "dtu640x512"), scans=(1,),
+                             nviews=7, lightings=1, height=TRAIN_HEIGHT,
+                             width=TRAIN_WIDTH)
+        out = os.path.join(work, "ckpt")
+        t0 = time.perf_counter()
+        proc = run_session(
+            [sys.executable, "-m", "mdfnet_tpu_torch.train", "-d", "dtu",
+             "--root", work, "--scans", "1", "--lightings", "1", "--epochs",
+             "1", "--batch-size", str(TRAIN_BATCH), "--fast", "--ckpt-dir",
+             out, "--world-size", str(DP_WORLD)], timeout=DP_TIMEOUT)
+        cli_s = time.perf_counter() - t0
+        require(proc.returncode == 0, "train CLI --world-size 2 failed:\n"
+                + "\n".join(proc.stdout.strip().splitlines()[-30:]))
+        require(sorted(os.listdir(out)) == ["dtu_1.pth", "epoch_loss.txt"],
+                f"train CLI --world-size 2 wrote {sorted(os.listdir(out))}")
+        with open(os.path.join(out, "epoch_loss.txt")) as f:
+            losses = [float(v) for v in f.read().split()]
+        require(len(losses) == 1 and math.isfinite(losses[0]),
+                f"epoch_loss.txt: {losses}")
+        epoch = load_checkpoint(build_model(device=DEV, seed=5),
+                                os.path.join(out, "dtu_1.pth"))
+        print(f"train CLI --world-size {DP_WORLD} ({backend}): 1 epoch in "
+              f"{cli_s:.1f} s, epoch loss {losses[0]:.4f}; rank 0 wrote "
+              f"dtu_1.pth (epoch {epoch}, loads strict=True) and one "
+              f"epoch_loss.txt line", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _remat_step(dtype: str, remat: bool, batch):
+    """One train step (train_lib.train_step) from the seed-0 weights,
+    convs in ``dtype``: (loss, gradients, buffers, ms, peak MiB of the
+    step after one warm-up step)."""
+    from mdfnet_tpu_torch.config import ModelConfig
+    from mdfnet_tpu_torch.models.registry import build_model
+    from mdfnet_tpu_torch.train_lib import make_optimizer, train_step
+    model = build_model(ModelConfig(remat=remat), compute_dtype=dtype,
+                        seed=0, device=DEV).requires_grad_(True)
+    opt = make_optimizer(model, 1e-3)
+    if dtype == "bfloat16":     # warm-up: Adam's state, the allocator
+        train_step(model, opt, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = float(train_step(model, opt, batch))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    return (loss, {n: p.grad.float() for n, p in model.named_parameters()},
+            {n: b.clone() for n, b in model.named_buffers()}, ms, peak)
+
+
+def remat_phase(batch, smi: str) -> None:
+    """ModelConfig(remat=True) (models/core.py): one f32 step with remat
+    against one without on the kernels under STEP_BOUNDS_F32, the running
+    statistics bit-equal (updated once, not again in the recomputation);
+    then one bf16 step's ms and peak memory with and without remat at each
+    of REMAT_SHAPES."""
+    from mdfnet_tpu_torch.data import make_batch, make_plane_scene
+    from mdfnet_tpu_torch.train_lib import batch_to_device
+    loss_p, grads_p, bufs_p, _, _ = _remat_step("float32", False, batch)
+    loss_r, grads_r, bufs_r, _, _ = _remat_step("float32", True, batch)
+    m32 = f32_gate_metrics(loss_r, f32_param_stats(grads_r, grads_p), loss_p)
+    same = all(torch.equal(bufs_r[n], b) for n, b in bufs_p.items())
+    del grads_p, grads_r, bufs_p, bufs_r
+    reads = []
+    for h, w, b in REMAT_SHAPES:
+        scene = make_plane_scene(height=h, width=w, nviews=NVIEWS, tilt=0.05,
+                                 focal=1.8 * w)
+        big = batch_to_device(make_batch(scene, batch=b), DEV)
+        for remat in (False, True):
+            torch.cuda.empty_cache()
+            _, _, _, ms, peak = _remat_step("bfloat16", remat, big)
+            reads.append(f"{w}x{h}x{NVIEWS} batch {b} "
+                         f"{'remat' if remat else 'plain'} {peak:.0f} MiB "
+                         f"{ms:.1f} ms")
+        del big
+    print(f"remat: f32 step with remat vs without on the kernels: loss "
+          f"{loss_r:.6f} vs {loss_p:.6f}; " + ", ".join(
+              f"{k} {m32[k]:.2e} (bound {b:.1e})"
+              for k, b in STEP_BOUNDS_F32.items())
+          + f"; running statistics bit-equal {same}; bf16 step peak memory "
+          f"and time (one step after a warm-up): " + "; ".join(reads)
+          + f"; {smi}", flush=True)
+    for k, b in STEP_BOUNDS_F32.items():
+        require(m32[k] <= b, f"remat vs plain f32 step: {k} {m32[k]:.2e} > "
+                f"{b:.1e} ({m32['worst']})")
+    require(same, "remat: the running statistics differ from the plain "
+            "step's")
+
+
 # the final tiles (h, w) that --chain-tiles times the chain kernel at
 CHAIN_TILE_SWEEP = ((8, 8), (8, 16), (16, 16), (8, 32), (16, 32), (32, 16),
                     (32, 32), (32, 48), (48, 32), (32, 64), (64, 32),
@@ -3682,7 +4081,7 @@ def main():
     kernels += [entry(n, info, report, pair_launches)
                 for n, info in PAIR_KERNEL.items()]
     serve_phase(model)
-    k6_launches = alternatives_phase(scene, smi)
+    k6_launches, groups_launches = alternatives_phase(scene, smi)
     kernels += [entry(n, info, report, k6_launches)
                 for n, info in ALT_KERNELS.items()]
     tanks_phase(model, smi)
@@ -3697,12 +4096,16 @@ def main():
     kernels += [entry(n, info, report, launches[info.get("counter", n)],
                       tc.get(info.get("counter", n)))
                 for n, info in TRAIN_KERNELS.items()]
+    kernels += [entry(n, info, report, groups_launches[info["counter"]])
+                for n, info in GROUPS_KERNELS.items()]
     unfused_layers = learn_phase(batch, smi)
     train_cli_phase()
     launches = fused_gate(batch, unfused_f32)
     kernels += [entry(n, info, report, launches[n])
                 for n, info in FUSED_KERNELS.items()]
     fused_learn_phase(batch, smi, unfused_layers)
+    data_parallel_phase(smi)
+    remat_phase(batch, smi)
 
     print(f"total: {time.perf_counter() - start:.1f} s; {smi}", flush=True)
     print(json.dumps({"kernels": kernels}))

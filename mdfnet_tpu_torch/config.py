@@ -2,7 +2,8 @@
 
 The same dataclasses, fields and defaults as the JAX package's, kept here so
 that the port imports nothing of ``mdfnet_tpu``. ``models/registry.py`` reads
-``ModelConfig``; the train and eval CLIs read the others.
+``ModelConfig``; the train and eval CLIs read the others, and
+``parallel/mesh.py`` reads ``MeshConfig``.
 """
 from __future__ import annotations
 
@@ -28,9 +29,12 @@ class ModelConfig:
     # stats kernel, then the aggregate kernel with a per-view BN affine);
     # every other value, and eval, run the same kernels.
     warp_impl: str = "dense"
-    # JAX-only switches, kept so that configs carry over field for field
+    # JAX-only switch, kept so that configs carry over field for field
     pallas_conv: bool = False
+    # training recomputes the backbone, each aggregate and each U-Net in
+    # the backward instead of keeping their activations (models/core.py)
     remat: bool = False
+    # JAX-only switch, as pallas_conv
     wfold: bool = False
     # pluggable-unit extension points (the reference's unused alternatives)
     aggregate_impl: str = "vector"   # "vector" | "variance"
@@ -89,3 +93,15 @@ class DataConfig:
     # eval-time crops so all pyramid scales divide evenly
     dtu_eval_crop_height: int = 1184   # reference load/dtueval.py:34
     tanks_crop_height: int = 1056      # reference load/tankseval.py:36
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Ranks of a run. data = batch sharding over processes (one rank a
+    card, ``parallel/mesh.py``); spatial = H-axis sharding of the cost
+    volumes, which the port does not have yet: it selects nothing, and
+    ``spatial_parallel != 1`` raises (``parallel.mesh.check_mesh``)."""
+    data_axis: str = "data"
+    spatial_axis: str = "spatial"
+    data_parallel: int = -1  # -1: all devices
+    spatial_parallel: int = 1

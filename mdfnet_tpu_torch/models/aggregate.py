@@ -16,12 +16,18 @@ Train (C/G == 2) has two paths, as in JAX. With ``warp_impl="fused"``
 (``ops/aggregate_train.py``: the stats kernel, then K1 with a per-view BN
 affine; a closed-form backward on K6 and K7), after which DepthWeight's
 running statistics take the V sequential updates that the unfused path
-makes. Otherwise (JAX ``aggregate.py:312-363``, and the JAX fallback of
-``"fused"`` for C/G != 2) the chain stays unfused, so autograd reaches the
-features: every source view's pair differences are warped by the
-differentiable warp (K6 forward, K7 backward), and DepthWeight runs its
-BatchNorm on batch statistics, one call (one running-statistics update) per
-source view in view order.
+makes. Otherwise (JAX ``aggregate.py:312-363``) the chain stays unfused, so
+autograd reaches the features: every source view's pair differences are
+warped by the differentiable warp (K6 forward, K7 backward), and
+DepthWeight runs its BatchNorm on batch statistics, one call (one
+running-statistics update) per source view in view order.
+
+Any other C/G (JAX ``aggregate.py:291-365`` on ``homography_warp_pallas``)
+warps each source's C channels with the sample kernel (K6; in training its
+differentiable form, K7 backward), then takes the f32 group softmax and the
+per-group inner product with the reference's unit vectors, in eval and in
+training, whatever ``warp_impl`` says: JAX sends ``"fused"`` at C/G != 2 to
+its dense warp, which computes the same warp.
 """
 from __future__ import annotations
 
@@ -31,7 +37,9 @@ from torch import nn
 from mdfnet_tpu_torch.models.layers import BatchNorm, ConvND
 from mdfnet_tpu_torch.ops.aggregate_train import rowsweep_aggregate_train
 from mdfnet_tpu_torch.ops.cuda.aggregate_kernel import rowsweep_aggregate
-from mdfnet_tpu_torch.ops.warp import homography_warp, homography_warp_train
+from mdfnet_tpu_torch.ops.cuda.warp_kernel import sample_2d
+from mdfnet_tpu_torch.ops.warp import (homography_warp, homography_warp_train,
+                                       sweep_sample_coords)
 
 
 class _ConvBN(nn.Module):
@@ -71,7 +79,8 @@ class DepthWeight(nn.Sequential):
 
 class VectorAggregate(nn.Module):
     """``warp_impl``: the JAX config's field; ``"fused"`` selects the fused
-    train aggregate (C/G == 2); eval runs K1 whatever it says."""
+    train aggregate (C/G == 2); eval runs K1 (C/G == 2) or K6 whatever it
+    says."""
 
     def __init__(self, ngroups: int, warp_impl: str = "dense"):
         super().__init__()
@@ -93,28 +102,24 @@ class VectorAggregate(nn.Module):
             (B, D, H, W, G) f32 cost volume.
         """
         c, g = feats.shape[-1], self.ngroups
-        if train and self.warp_impl == "fused" and c == 2 * g:
+        if c != 2 * g and not diffs:
+            if plain and not train:
+                return self._softmax_groups_path(
+                    feats.float(), ref_proj, src_projs, depth_hypos)
+            return self._groups_path(feats, ref_proj, src_projs, depth_hypos,
+                                     plain, train)
+        if train and self.warp_impl == "fused":
             return self._fused_train_path(feats, ref_proj, src_projs,
                                           depth_hypos, plain)
         if train:
-            if c != 2 * g:
-                raise NotImplementedError(
-                    "the train aggregate takes C/G == 2 only")
             return self._train_path(feats, ref_proj, src_projs, depth_hypos,
                                     plain)
-        if diffs or c == 2 * g:
-            d = feats if diffs else feats[..., 0::2] - feats[..., 1::2]
-            # no copy where the stack is dense (B = 1, a whole K4 output);
-            # K1 takes dense operands, so a channel slice is copied
-            return rowsweep_aggregate(
-                d[:, 1:].contiguous(), d[:, 0].contiguous(), src_projs,
-                ref_proj, depth_hypos, *self.depth_weight.fold(),
-                plain=plain)
-        if feats.is_cuda and not plain:
-            raise NotImplementedError(
-                "the CUDA aggregate kernel takes C/G == 2 only")
-        return self._softmax_groups_path(feats.float(), ref_proj, src_projs,
-                                         depth_hypos)
+        d = feats if diffs else feats[..., 0::2] - feats[..., 1::2]
+        # no copy where the stack is dense (B = 1, a whole K4 output); K1
+        # takes dense operands, so a channel slice is copied
+        return rowsweep_aggregate(
+            d[:, 1:].contiguous(), d[:, 0].contiguous(), src_projs, ref_proj,
+            depth_hypos, *self.depth_weight.fold(), plain=plain)
 
     def _fused_train_path(self, feats, ref_proj, src_projs, depth_hypos,
                           plain):
@@ -149,21 +154,50 @@ class VectorAggregate(nn.Module):
             wsum = wsum + wgt
         return vol / wsum[..., None]
 
-    def _softmax_groups_path(self, feats, ref_proj, src_projs, depth_hypos):
-        """General C/G: group softmax + per-group inner product (reference
-        homoaggregate.py:28-46), plain PyTorch."""
-        b, v, h, w, c = feats.shape
-        g = self.ngroups
-
-        def unit(x):
-            return torch.softmax(x.reshape(x.shape[:-1] + (g, c // g)), -1)
-
-        ref_unit = unit(feats[:, 0])[:, None]
+    def _groups_path(self, feats, ref_proj, src_projs, depth_hypos, plain,
+                     train):
+        """General C/G on the sample kernel: each source's C channels
+        warped (K6; in training K6 forward, K7 backward), the f32 group
+        softmax, the per-group inner product with the reference's unit
+        vectors, the DepthWeight-weighted mean in f32. One source at a
+        time, as the JAX unit loops, so one source's volume is in memory
+        at a time."""
+        v, h, w = feats.shape[1:4]
+        ref_unit = self._unit(feats[:, 0])[:, None]
         vol = wsum = 0.0
         for s in range(v - 1):
+            projs = src_projs[:, s:s + 1]
+            if train:
+                warped = homography_warp_train(
+                    feats[:, s + 1:s + 2], projs, ref_proj, depth_hypos,
+                    plain=plain)[:, 0]
+            else:
+                x, y = sweep_sample_coords(projs, ref_proj, depth_hypos, h, w)
+                warped = sample_2d(feats[:, s + 1].contiguous(), x, y,
+                                   plain=plain)
+            sim = torch.sum(self._unit(warped) * ref_unit, dim=-1)
+            wgt = self.depth_weight(sim, train=train)
+            vol = vol + wgt[..., None] * sim
+            wsum = wsum + wgt
+        return vol / wsum[..., None]
+
+    def _unit(self, x):
+        """The f32 softmax over each group's C/G channels."""
+        x = x.float()
+        g = self.ngroups
+        return torch.softmax(x.reshape(x.shape[:-1] + (g, x.shape[-1] // g)),
+                             -1)
+
+    def _softmax_groups_path(self, feats, ref_proj, src_projs, depth_hypos):
+        """General C/G: group softmax + per-group inner product (reference
+        homoaggregate.py:28-46), plain PyTorch on the gather warp; the
+        plain version of the eval :meth:`_groups_path`."""
+        ref_unit = self._unit(feats[:, 0])[:, None]
+        vol = wsum = 0.0
+        for s in range(feats.shape[1] - 1):
             warped = homography_warp(feats[:, s + 1], src_projs[:, s],
                                      ref_proj, depth_hypos)
-            sim = torch.sum(unit(warped) * ref_unit, dim=-1)
+            sim = torch.sum(self._unit(warped) * ref_unit, dim=-1)
             wgt = self.depth_weight(sim)
             vol = vol + wgt[..., None] * sim
             wsum = wsum + wgt

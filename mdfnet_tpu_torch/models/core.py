@@ -7,18 +7,30 @@ Channels-last: imgs (B, V, H, W, 3); features (B*V, h, w, C); cost volumes
 reference ``state_dict`` names (``Backbone``, ``Homoaggre``, ``Regular``,
 ``Refine``), so reference ``.pth`` files and JAX-exported weights load with
 ``load_state_dict(strict=True)``.
+
+Under ``remat`` (JAX ``core.py:84-103``: ``nn.remat``), training wraps the
+backbone, each aggregate and each U-Net in
+``torch.utils.checkpoint.checkpoint``: the backward recomputes their
+activations instead of keeping them. The recomputation runs with every
+BatchNorm inside the block marked ``recomputing``, so the running
+statistics take the first pass's update only, as JAX's remat keeps the
+first pass's ``batch_stats``. The parameters and the state_dict are the
+same either way.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mdfnet_tpu_torch import geometry
 from mdfnet_tpu_torch.models.aggregate import VectorAggregate
 from mdfnet_tpu_torch.models.aggregate_variance import VarianceAggregate
 from mdfnet_tpu_torch.models.backbone import FPN4Scales
+from mdfnet_tpu_torch.models.layers import BatchNorm
 from mdfnet_tpu_torch.models.refine import RefineNet, RefineNet2
 from mdfnet_tpu_torch.models.regularize import (RegularNet3Scales,
                                                 RegularNet4Scales)
@@ -41,7 +53,8 @@ class CoreNet(nn.Module):
     ``aggregate_impl="variance"`` (the U-Nets then take C channels, not
     G), ``hypo_impl="atv"`` (adaptive-thin-volume hypotheses from stage 1
     on) and ``refine_impl="refine1"`` (RefineNet v1, which also takes the
-    reference image).
+    reference image). ``remat``: recompute the blocks JAX's remat wraps in
+    the training backward.
     """
 
     def __init__(self, *, chs: Sequence[int], ndepths: Sequence[int],
@@ -49,8 +62,9 @@ class CoreNet(nn.Module):
                  prob_threshs: Sequence[float], ngroups: Sequence[int],
                  dtype: torch.dtype, warp_impl: str = "dense",
                  aggregate_impl: str = "vector", hypo_impl: str = "fit",
-                 refine_impl: str = "refine2"):
+                 refine_impl: str = "refine2", remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.ndepths = tuple(ndepths)
         self.curve_classes = tuple(curve_classes)
         self.prob_threshs = tuple(prob_threshs)
@@ -123,8 +137,8 @@ class CoreNet(nn.Module):
         b, v = imgs.shape[:2]
         nstages = len(self.ndepths)
         vstack = imgs.transpose(0, 1).reshape((v * b,) + imgs.shape[2:])
-        fs = self.Backbone(vstack.to(self.dtype), plain=plain, train=True,
-                           vgroups=v)
+        fs = self._block(self.Backbone, vstack.to(self.dtype), plain=plain,
+                         train=True, vgroups=v)
         intrinsics, extrinsics = intrinsics.float(), extrinsics.float()
         depths, depth, hypos, prob = [], None, None, None
         for stage in range(nstages):
@@ -133,15 +147,26 @@ class CoreNet(nn.Module):
             # refined_hypotheses runs under no_grad
             hypos = self._hypotheses(stage, depth_range, depth, prob, hypos)
             feats = fs[stage].reshape((v, b) + fs[stage].shape[1:])
-            cost = self.Homoaggre[stage](feats.transpose(0, 1), ref_proj,
-                                         src_projs, hypos, plain=plain,
-                                         train=True)
-            prob = self.Regular[stage](cost.to(self.dtype), plain=plain,
-                                       train=True)
+            cost = self._block(self.Homoaggre[stage], feats.transpose(0, 1),
+                               ref_proj, src_projs, hypos, plain=plain,
+                               train=True)
+            prob = self._block(self.Regular[stage], cost.to(self.dtype),
+                               plain=plain, train=True)
             depth = depth_regression(prob, hypos)
             depths.append(depth)
         depths.append(self._refine(imgs, depth, depth_range, plain, True))
         return {"depth": depths}
+
+    def _block(self, module: nn.Module, *args, **kwargs):
+        """``module(*args, **kwargs)`` in the training forward; under remat
+        checkpointed, its recomputation with the block's BatchNorms
+        marked ``recomputing``."""
+        if not self.remat:
+            return module(*args, **kwargs)
+        return checkpoint(module, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              _recomputing(module)),
+                          **kwargs)
 
     def _refine(self, imgs, depth, depth_range, plain, train):
         extra = (imgs[:, 0],) if isinstance(self.Refine, RefineNet) else ()
@@ -173,3 +198,16 @@ class CoreNet(nn.Module):
         return {"depth": depth, "confidence": confidence,
                 "coverage_ok": torch.ones((), dtype=torch.bool,
                                           device=depth.device)}
+
+
+@contextlib.contextmanager
+def _recomputing(module: nn.Module):
+    """Mark every BatchNorm of ``module`` as recomputing while it runs."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.recomputing = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.recomputing = False

@@ -32,7 +32,9 @@ class BatchNorm(nn.Module):
     Eval normalises with the running statistics. Train normalises with the
     batch's biased variance, in f32, and moves the running statistics
     towards the batch mean and the UNBIASED variance; ``num_batches_tracked``
-    counts the updates."""
+    counts the updates. While ``recomputing`` is set (by the remat wrapper,
+    ``models/core.py``, as the backward recomputes a forward), train leaves
+    the running statistics alone: the first pass updated them."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -44,6 +46,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
+        self.recomputing = False
 
     def fold(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(scale, offset) with bn(x) == x * scale + offset, in f32."""
@@ -66,16 +69,18 @@ class BatchNorm(nn.Module):
         axes = tuple(range(1, xs.dim() - 1))
         var, mean = torch.var_mean(xs, dim=axes, correction=0,
                                    keepdim=True)                  # (V,1..,C)
-        with torch.no_grad():
-            m, n = self.momentum, x.numel() // (ch * vgroups)
-            w = m * (1.0 - m) ** torch.arange(vgroups - 1, -1, -1,
-                                              dtype=torch.float32,
-                                              device=x.device)
-            unbiased = var.reshape(vgroups, ch) * (n / max(n - 1, 1))
-            self.running_mean.mul_((1.0 - m) ** vgroups).add_(
-                w @ mean.reshape(vgroups, ch))
-            self.running_var.mul_((1.0 - m) ** vgroups).add_(w @ unbiased)
-            self.num_batches_tracked.add_(vgroups)
+        if not self.recomputing:
+            with torch.no_grad():
+                m, n = self.momentum, x.numel() // (ch * vgroups)
+                w = m * (1.0 - m) ** torch.arange(vgroups - 1, -1, -1,
+                                                  dtype=torch.float32,
+                                                  device=x.device)
+                unbiased = var.reshape(vgroups, ch) * (n / max(n - 1, 1))
+                self.running_mean.mul_((1.0 - m) ** vgroups).add_(
+                    w @ mean.reshape(vgroups, ch))
+                self.running_var.mul_((1.0 - m) ** vgroups).add_(
+                    w @ unbiased)
+                self.num_batches_tracked.add_(vgroups)
         y = ((xs - mean) * torch.rsqrt(var + self.eps) * self.weight.float()
              + self.bias.float())
         return y.reshape(x.shape).to(x.dtype)
@@ -89,6 +94,8 @@ class BatchNorm(nn.Module):
         batch mean and unbiased variance (``means``, ``unbiased_vars``: (V,)
         for one channel, or (V, C))."""
         m = self.momentum
+        if self.recomputing:
+            return
         for mean, var in zip(means, unbiased_vars):
             self.running_mean.mul_(1.0 - m).add_(m * mean)
             self.running_var.mul_(1.0 - m).add_(m * var)

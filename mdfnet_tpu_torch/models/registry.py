@@ -2,13 +2,14 @@
 
 Reads the topology fields of :class:`mdfnet_tpu_torch.config.ModelConfig`
 (the alternative units ``aggregate_impl``, ``hypo_impl``, ``refine_impl``
-and ``gauss0`` curves among them), its ``compute_dtype`` and its
-``warp_impl``: ``"fused"`` selects the fused
-train aggregate (``ops/aggregate_train.py``: the stats kernel, then the
-aggregate kernel with a per-view BatchNorm affine) in training, as
-``warp_impl="fused"`` does in the JAX package; eval runs the same kernels
-whatever it says. The other JAX-only fields (``pallas_conv``, ``wfold``,
-``remat``) select nothing here.
+and ``gauss0`` curves among them), its ``compute_dtype``, its ``remat``
+(training recomputes the backbone, each aggregate and each U-Net in the
+backward, as JAX's remat does) and its ``warp_impl``: ``"fused"`` selects
+the fused train aggregate (``ops/aggregate_train.py``: the stats kernel,
+then the aggregate kernel with a per-view BatchNorm affine) in training at
+C/G == 2, as ``warp_impl="fused"`` does in the JAX package; eval runs the
+same kernels whatever it says. The other JAX-only fields (``pallas_conv``,
+``wfold``) select nothing here.
 """
 from __future__ import annotations
 
@@ -63,7 +64,8 @@ def build_model(config: ModelConfig | None = None, *,
                     warp_impl=config.warp_impl,
                     aggregate_impl=config.aggregate_impl,
                     hypo_impl=config.hypo_impl,
-                    refine_impl=config.refine_impl)
+                    refine_impl=config.refine_impl,
+                    remat=config.remat)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval().requires_grad_(False)
 

@@ -112,3 +112,97 @@ def depth_error(a, b) -> np.ndarray:
     """|a - b| as a fraction of the scenes' depth range."""
     return np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)) \
         / DEPTH_EXTENT
+
+
+NVIEWS_TRAIN = 3
+
+
+def train_batch(structures=("steps", "steps"), height: int = 32,
+                width: int = 64, nviews: int = NVIEWS_TRAIN) -> dict:
+    """A train batch of one synthetic item per entry of ``structures``
+    (numpy; the items differ where their structures do)."""
+    items = [make_batch(make_structured_scene(
+        height=height, width=width, nviews=nviews, structure=s), batch=1)
+        for s in structures]
+    return jax.tree_util.tree_map(lambda *a: np.concatenate(a), *items)
+
+
+def jax_train_oracle(config: ModelConfig, batch: dict, seed: int = 0,
+                     data: int = 1) -> dict:
+    """JAX's f32 train step on its exact XLA path (``warp_impl="gather"``)
+    before the optimizer, from ``jm.init`` weights with perturbed
+    BatchNorms: {"variables" (numpy), "loss", "grads" and "stats" (the
+    gradients and the updated statistics in the port's state_dict
+    names)}. ``data`` > 1: the ``shard_map`` step of ``train_lib.py:
+    shard_step`` over that many of the virtual CPU devices (loss psum'd
+    inside, gradients and statistics pmean'd)."""
+    from jax.sharding import PartitionSpec as P
+    from mdfnet_tpu.models.loss import multi_scale_depth_loss as jax_loss
+    from mdfnet_tpu.parallel import make_mesh, shard_batch
+    from mdfnet_tpu.utils.pth_import import variables_to_state_dict
+
+    jb = jax.tree_util.tree_map(jnp.asarray, batch)
+    jm = build_jax_model(dataclasses.replace(config, warp_impl="gather"))
+    variables = jax.jit(lambda b: jm.init(
+        jax.random.PRNGKey(seed), b["imgs"], b["extrinsics"],
+        b["intrinsics"], b["depth_range"], train=True))(jb)
+    variables = perturb_batchnorm(jax.tree_util.tree_map(np.asarray,
+                                                         variables),
+                                  np.random.RandomState(seed))
+
+    def loss_fn(params, stats, b, axis_name=None):
+        out, mutated = jm.apply(
+            {"params": params, "batch_stats": stats}, b["imgs"],
+            b["extrinsics"], b["intrinsics"], b["depth_range"], train=True,
+            mutable=["batch_stats"])
+        return (jax_loss(out["depth"], b["ref_depths"], b["depth_range"],
+                         axis_name=axis_name), mutated["batch_stats"])
+
+    def step(params, stats, b, axis_name=None):
+        (loss, new_stats), grads = jax.value_and_grad(
+            loss_fn, has_aux=True)(params, stats, b, axis_name)
+        if axis_name is not None:
+            grads = jax.lax.pmean(grads, axis_name)
+            new_stats = jax.lax.pmean(new_stats, axis_name)
+        return loss, grads, new_stats
+
+    if data == 1:
+        fn = jax.jit(step)
+    else:
+        mesh = make_mesh(data=data, devices=jax.devices()[:data])
+        fn = jax.jit(jax.shard_map(
+            lambda p, s, b: step(p, s, b, "data"), mesh=mesh,
+            in_specs=(P(), P(), P("data")), out_specs=(P(), P(), P()),
+            check_vma=False))
+        jb = shard_batch(mesh, jb)
+    loss, grads, stats = fn(variables["params"], variables["batch_stats"],
+                            jb)
+
+    def sd(params, batch_stats):
+        return variables_to_state_dict({
+            "params": jax.tree_util.tree_map(np.asarray, params),
+            "batch_stats": jax.tree_util.tree_map(np.asarray, batch_stats)})
+    return {"variables": variables, "loss": float(loss),
+            "grads": sd(grads, variables["batch_stats"]),
+            "stats": sd(variables["params"], stats)}
+
+
+def port_from_jax(config: ModelConfig, variables, **fields):
+    """The port's CoreNet for ``config`` (with ``fields`` replaced) on the
+    CPU, loaded with the JAX variables, ready to train."""
+    port = build_port(dataclasses.replace(config, **fields))
+    port.load_state_dict(state_dict_from_jax_variables(variables),
+                         strict=True)
+    return port.requires_grad_(True)
+
+
+def grad_errors(grads: dict, want: dict) -> dict:
+    """Each parameter's relative gradient error norm against ``want``."""
+    return {k: float(np.linalg.norm(np.asarray(g) - want[k])
+                     / max(np.linalg.norm(want[k]), 1e-30))
+            for k, g in grads.items()}
+
+
+def running_stats(buffers: dict) -> dict:
+    """The running means and variances of a name -> buffer dict."""
+    return {k: v for k, v in buffers.items() if "running" in k}

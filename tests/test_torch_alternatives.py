@@ -259,13 +259,14 @@ def test_weights_refuse_a_partial_tree(jax_and_port, missing):
 
 # ------------------------------------------------- the card's forward gate
 
-@pytest.mark.parametrize("name", ["default"] + list(ALTERNATIVES))
+@pytest.mark.parametrize("name", ["default", "groups"] + list(ALTERNATIVES))
 def test_forward_bounds_hold_bf16_rounding(name):
     """chip_smoke.py holds each config's bf16 kernel forward to the plain
     f32 forward under FORWARD_BOUNDS and the depth bounds. Those bounds
     must leave room for bf16 rounding alone: the plain versions in bf16
     against f32 at 128x160 x 5 views (the gate's seeded weights, sharpened
-    as it does) read within each bound. Prints the readings (-s)."""
+    as it does) read within each bound. "groups": the vector aggregate at
+    C/G = 4 (chip_smoke.ALT_CONFIGS). Prints the readings (-s)."""
     import chip_smoke as cs
     from mdfnet_tpu_torch.config import ModelConfig
     from mdfnet_tpu_torch.data import make_batch, make_plane_scene
@@ -276,7 +277,8 @@ def test_forward_bounds_hold_bf16_rounding(name):
     batch = make_batch(scene, batch=1)
     args = [torch.from_numpy(batch[k])
             for k in ("imgs", "extrinsics", "intrinsics", "depth_range")]
-    fields = ALTERNATIVES.get(name, {})
+    fields = dict(ALTERNATIVES, groups=cs.ALT_CONFIGS["groups"]).get(name,
+                                                                     {})
     m32 = build_model(ModelConfig(**fields), seed=0, device="cpu")
     cs.sharpen(m32)
     m16 = build_model(ModelConfig(**fields), compute_dtype="bfloat16",

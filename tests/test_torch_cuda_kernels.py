@@ -1120,3 +1120,84 @@ def test_fused_train_step_on_the_kernels():
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
     cos = grads[0] @ grads[1] / (grads[0].norm() * grads[1].norm())
     assert cos > 0.999
+
+
+# ----------------------------------- the vector aggregate at C/G != 2
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,w,d,c,per_pixel", [(64, 80, 48, 64, False),
+                                               (256, 320, 8, 16, True)])
+def test_sample_and_splat_at_the_groups_train_shapes(dtype, h, w, d, c,
+                                                     per_pixel):
+    """K6 and K7 as the C/G = 4 train aggregate runs them
+    (ModelConfig(ngroups=(16, 8, 4)) at DTU train): one source's C = 2G
+    channels of 4 items a launch, stage 0 (48 uniform planes, C = 64) and
+    stage 2 (8 per-pixel planes, C = 16), against their plain versions;
+    K7 twice with the same bits."""
+    b = 4
+    k = torch.tensor([[1.8 * w, 0, w / 2], [0, 1.8 * w, h / 2], [0, 0, 1]])
+    e = torch.eye(4).repeat(2, 1, 1)
+    e[1, 0, 3] = -12.0
+    ref_proj, src_projs = geometry.projection_matrices(
+        k[None].repeat(b, 2, 1, 1).cuda(), e[None].repeat(b, 1, 1, 1).cuda(),
+        3, num_stages=4)
+    hyp = torch.linspace(425.0, 935.0, d).reshape(1, d, 1, 1).repeat(
+        b, 1, 1, 1)
+    if per_pixel:
+        hyp = hyp + torch.rand(b, 1, h, w) * 40.0
+    x, y = sweep_sample_coords(src_projs, ref_proj, hyp.cuda(), h, w)
+    img = torch.randn(b, h, w, c).cuda().to(dtype)
+    g = torch.randn(b, d, h, w, c).cuda().to(dtype)
+    before = (warp_kernel.LAUNCHES["sample_2d"],
+              splat_kernel.LAUNCHES["splat_2d"])
+    _agree(lambda p: warp_kernel.sample_2d(img, x, y, plain=p), dtype)
+    got = splat_kernel.splat_2d(g, x, y, h, w)
+    again = splat_kernel.splat_2d(g, x, y, h, w)
+    ref = splat_kernel.splat_2d(g, x, y, h, w, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err = (got - ref).abs().max().item()
+    assert err <= REL_TOL[torch.float32] * ref.abs().max().item()
+    assert (warp_kernel.LAUNCHES["sample_2d"],
+            splat_kernel.LAUNCHES["splat_2d"]) == (before[0] + 1,
+                                                   before[1] + 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_groups_aggregate_on_the_card(dtype):
+    """VectorAggregate at C/G = 4 on the card: the eval volume on K6 and
+    the train volume and the features' gradient (K6 forward, K7 backward;
+    in f32 also DepthWeight's) against the plain versions; 2 sources, 2
+    items."""
+    from mdfnet_tpu_torch.models.aggregate import VectorAggregate
+    from mdfnet_tpu_torch.models.layers import init_parameters
+    b, v, h, w, d, g = 2, 3, 24, 40, 6, 4
+    agg = VectorAggregate(g)
+    init_parameters(agg, torch.Generator().manual_seed(0))
+    agg = agg.cuda()
+    ref_proj, src_projs = _cameras(h, w, v)
+    ref_proj, src_projs = ref_proj.repeat(b, 1, 1), src_projs.repeat(
+        b, 1, 1, 1)
+    hyp = torch.linspace(425, 935, d).reshape(1, d, 1, 1).repeat(
+        b, 1, 1, 1).cuda()
+    feats = torch.randn(b, v, h, w, 4 * g).cuda().to(dtype)
+    before = warp_kernel.LAUNCHES["sample_2d"]
+    with torch.no_grad():
+        got = agg(feats, ref_proj, src_projs, hyp)
+        ref = agg(feats, ref_proj, src_projs, hyp, plain=True)
+    assert warp_kernel.LAUNCHES["sample_2d"] == before + v - 1
+    assert got.shape == (b, d, h, w, g) and got.dtype == torch.float32
+    assert (got - ref).abs().max().item() <= REL_TOL[dtype]
+    ct = torch.randn(b, d, h, w, g).cuda()
+    out = []
+    for plain in (False, True):
+        agg.zero_grad()
+        f = feats.clone().requires_grad_(True)
+        vol = agg(f, ref_proj, src_projs, hyp, plain=plain, train=True)
+        (vol * ct).sum().backward()
+        out.append([vol.detach(), f.grad.float()] + (
+            [p.grad for p in agg.parameters()]
+            if dtype == torch.float32 else []))
+    for a, r in zip(*out):
+        assert (a - r).abs().max().item() <= \
+            REL_TOL[dtype] * max(r.abs().max().item(), 1e-6)

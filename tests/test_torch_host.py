@@ -10,12 +10,16 @@ import pytest
 import torch
 
 from mdfnet_tpu import config as jax_config
+from mdfnet_tpu.benchmarks import tanks_submit as jax_submit
+from mdfnet_tpu.cli import viz as jax_viz
 from mdfnet_tpu.data import datasets as jax_datasets
 from mdfnet_tpu.data import formats as jax_formats
 from mdfnet_tpu.data import pipeline as jax_pipeline
 from mdfnet_tpu.data import synthetic as jax_synthetic
 from mdfnet_tpu.utils import pth_import as jax_pth
 from mdfnet_tpu_torch import config as port_config
+from mdfnet_tpu_torch.benchmarks import tanks_submit as port_submit
+from mdfnet_tpu_torch.cli import viz as port_viz
 from mdfnet_tpu_torch.data import datasets as port_datasets
 from mdfnet_tpu_torch.data import formats as port_formats
 from mdfnet_tpu_torch.data import pipeline as port_pipeline
@@ -29,7 +33,7 @@ def _fields(cls):
 
 
 @pytest.mark.parametrize("name", ["ModelConfig", "TrainConfig", "EvalConfig",
-                                  "DataConfig"])
+                                  "DataConfig", "MeshConfig"])
 def test_config_defaults_field_by_field(name):
     assert _fields(getattr(port_config, name)) == \
         _fields(getattr(jax_config, name))
@@ -321,3 +325,114 @@ def test_tanks_eval_items(tmp_path):
     assert item["imgs"].shape == (4, 16, 28, 3)
     assert item["filename"] == "Family/{}/00000005{}"
     np.testing.assert_array_equal(item["depth_range"], [425.0, 935.0])
+
+
+# ------------------------------------------------ the tool CLIs' copies
+
+def _write_cams(root, n=3):
+    root.mkdir()
+    rng = np.random.RandomState(4)
+    for i in range(n):
+        port_formats.write_cam_file(
+            str(root / f"{i:08d}_cam.txt"), rng.rand(3, 3).astype(np.float32),
+            rng.rand(4, 4).astype(np.float32), (425.0, 2.5, 192.0, 935.0))
+    (root / "pair.txt").write_text("not a cam")
+
+
+def test_viz_rescale_cams_writes_the_jax_bytes(tmp_path):
+    _write_cams(tmp_path / "cams")
+    port_viz.main(["rescale-cams", str(tmp_path / "cams"),
+                   str(tmp_path / "port"), "--factor", "4"])
+    jax_viz.main(["rescale-cams", str(tmp_path / "cams"),
+                  str(tmp_path / "jax"), "--factor", "4"])
+    got = _tree_bytes(tmp_path / "port")
+    assert got == _tree_bytes(tmp_path / "jax") and len(got) == 3
+
+
+@pytest.mark.parametrize("command", ["catpfm", "lossplot"])
+def test_viz_plots_draw_what_jax_draws(tmp_path, command):
+    """The same PNG as the JAX CLI's, decoded (matplotlib, imported by the
+    command alone)."""
+    pytest.importorskip("matplotlib")
+    if command == "catpfm":
+        src = tmp_path / "depth.pfm"
+        port_formats.write_pfm(str(src), np.random.RandomState(5).rand(
+            12, 16).astype(np.float32))
+        extra = ["--clip-min", "0.2", "--clip-max", "0.8"]
+    else:
+        src = tmp_path / "epoch_loss.txt"
+        src.write_text("3.5\n2.25\n1.75\n")
+        extra = []
+    for mod, tag in ((port_viz, "port"), (jax_viz, "jax")):
+        mod.main([command, str(src), str(tmp_path / f"{tag}.png"), *extra])
+    got = port_formats.read_image(str(tmp_path / "port.png"))
+    np.testing.assert_array_equal(
+        got, port_formats.read_image(str(tmp_path / "jax.png")))
+    assert got.shape[0] > 100
+
+
+@pytest.fixture()
+def packaged(tmp_path):
+    ply_dir, log_dir = tmp_path / "plys", tmp_path / "logs"
+    ply_dir.mkdir()
+    log_dir.mkdir()
+    for scene in ("Family", "Horse"):
+        (ply_dir / f"{scene}.ply").write_bytes(b"ply\n" + scene.encode())
+        (log_dir / f"{scene}.log").write_text(f"trajectory {scene}")
+    out = {}
+    for mod, tag in ((port_submit, "port"), (jax_submit, "jax")):
+        sums = mod.package_submission(str(ply_dir), str(log_dir),
+                                      str(tmp_path / tag), log_fn=None)
+        out[tag] = (str(tmp_path / tag), sums)
+    return out
+
+
+def test_tanks_package_matches_jax(packaged):
+    """The same pairs and MD5 manifest as the JAX package's, scenes without
+    a cloud skipped; the scene lists are the same."""
+    (port_out, port_sums), (jax_out, jax_sums) = packaged["port"], \
+        packaged["jax"]
+    assert port_sums == jax_sums and len(port_sums) == 4
+    assert _tree_bytes(port_out) == _tree_bytes(jax_out)
+    assert port_submit.INTERMEDIATE == jax_submit.INTERMEDIATE
+    assert port_submit.ADVANCED == jax_submit.ADVANCED
+
+
+def test_tanks_package_needs_the_log(tmp_path):
+    (tmp_path / "Family.ply").write_bytes(b"ply")
+    with pytest.raises(FileNotFoundError):
+        port_submit.package_submission(str(tmp_path), str(tmp_path / "none"),
+                                       str(tmp_path / "out"),
+                                       scenes=("Family",), log_fn=None)
+
+
+def test_tanks_upload_posts_presigned_policies(packaged, tmp_path,
+                                               monkeypatch):
+    """Twin of tests/test_tanks_submit.py's upload test, mocked transport."""
+    out, _ = packaged["port"]
+    cred = tmp_path / "cred.txt"
+    cred.write_text("POLICYA###SIGA###Family.ply\n"
+                    "POLICYB###SIGB###Family.log\n"
+                    "###results/42/###svc@t2.iam###2099-01-01\n")
+    posts = []
+
+    class FakeResponse:
+        status_code = 204
+
+    class FakeSession:
+        def post(self, url, data=None, files=None, headers=None):
+            posts.append((url, dict(data)))
+            return FakeResponse()
+
+    requests = pytest.importorskip("requests")
+    monkeypatch.setattr(requests, "Session", FakeSession)
+    port_submit.upload_submission(out, str(cred), scenes=("Family",),
+                                  log_fn=None)
+    assert len(posts) == 2
+    url, policy = posts[0]
+    assert url == "http://t2-website-userdata.storage.googleapis.com"
+    assert policy["key"] == "results/42/Family.ply"
+    assert policy["policy"] == "POLICYA" and policy["signature"] == "SIGA"
+    assert policy["GoogleAccessId"] == "svc@t2.iam"
+    assert posts[1][1]["key"] == "results/42/Family.log"
+    assert posts[1][1]["policy"] == "POLICYB"
