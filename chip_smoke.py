@@ -5,6 +5,7 @@
     python3 chip_smoke.py --device-ms ROOT   # K1, K7, K9 device time, ROOT's
     python3 chip_smoke.py --chain-tiles [ROOT]   # the chain kernel at each tile
     python3 chip_smoke.py --eval-profile ROOT   # the eval forward, ROOT's
+    python3 chip_smoke.py --spatial   # the spatial phase alone
 
 ``--gate-spread`` reads the bf16 and f32 step gates' metrics over equally
 correct summation orders and over the injected faults (gate_spread), from
@@ -140,7 +141,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
      strict load); every rank joined within DP_TIMEOUT;
   14. remat — ModelConfig(remat=True): one f32 step against the plain one
      (STEP_BOUNDS_F32, running statistics bit-equal), and the bf16 step's
-     peak memory and ms with and without remat at REMAT_SHAPES.
+     peak memory and ms with and without remat at REMAT_SHAPES;
+  15. spatial — the eval forward at DTU full width, 1600x1152 x 5 views
+     (the 1184 crop aligned to 32 x 4 rows), with H sharded over 2 and 4
+     spawned ranks (parallel/spatial.py): sharing the card over gloo on a
+     one-card machine (a check of correctness and memory, not a scaling
+     number), a card a rank over NCCL where there are enough: the f32
+     kernels sharded vs unsharded (SPATIAL_BOUNDS), the bf16 sharded
+     forward vs the plain f32 unsharded one under the forward gate's
+     depth and confidence bounds and its share of pixels whose bits
+     differ from the bf16 unsharded forward, a zeroed halo (>= 2x a
+     bound), every kernel of the path launched on every rank, peak memory,
+     ms/map and all-reduces per rank beside the unsharded; at n = 2 the
+     ngroups=(16, 8, 4) config on K6; K1's band launch at stage 0 (Hs !=
+     H) vs its plain version and the full launch; ``cli.eval --spatial 2``
+     in a session of its own.
 
 The profile lines (DTU, both Tanks widths) give device busy time, ATen's
 elementwise and ``cat`` device time and the time by layer. After the
@@ -3640,6 +3655,348 @@ def remat_phase(batch, smi: str) -> None:
             "step's")
 
 
+# spatial_phase: the eval forward with the image height sharded over each of
+# SPATIAL_WORLDS ranks (parallel/spatial.py): on one card the ranks share it
+# over gloo (a check of correctness and memory per rank, not a scaling
+# number); with a card a rank they talk over NCCL.
+# DTU full width with the 1184 crop aligned down to a multiple of 32 x 4
+# (cli/eval.py align_crop), the top 1152 rows of the forward phase's scene
+SPATIAL_HEIGHT, SPATIAL_WORLDS = 1152, (2, 4)
+# the f32 kernels sharded against the f32 kernels unsharded: JAX
+# test_spatial.py's bounds (depth max over the depth range, confidence max)
+SPATIAL_BOUNDS = {"depth max": 1e-5, "confidence max": 1e-4}
+SPATIAL_TIMEOUT, SPATIAL_MAPS = 300.0, 4
+# the C/G != 2 unit that JAX's tests shard (K6 at stage 0 and beyond)
+SPATIAL_GROUPS = dict(ngroups=(16, 8, 4))
+
+
+def spatial_args(scene):
+    from mdfnet_tpu_torch.data import make_batch
+    batch = make_batch(scene, batch=1)
+    batch["imgs"] = np.ascontiguousarray(batch["imgs"][:, :, :SPATIAL_HEIGHT])
+    return [torch.from_numpy(batch[k]).to(DEV)
+            for k in ("imgs", "extrinsics", "intrinsics", "depth_range")]
+
+
+def spatial_models(device, **fields):
+    """(f32 model, bf16 model) with the forward gate's sharpened seed-0
+    weights (sharpen), on ``device``."""
+    from mdfnet_tpu_torch.config import ModelConfig
+    from mdfnet_tpu_torch.models.registry import build_model
+    f32 = build_model(ModelConfig(**fields), seed=0, device=device)
+    sharpen(f32)
+    bf16 = build_model(ModelConfig(compute_dtype="bfloat16", **fields),
+                       seed=0, device=device)
+    bf16.load_state_dict(f32.state_dict())
+    return f32, bf16
+
+
+def _zero_halo_rows():
+    """The injected fault: every halo exchange delivers zero rows in place
+    of the neighbours' (the collectives still pair up; the all-gathers of
+    the sources are left as they are); returns the undo."""
+    from mdfnet_tpu_torch.parallel import halo
+    rows = halo._neighbour_rows
+
+    def zeroed(x, h_axis, lo, hi):
+        return tuple(None if t is None else torch.zeros_like(t)
+                     for t in rows(x, h_axis, lo, hi))
+    halo._neighbour_rows = zeroed
+    return lambda: setattr(halo, "_neighbour_rows", rows)
+
+
+def _spatial_rank(rank, world, backend, init_method, out):
+    """One rank of spatial_phase: the f32 and bf16 sharded forwards (the
+    bf16 one timed, its launches and exchanges counted, its peak memory
+    read), the f32 one with a zeroed halo, and at world 2 the C/G != 2
+    config's f32 forward, on the inputs in <out>/args.pt; rank 0 keeps the
+    gathered maps."""
+    from mdfnet_tpu_torch.parallel import (halo, init_data_parallel,
+                                           rank_device, spatial_eval_forward)
+    device = rank_device(rank, "cuda")
+    group = init_data_parallel(rank, world, backend, init_method,
+                               timeout=DP_COLLECTIVE_TIMEOUT)
+    try:
+        # on the host: each rank moves its band of the images alone
+        args = torch.load(os.path.join(out, "args.pt"))
+        f32, bf16 = spatial_models(device)
+
+        def fwd(model):
+            got = spatial_eval_forward(model, *args, group)
+            return {k: got[k].float().cpu() for k in ("depth", "confidence")}
+        result = {"f32": fwd(f32)}
+        fwd(bf16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        held_mb = torch.cuda.memory_allocated(device) / 2**20
+        reset_launches()
+        halo.EXCHANGES.update(calls=0, bytes=0)
+        times = []
+        for _ in range(SPATIAL_MAPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result["bf16"] = fwd(bf16)
+            times.append((time.perf_counter() - t0) * 1e3)
+        from mdfnet_tpu_torch.ops.cuda import aggregate_kernel, conv_kernel
+        result.update(
+            times=times, held_mb=held_mb,
+            peak_mb=torch.cuda.max_memory_allocated(device) / 2**20,
+            launches={k: v // SPATIAL_MAPS for c in (
+                aggregate_kernel.LAUNCHES, conv_kernel.LAUNCHES)
+                for k, v in c.items() if k in KERNELS},
+            exchanges={k: v // SPATIAL_MAPS
+                       for k, v in halo.EXCHANGES.items()})
+        undo = _zero_halo_rows()
+        try:
+            result["fault"] = fwd(f32)
+        finally:
+            undo()
+        if world == 2:
+            from mdfnet_tpu_torch.ops.cuda import warp_kernel
+            g32, _ = spatial_models(device, **SPATIAL_GROUPS)
+            reset_launches()
+            result["groups"] = fwd(g32)
+            result["groups k6"] = warp_kernel.LAUNCHES["sample_2d"]
+        torch.save(result if rank == 0 else {
+            k: result[k] for k in ("times", "held_mb", "peak_mb", "launches",
+                                   "exchanges")},
+            os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _map_errors(got: dict, ref: dict) -> dict:
+    depth = ((got["depth"] - ref["depth"]).abs()
+             / (DEPTH_RANGE[1] - DEPTH_RANGE[0])).flatten().numpy()
+    conf = (got["confidence"] - ref["confidence"]).abs()
+    return {"depth max": float(depth.max()),
+            "depth median": float(np.median(depth)),
+            "depth p95": float(np.percentile(depth, 95)),
+            "confidence max": conf.max().item(),
+            "confidence mean |diff|": conf.mean().item()}
+
+
+def k1_band_case(scene) -> dict:
+    """K1 at stage 0 of the 1152-row forward: a rank's band launch (rows
+    of SPATIAL_WORLDS' bands, row0 into the full-height sources) against
+    its plain version and beside the full launch, by wall (CUDA events
+    around the wrapper) and by the kernel's own device time."""
+    from mdfnet_tpu_torch.ops.cuda import aggregate_kernel
+    gen = torch.Generator().manual_seed(15)
+    src, ref, src_projs, ref_proj, hyp, k0, *sc = k1_inputs(
+        gen, scene, torch.bfloat16, height=SPATIAL_HEIGHT)[0]
+    b, s, hs, w, g = src.shape
+    d = hyp.shape[1]
+
+    def launch(rows, row0, plain=False):
+        band = ref[:, rows].contiguous()
+        return lambda: aggregate_kernel.rowsweep_aggregate(
+            src, band, src_projs, ref_proj, hyp, k0, *sc, row0=row0,
+            plain=plain)
+    kernel = "rowsweep_aggregate_kernel"
+    out = {"full_ms": cuda_ms(launch(slice(0, hs), 0)),
+           "full_device_ms": kernel_device_ms(launch(slice(0, hs), 0),
+                                              kernel), "bands": {}}
+    for n in SPATIAL_WORLDS:
+        h = hs // n
+        rows = slice(h, 2 * h)             # rank 1's band
+        got, want = launch(rows, h)(), launch(rows, h, plain=True)()
+        err, rel = _rel_err(got, want)
+        require(rel <= REL_TOL[torch.bfloat16],
+                f"K1 band launch n={n}: {rel:.2e} of the plain version")
+        full = launch(slice(0, hs), 0)()
+        same = torch.equal(got, full[:, :, rows])
+        points = b * d * h * w
+        out["bands"][n] = dict(
+            shape=f"{h}/{hs}x{w}x{g} D{d} S{s}", max_abs_err=err,
+            ms=cuda_ms(launch(rows, h)),
+            device_ms=kernel_device_ms(launch(rows, h), kernel),
+            plain_ms=cuda_ms(launch(rows, h, plain=True), iters=3),
+            equals_full_rows=same, **bound(
+                "rowsweep_aggregate", size(src, ref[:, rows], hyp)
+                + points * g * 4, aggregate_ops(points, s, g, False),
+                aggregate_mufu(b * h * w, points, s, g)))
+        require(same, f"K1 band launch n={n}: not the full launch's rows")
+    return out
+
+
+def spatial_phase(smi: str) -> dict:
+    """The eval forward at DTU full width, 1600x1152 x 5 views, with H
+    sharded over 2 and 4 ranks (sharing the card over gloo, or a card a
+    rank over NCCL): f32 kernels
+    sharded vs unsharded (SPATIAL_BOUNDS), bf16 sharded vs the plain f32
+    unsharded forward (the forward gate's depth and confidence bounds) and
+    its share of pixels whose bits differ from the bf16 unsharded forward,
+    a zeroed halo (>= 2x a bound), every kernel of the path launched on
+    every rank, peak memory and ms/map per rank beside the unsharded; the
+    C/G != 2 config on K6 at n = 2; K1's band launch; the eval CLI with
+    --spatial 2. Returns K1's band case for the kernel line."""
+    from mdfnet_tpu_torch.parallel import default_backend, spawn_ranks
+    scene = dtu_scene()
+    args = spatial_args(scene)
+    f32, bf16 = spatial_models(DEV)
+    plain = {k: v.float().cpu() for k, v in f32(*args, plain=True).items()
+             if k != "coverage_ok"}
+    ref32 = {k: v.float().cpu() for k, v in f32(*args).items()
+             if k != "coverage_ok"}
+    bf16(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_mb = torch.cuda.memory_allocated() / 2**20
+    times = []
+    for _ in range(SPATIAL_MAPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = bf16(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ref16 = {k: out[k].float().cpu() for k in ("depth", "confidence")}
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    g32, _ = spatial_models(DEV, **SPATIAL_GROUPS)
+    ref_groups = {k: v.float().cpu() for k, v in g32(*args).items()
+                  if k != "coverage_ok"}
+    del f32, bf16, g32, out
+    torch.cuda.empty_cache()
+    print(f"spatial: unsharded {WIDTH}x{SPATIAL_HEIGHT}x{NVIEWS} bf16 "
+          f"{statistics.median(times[1:]):.2f} ms/map, peak {peak_mb:.0f} "
+          f"MiB ({held_mb:.0f} of it held before the forwards); {smi}",
+          flush=True)
+    failures = []
+    for n in SPATIAL_WORLDS:
+        out_dir = smoke_dir(f"smoke_spatial{n}")
+        torch.save([a.cpu() for a in args], os.path.join(out_dir, "args.pt"))
+        t0 = time.perf_counter()
+        backend = default_backend(n, "cuda")
+        how = ("NCCL, a card a rank" if backend == "nccl" else
+               f"gloo, {n} ranks share one card: not a scaling number")
+        spawn_ranks(_spatial_rank, n, (backend, f"file://{out_dir}/pg",
+                                       out_dir),
+                    timeout=SPATIAL_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"))
+                 for r in range(n)]
+        r0 = ranks[0]
+        e32 = _map_errors(r0["f32"], ref32)
+        e16 = _map_errors(r0["bf16"], plain)
+        ef = _map_errors(r0["fault"], ref32)
+        bits = (r0["bf16"]["depth"] != ref16["depth"]).float().mean().item()
+        cbits = (r0["bf16"]["confidence"]
+                 != ref16["confidence"]).float().mean().item()
+        caught = [k for k, b in SPATIAL_BOUNDS.items() if ef[k] >= 2 * b]
+        line = (f"spatial n={n} ({how}), {WIDTH}x{SPATIAL_HEIGHT}x{NVIEWS}: "
+                f"f32 "
+                f"kernels sharded vs unsharded: " + ", ".join(
+                    f"{k} {e32[k]:.2e} (bound {b:.0e})"
+                    for k, b in SPATIAL_BOUNDS.items())
+                + f"; bf16 sharded vs plain f32 unsharded: depth median "
+                f"{e16['depth median']:.2e} p95 {e16['depth p95']:.2e} "
+                f"(bounds {MEDIAN_BOUND}, {P95_BOUND}), confidence mean "
+                f"|diff| {e16['confidence mean |diff|']:.2e} (bound "
+                f"{FORWARD_BOUNDS['confidence mean |diff|']:.0e}); bf16 "
+                f"sharded vs bf16 unsharded: depth bits differ at "
+                f"{bits:.2%} of pixels, confidence {cbits:.2%}; zeroed halo: "
+                + ", ".join(f"{k} {ef[k]:.2e}" for k in SPATIAL_BOUNDS)
+                + f" (>= 2x bound: {caught}); per rank (bf16, median ms/map "
+                f"of {SPATIAL_MAPS - 1} after one): "
+                + "; ".join(f"rank {r}: {statistics.median(v['times'][1:]):.1f}"
+                            f" ms/map, peak {v['peak_mb']:.0f} MiB "
+                            f"({v['held_mb']:.0f} held before)"
+                            for r, v in enumerate(ranks))
+                + f" (unsharded peak {peak_mb:.0f} MiB, {held_mb:.0f} held "
+                f"before); a map on rank 0: "
+                f"launches {r0['launches']}, {r0['exchanges']['calls']} "
+                f"all-reduces sending {r0['exchanges']['bytes'] / 2**20:.1f} "
+                f"MiB; spawn to join "
+                f"{spawn_s:.1f} s")
+        if n == 2:
+            eg = _map_errors(r0["groups"], ref_groups)
+            line += (f"; ngroups={SPATIAL_GROUPS['ngroups']} (K6, "
+                     f"{r0['groups k6']} launches on rank 0) f32 sharded vs "
+                     f"unsharded: " + ", ".join(
+                         f"{k} {eg[k]:.2e}" for k in SPATIAL_BOUNDS))
+            failures += [f"groups {k} {eg[k]:.2e}" for k, b in
+                         SPATIAL_BOUNDS.items() if eg[k] > b]
+            if not r0["groups k6"]:
+                failures.append("groups: K6 never launched")
+        print(line + f"; {smi}", flush=True)
+        failures += [f"n={n} f32 {k} {e32[k]:.2e}" for k, b in
+                     SPATIAL_BOUNDS.items() if e32[k] > b]
+        if not (e16["depth median"] <= MEDIAN_BOUND
+                and e16["depth p95"] <= P95_BOUND
+                and e16["confidence mean |diff|"]
+                <= FORWARD_BOUNDS["confidence mean |diff|"]):
+            failures.append(f"n={n} bf16 gate {e16}")
+        if not caught:
+            failures.append(f"n={n}: the zeroed halo stays within 2x {ef}")
+        for r, v in enumerate(ranks):
+            if not all(c > 0 for c in v["launches"].values()):
+                failures.append(f"n={n} rank {r}: a kernel never launched "
+                                f"{v['launches']}")
+        require(all(math.isfinite(x) for v in (r0["f32"], r0["bf16"])
+                    for x in (v["depth"].sum().item(),
+                              v["confidence"].sum().item())),
+                f"spatial n={n}: non-finite maps")
+    require(not failures, "spatial: " + "; ".join(failures))
+    band = k1_band_case(scene)
+    print(f"spatial: K1 at stage 0, bf16, a rank's band launch (rank 1; "
+          f"sources all-gathered to full height) vs the full launch "
+          f"{band['full_device_ms']:.4f} ms device ({band['full_ms']:.4f} "
+          f"wall): " + "; ".join(
+              f"n={n} {v['shape']}: {v['device_ms']:.4f} ms device "
+              f"({v['ms']:.4f} wall; plain "
+              f"{v['plain_ms']:.2f}, bound {v['bound_ms']:.4f}), max |err| "
+              f"{v['max_abs_err']:.2e}, the full launch's rows "
+              f"{v['equals_full_rows']}" for n, v in band["bands"].items())
+          + f"; {smi}", flush=True)
+    spatial_cli_phase()
+    return band
+
+
+def spatial_cli_phase() -> None:
+    """``python -m mdfnet_tpu_torch.cli.eval --spatial 2`` in a session of
+    its own on a synthetic 1600x1200 DTU tree (two reference views): the
+    crop aligned to 1152, rank 0 alone writing full-height finite maps."""
+    from mdfnet_tpu_torch.data import (read_pair_file, read_pfm,
+                                       write_dtu_eval_tree, write_pair_file)
+    from mdfnet_tpu_torch.models.registry import build_model
+    from mdfnet_tpu_torch.utils.weights import save_checkpoint
+    work = smoke_dir("smoke_spatial_cli")
+    try:
+        tree = os.path.join(work, "dtu1600x1200")
+        write_dtu_eval_tree(tree, scans=(9,), nviews=NVIEWS,
+                            height=SERVE_HEIGHT, width=WIDTH)
+        _, pairs = read_pair_file(os.path.join(tree, "pair.txt"))
+        write_pair_file(os.path.join(tree, "pair.txt"), pairs[:2])
+        ckpt = os.path.join(work, "seed0.pth")
+        save_checkpoint(build_model(seed=0, device=DEV), ckpt)
+        outdir = os.path.join(work, "outputs")
+        t0 = time.perf_counter()
+        proc = run_session(
+            [sys.executable, "-m", "mdfnet_tpu_torch.cli.eval", "-p", ckpt,
+             "--root", work, "-o", outdir, "--scans", "9", "--spatial", "2"],
+            timeout=SPATIAL_TIMEOUT)
+        cli_s = time.perf_counter() - t0
+        log = proc.stdout.strip().splitlines()
+        require(proc.returncode == 0, "eval CLI --spatial 2 failed:\n"
+                + "\n".join(log[-30:]))
+        require(any("1184 -> 1152" in x for x in log),
+                "eval CLI --spatial 2 did not align the crop to 1152")
+        files = sorted(os.path.relpath(os.path.join(d, f), outdir)
+                       for d, _, names in os.walk(outdir) for f in names)
+        require(len(files) == 6, f"eval CLI --spatial 2 wrote {files}")
+        for ref, _ in pairs[:2]:
+            depth, _ = read_pfm(os.path.join(outdir, "scan9", "depth_est",
+                                             f"{ref:08d}.pfm"))
+            require(depth.shape == (SPATIAL_HEIGHT, WIDTH)
+                    and np.isfinite(depth).all(),
+                    f"view {ref}: depth {depth.shape} not finite/1152 rows")
+        print(f"spatial CLI: eval --spatial 2 wrote 2 views ({len(files)} "
+              f"files, rank 0 alone) in {cli_s:.1f} s; "
+              f"{log[-1].split(': ', 1)[-1]}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # the final tiles (h, w) that --chain-tiles times the chain kernel at
 CHAIN_TILE_SWEEP = ((8, 8), (8, 16), (16, 16), (8, 32), (16, 32), (32, 16),
                     (32, 32), (32, 48), (48, 32), (32, 64), (64, 32),
@@ -4006,6 +4363,12 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
+    if sys.argv[1:] == ["--spatial"]:
+        from mdfnet_tpu_torch.ops.cuda import build
+        build.build()
+        spatial_phase(smi)
+        print(f"total: {time.perf_counter() - start:.1f} s; {smi}")
+        return
     print(f"device: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
@@ -4106,6 +4469,10 @@ def main():
     fused_learn_phase(batch, smi, unfused_layers)
     data_parallel_phase(smi)
     remat_phase(batch, smi)
+    band = spatial_phase(smi)
+    for k in kernels:
+        if k["name"] == "rowsweep_aggregate":
+            k["band"] = band
 
     print(f"total: {time.perf_counter() - start:.1f} s; {smi}", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,7 @@
 
     python -m mdfnet_tpu_torch.cli.eval -p CKPT.pth -d dtu|tanks
         [-s intermediate|advanced] [--root DIR] [-o OUTPUT] [--scans ...]
-        [--exact] [--device cuda|cpu]
+        [--exact] [--spatial N] [--device cuda|cpu]
 
 CKPT is a reference-schema ``.pth`` ({'epoch', 'model'}). DTU runs 5 views
 at 1600x1184; Tanks & Temples 11 views cropped to 1056 rows, per-scene
@@ -10,8 +10,15 @@ at 1600x1184; Tanks & Temples 11 views cropped to 1056 rows, per-scene
 with no card it exits with an error) the model runs the hand-written kernels
 with bf16 convs (f32 geometry, softmax and fitting); ``--exact`` runs the
 same kernels in f32, the port's counterpart of the JAX package's f32 gather
-path. ``--device cpu`` runs the plain versions in f32. The JAX CLI's
-``--spatial`` is not ported.
+path. ``--device cpu`` runs the plain versions in f32.
+
+``--spatial N`` shards the image height over N ranks (exact halo-exchange
+sharding, ``parallel/spatial.py``; 1/N of every image, feature, volume
+and output a rank): the crop is aligned down to a multiple of 32 N
+(:func:`align_crop`, as the JAX CLI does), the kernels are built once,
+then N processes meet over TCP on localhost (NCCL with a card a rank, else
+gloo: ranks that share a card, or ``--device cpu``); every rank loads the
+checkpoint and rank 0 alone writes the files.
 """
 from __future__ import annotations
 
@@ -28,6 +35,21 @@ from mdfnet_tpu_torch.models.registry import build_model, resolve_device
 from mdfnet_tpu_torch.utils.weights import load_checkpoint
 
 log = logging.getLogger("mdfnet_tpu_torch.eval")
+
+
+def align_crop(h: int, spatial: int) -> int:
+    """The eval crop for ``spatial`` ranks: band starts must sit on the
+    deepest conv grid (32 rows), so the crop is aligned down to a multiple
+    of 32 N (JAX ``cli/eval.py:96-108``; the same divisibility workaround
+    as the reference's 1200 -> 1184 crop). N = 1 keeps the crop."""
+    if spatial <= 1:
+        return h
+    unit = 32 * spatial
+    aligned = (h // unit) * unit
+    if aligned != h:
+        log.info("spatial=%d: crop height %d -> %d (32*N alignment)",
+                 spatial, h, aligned)
+    return aligned
 
 
 def main(argv=None):
@@ -48,10 +70,16 @@ def main(argv=None):
     parser.add_argument("--exact", action="store_true",
                         help="run the kernels in f32 on the card (the CPU "
                              "always runs f32)")
+    parser.add_argument("--spatial", type=int, default=1, metavar="N",
+                        help="shard the image height over N ranks (exact "
+                             "halo-exchange sharding; the crop is aligned "
+                             "to a multiple of 32 N)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda (default; fails without a card) or cpu "
                              "(the plain versions in f32)")
     args = parser.parse_args(argv)
+    if args.spatial < 1:
+        parser.error(f"--spatial {args.spatial}: at least 1 rank")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -71,7 +99,8 @@ def main(argv=None):
         dataset = DTUEvalDataset(
             os.path.join(data_cfg.root_dir, data_cfg.dtu_eval_subdir),
             scans=scans, nviews=EvalConfig().nviews,
-            crop_height=data_cfg.dtu_eval_crop_height)
+            crop_height=align_crop(data_cfg.dtu_eval_crop_height,
+                                   args.spatial))
     else:
         scenes = (args.scans.split(",") if args.scans else
                   (data_cfg.tanks_intermediate if args.set == "intermediate"
@@ -79,8 +108,10 @@ def main(argv=None):
         dataset = TanksEvalDataset(
             os.path.join(data_cfg.root_dir, data_cfg.tanks_subdir, args.set),
             scenes=scenes, nviews=11,
-            crop_height=data_cfg.tanks_crop_height)
-    stats = run_eval(model, dataset, args.output)
+            crop_height=align_crop(data_cfg.tanks_crop_height,
+                                   args.spatial))
+    stats = run_eval(model, dataset, args.output, spatial=args.spatial,
+                     checkpoint=args.pre_model)
     log.info("done: first map %.3f s; %.4f s/view device, %.4f s/view wall "
              "(incl. IO) over %d views", stats["first_map_sec"],
              stats["device_sec_per_view"], stats["wall_sec_per_view"],

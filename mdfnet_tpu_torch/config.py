@@ -98,9 +98,10 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Ranks of a run. data = batch sharding over processes (one rank a
-    card, ``parallel/mesh.py``); spatial = H-axis sharding of the cost
-    volumes, which the port does not have yet: it selects nothing, and
-    ``spatial_parallel != 1`` raises (``parallel.mesh.check_mesh``)."""
+    card, ``parallel/mesh.py``); spatial = H-axis sharding of the eval
+    forward (``parallel/spatial.py``; the eval CLI's ``--spatial N``
+    sets it): training has none, and there ``spatial_parallel != 1``
+    raises (``parallel.mesh.data_extent``)."""
     data_axis: str = "data"
     spatial_axis: str = "spatial"
     data_parallel: int = -1  # -1: all devices

@@ -46,9 +46,10 @@ def relative_transforms(src_projs: torch.Tensor,
 
 
 def pixel_grid(height: int, width: int, dtype=torch.float32,
-               device=None) -> torch.Tensor:
-    """Homogeneous pixel grid (3, H*W): rows x, y, 1 (x fastest)."""
-    y = torch.arange(height, dtype=dtype, device=device)
+               device=None, row0: int = 0) -> torch.Tensor:
+    """Homogeneous pixel grid (3, H*W): rows x, y, 1 (x fastest); y runs
+    over rows row0 .. row0 + H - 1 (a band of a taller image)."""
+    y = torch.arange(row0, row0 + height, dtype=dtype, device=device)
     x = torch.arange(width, dtype=dtype, device=device)
     yy, xx = torch.meshgrid(y, x, indexing="ij")
     ones = torch.ones(height * width, dtype=dtype, device=device)
@@ -56,20 +57,22 @@ def pixel_grid(height: int, width: int, dtype=torch.float32,
 
 
 def sweep_coordinates(src_proj: torch.Tensor, ref_proj: torch.Tensor,
-                      depth_hypos: torch.Tensor, height: int, width: int
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
+                      depth_hypos: torch.Tensor, height: int, width: int,
+                      row0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Project each ref pixel, lifted to each hypothesis depth, into a source.
 
     Args:
         src_proj, ref_proj: (B, 4, 4).
         depth_hypos: (B, D, H, W) or (B, D, 1, 1).
+        height, width: the reference grid, whose first row is the
+            reference image's row ``row0`` (a band under spatial sharding).
     Returns:
         (x_src, y_src), each (B, D, H*W) unnormalised source pixel coords.
     """
     b, d = depth_hypos.shape[:2]
     rel = relative_transforms(src_proj[:, None], ref_proj)[:, 0]
     rot, trans = rel[:, :3, :3], rel[:, :3, 3]
-    grid = pixel_grid(height, width, rot.dtype, rot.device)
+    grid = pixel_grid(height, width, rot.dtype, rot.device, row0)
     rot_xyz = rot @ grid                                   # (B, 3, H*W)
     hypos = depth_hypos.float().reshape(b, d, -1)
     if hypos.shape[-1] == 1:
@@ -83,7 +86,9 @@ def reference_grid_coords(x_src: torch.Tensor, y_src: torch.Tensor,
                           height: int, width: int
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """The reference's mixed align-corners convention,
-    ``x_eff = x * W / (W - 1) - 0.5`` (see ``mdfnet_tpu/geometry.py``)."""
+    ``x_eff = x * W / (W - 1) - 0.5`` (see ``mdfnet_tpu/geometry.py``);
+    ``height`` and ``width`` are the SOURCE image's (the full height under
+    spatial sharding, where the reference grid is a band)."""
     return (x_src * (width / (width - 1.0)) - 0.5,
             y_src * (height / (height - 1.0)) - 0.5)
 

@@ -28,6 +28,13 @@ differentiable form, K7 backward), then takes the f32 group softmax and the
 per-group inner product with the reference's unit vectors, in eval and in
 training, whatever ``warp_impl`` says: JAX sends ``"fused"`` at C/G != 2 to
 its dense warp, which computes the same warp.
+
+Under spatial sharding of the eval forward (JAX ``aggregate.py:232-264,
+303-310``) the reference grid is the rank's band and the sources are
+all-gathered to full height (``halo.all_gather_rows``: the small 2D
+features; the large volume stays sharded). The band's global offset reaches
+the warps as an integer, rank x band rows (K1's ``row0``; the warps'
+reference grid at K6), so every sample coordinate is the unsharded one.
 """
 from __future__ import annotations
 
@@ -40,6 +47,16 @@ from mdfnet_tpu_torch.ops.cuda.aggregate_kernel import rowsweep_aggregate
 from mdfnet_tpu_torch.ops.cuda.warp_kernel import sample_2d
 from mdfnet_tpu_torch.ops.warp import (homography_warp, homography_warp_train,
                                        sweep_sample_coords)
+from mdfnet_tpu_torch.parallel import halo
+
+
+def gathered_sources(src: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(the sources (B, S, H, W, C) at full height, the band's first row):
+    all-gathered under spatial sharding, else as they are and 0."""
+    ctx = halo.current_ctx()
+    if ctx is None:
+        return src, 0
+    return halo.all_gather_rows(src, 2), ctx.rank * src.shape[2]
 
 
 class _ConvBN(nn.Module):
@@ -117,9 +134,10 @@ class VectorAggregate(nn.Module):
         d = feats if diffs else feats[..., 0::2] - feats[..., 1::2]
         # no copy where the stack is dense (B = 1, a whole K4 output); K1
         # takes dense operands, so a channel slice is copied
+        src, row0 = gathered_sources(d[:, 1:])
         return rowsweep_aggregate(
-            d[:, 1:].contiguous(), d[:, 0].contiguous(), src_projs, ref_proj,
-            depth_hypos, *self.depth_weight.fold(), plain=plain)
+            src.contiguous(), d[:, 0].contiguous(), src_projs, ref_proj,
+            depth_hypos, *self.depth_weight.fold(), row0=row0, plain=plain)
 
     def _fused_train_path(self, feats, ref_proj, src_projs, depth_hypos,
                           plain):
@@ -164,6 +182,8 @@ class VectorAggregate(nn.Module):
         at a time."""
         v, h, w = feats.shape[1:4]
         ref_unit = self._unit(feats[:, 0])[:, None]
+        src, row0 = (feats[:, 1:], 0) if train else gathered_sources(
+            feats[:, 1:])
         vol = wsum = 0.0
         for s in range(v - 1):
             projs = src_projs[:, s:s + 1]
@@ -172,9 +192,9 @@ class VectorAggregate(nn.Module):
                     feats[:, s + 1:s + 2], projs, ref_proj, depth_hypos,
                     plain=plain)[:, 0]
             else:
-                x, y = sweep_sample_coords(projs, ref_proj, depth_hypos, h, w)
-                warped = sample_2d(feats[:, s + 1].contiguous(), x, y,
-                                   plain=plain)
+                x, y = sweep_sample_coords(projs, ref_proj, depth_hypos, h, w,
+                                           src_height=src.shape[2], row0=row0)
+                warped = sample_2d(src[:, s].contiguous(), x, y, plain=plain)
             sim = torch.sum(self._unit(warped) * ref_unit, dim=-1)
             wgt = self.depth_weight(sim, train=train)
             vol = vol + wgt[..., None] * sim
@@ -193,10 +213,12 @@ class VectorAggregate(nn.Module):
         homoaggregate.py:28-46), plain PyTorch on the gather warp; the
         plain version of the eval :meth:`_groups_path`."""
         ref_unit = self._unit(feats[:, 0])[:, None]
+        src, row0 = gathered_sources(feats[:, 1:])
         vol = wsum = 0.0
         for s in range(feats.shape[1] - 1):
-            warped = homography_warp(feats[:, s + 1], src_projs[:, s],
-                                     ref_proj, depth_hypos)
+            warped = homography_warp(src[:, s], src_projs[:, s], ref_proj,
+                                     depth_hypos, height=feats.shape[2],
+                                     row0=row0)
             sim = torch.sum(self._unit(warped) * ref_unit, dim=-1)
             wgt = self.depth_weight(sim)
             vol = vol + wgt[..., None] * sim

@@ -19,6 +19,7 @@ from torch import nn
 
 from mdfnet_tpu_torch.ops.cuda.warp_kernel import sample_2d
 from mdfnet_tpu_torch.ops.warp import homography_warp_train, sweep_sample_coords
+from mdfnet_tpu_torch.parallel import halo
 
 
 class VarianceAggregate(nn.Module):
@@ -33,6 +34,11 @@ class VarianceAggregate(nn.Module):
             ref_proj: (B, 4, 4); src_projs: (B, V-1, 4, 4).
             depth_hypos: (B, D, H, W) or (B, D, 1, 1).
         """
+        if halo.current_ctx() is not None:
+            # JAX's sharded unit samples band-local sources: its confidence
+            # reads 1.5e-4 off the unsharded forward (parallel/spatial.py)
+            raise ValueError("spatial sharding is not exact for the variance "
+                             "aggregate (aggregate_impl='variance')")
         b, v, h, w, c = feats.shape
         vol_sum = feats[:, 0].float()[:, None]      # (B, 1, H, W, C)
         vol_sq_sum = vol_sum ** 2

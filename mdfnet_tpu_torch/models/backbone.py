@@ -30,6 +30,18 @@ channels are differenced before composing, so the backbone emits the
 G-channel pair differences that the aggregate consumes (exact: the convs
 are linear).
 
+Under spatial sharding (``parallel/halo.py``) each chain runs on the chain
+kernel band-wise: the band is extended once by the chain's whole receptive
+halo (each layer's padding, the last one's stride counted:
+``halo.chain_halo``, 4 rows above and 3 below for the trunk, 2 a side for
+a same-scale pair), ``conv2d_chain`` runs unchanged on the extended band,
+and the band's output rows are kept; the rows a layer's zero padding
+corrupts move inward one padding a layer and never reach them. (JAX's
+backbone falls to its per-layer XLA path there, ``backbone.py:65-70``.)
+The other convs go through ``layers.ConvBNReLU``'s hook; the top-down
+path's convs are 1x1 (row-local) and its upsampled addends go through
+``ops/sample.py``'s hook; the pair differences are pointwise.
+
 Train (JAX ``backbone.py:80-126``) runs every conv, the 1x1 laterals and
 outputs included, as a differentiable conv (``conv2d_train``, K4 forward and
 stride-1 input gradient) on a view-major stack of the views, with per-view
@@ -44,12 +56,26 @@ from mdfnet_tpu_torch.models.layers import ConvBNReLU, ConvND
 from mdfnet_tpu_torch.ops.cuda import f32_matmul
 from mdfnet_tpu_torch.ops.cuda.conv_kernel import conv2d_bn_act, conv2d_chain
 from mdfnet_tpu_torch.ops.sample import upsample_2x_nhwc
+from mdfnet_tpu_torch.parallel import halo
+
+
+def banded_chain(x: torch.Tensor, weights, scales, offsets, *,
+                 final_stride: int = 1, plain: bool = False,
+                 **kw) -> torch.Tensor:
+    """``conv2d_chain`` of (N, H, W, C) ``x``; band-wise under spatial
+    sharding, with the chain's receptive halo exchanged once."""
+    lo, hi = halo.chain_halo([w.shape[-1] for w in weights], final_stride)
+    return halo.banded(
+        lambda v, _: conv2d_chain(v, weights, scales, offsets,
+                                  final_stride=final_stride, plain=plain,
+                                  **kw),
+        x, h_axis=1, lo=lo, hi=hi, stride=final_stride)
 
 
 def _chain(x: torch.Tensor, layers, *, final_stride: int = 1,
            plain: bool = False) -> torch.Tensor:
     weights, scales, offsets = zip(*(m.folded(x.dtype) for m in layers))
-    return conv2d_chain(x, weights, scales, offsets,
+    return banded_chain(x, weights, scales, offsets,
                         final_stride=final_stride, plain=plain)
 
 

@@ -16,6 +16,13 @@ BatchNorm inside the block marked ``recomputing``, so the running
 statistics take the first pass's update only, as JAX's remat keeps the
 first pass's ``batch_stats``. The parameters and the state_dict are the
 same either way.
+
+Under spatial sharding (``parallel/spatial.py``: ``imgs`` is the rank's
+H-band, JAX ``core.py:155-180``) the eval forward runs as it is: its
+H-stencil ops exchange halo rows (``parallel/halo.py``), the aggregates
+sample all-gathered sources, and the hypotheses, regressions and
+confidence are pointwise or go through the hooked upsamples. The units
+that are not exact there raise ``ValueError``, and so does training.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from mdfnet_tpu_torch.ops.fitting import (atv_hypos, refined_hypotheses,
 from mdfnet_tpu_torch.ops.regress import (confidence_regression,
                                           depth_regression)
 from mdfnet_tpu_torch.ops.sample import resize_bilinear_2x, resize_nearest_2x
+from mdfnet_tpu_torch.parallel import halo
 
 
 class CoreNet(nn.Module):
@@ -107,6 +115,10 @@ class CoreNet(nn.Module):
             window contract}.
         """
         if train:
+            if halo.current_ctx() is not None:
+                raise ValueError("spatial sharding shards the eval forward "
+                                 "only (the JAX package has no spatial "
+                                 "training)")
             return self._train_forward(imgs, extrinsics, intrinsics,
                                        depth_range, plain)
         with torch.no_grad():

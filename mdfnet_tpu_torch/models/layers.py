@@ -11,6 +11,18 @@ runs the conv alone through the differentiable kernels of
 the ReLU. Every ``forward`` takes ``plain``: True runs the kernels' plain
 PyTorch versions (also on the card), False launches the CUDA kernels for
 CUDA tensors (CPU tensors always take the plain versions).
+
+Under spatial sharding of the eval forward (``parallel/halo.py``) every
+conv runs band-wise, as the JAX package runs its own Pallas convs
+(``layers.py:484-488,653-657``): the band is extended by the rows its
+outputs read from the neighbouring bands (``halo.conv_halo``: the padding
+p a side at stride 1; at stride 2, p above rounded up to 2 and p - 1
+below; the transposed conv one below), the UNCHANGED kernel runs on the
+extended band, and the output rows that the kernel's own zero padding
+touched are dropped (``halo.banded``). The extra rows go to the kernels as
+a taller input; at the image's top and bottom edges no rows are added, so
+the kernels' zero padding is the image's. Training has no spatial
+sharding.
 """
 from __future__ import annotations
 
@@ -23,6 +35,12 @@ from mdfnet_tpu_torch.ops.cuda.conv_kernel import (
     conv2d_bn_act, conv3d_bn_act, trconv3d_bn_act)
 from mdfnet_tpu_torch.ops.cuda.conv_vjp import (conv2d_train, conv3d_train,
                                                 trconv3d_train)
+from mdfnet_tpu_torch.parallel import halo
+
+
+def h_axis(x: torch.Tensor) -> int:
+    """The H axis of a channels-last (N, H, W, C) or (N, D, H, W, C)."""
+    return x.dim() - 3
 
 
 class BatchNorm(nn.Module):
@@ -125,8 +143,12 @@ class ConvND(nn.Module):
                 plain: bool = False) -> torch.Tensor:
         conv = conv3d_bn_act if self.weight.dim() == 5 else conv2d_bn_act
         scale, offset = self.epilogue()
-        return conv(x, self.weight.to(x.dtype), scale, offset, relu=False,
-                    residual=residual, out_dtype=out_dtype, plain=plain)
+        w = self.weight.to(x.dtype)
+        lo, hi = halo.conv_halo(w.shape[-1])
+        return halo.banded(
+            lambda v, res: conv(v, w, scale, offset, relu=False, residual=res,
+                                out_dtype=out_dtype, plain=plain),
+            x, h_axis=h_axis(x), lo=lo, hi=hi, residual=residual)
 
     def train_forward(self, x: torch.Tensor,
                       plain: bool = False) -> torch.Tensor:
@@ -159,8 +181,12 @@ class ConvBNReLU(nn.Module):
             y = conv(x, w.to(x.dtype), self.stride, plain=plain)
             return torch.relu(self.bn(y, train=True, vgroups=vgroups))
         conv = conv3d_bn_act if w.dim() == 5 else conv2d_bn_act
-        return conv(x, *self.folded(x.dtype), stride=self.stride, relu=True,
-                    plain=plain)
+        folded = self.folded(x.dtype)
+        lo, hi = halo.conv_halo(w.shape[-1], self.stride)
+        return halo.banded(
+            lambda v, _: conv(v, *folded, stride=self.stride, relu=True,
+                              plain=plain),
+            x, h_axis=h_axis(x), lo=lo, hi=hi, stride=self.stride)
 
 
 class ConvTranspose3dWeight(nn.Module):
@@ -228,8 +254,12 @@ def trconv_bn_relu(x: torch.Tensor, conv: ConvTranspose3dWeight,
         y = trconv3d_train(x, conv.weight.to(x.dtype), plain=plain)
         y = torch.relu(bn(y, train=True))
         return y[:, :residual.shape[1]] + residual
-    return trconv3d_bn_act(x, conv.weight.to(x.dtype), *bn.fold(), relu=True,
-                           residual=residual, plain=plain)
+    w, folded = conv.weight.to(x.dtype), bn.fold()
+    # output rows 2i and 2i + 1 read input rows i and i + 1: one row below
+    return halo.banded(
+        lambda v, res: trconv3d_bn_act(v, w, *folded, relu=True,
+                                       residual=res, plain=plain),
+        x, h_axis=2, lo=0, hi=1, up=2, residual=residual)
 
 
 class TrConvBNReLU3D(nn.Sequential):

@@ -9,6 +9,13 @@ Res blocks' 0.1 scale and the skip adds in the epilogue, as in the TPU path
 (``refine.py:111-145``); PixelShuffle(2) follows, then the C->1 conv (K4 at
 Co = 1, on the co1 kernel, f32 out) and the de-normalisation.
 
+Under spatial sharding the chain runs band-wise as the backbone's do
+(``backbone.banded_chain``: its 9 rows of receptive halo a side exchanged
+once), PixelShuffle is row-local and the tail conv goes through
+``layers.ConvND``'s hook (JAX ``refine.py:55-57``). RefineNet v1 is
+refused there: its align-corners upsample depends on the global height
+(``parallel/spatial.py``).
+
 Train (JAX ``refine.py:174-210``) runs one differentiable conv per layer
 (``conv2d_train``): conv0, the Res blocks ``v + 0.1 * conv(relu(conv(v)))``,
 conv1 plus the skip, conv2_0, PixelShuffle, then the C->1 conv. The input
@@ -20,11 +27,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from mdfnet_tpu_torch.models.backbone import banded_chain
 from mdfnet_tpu_torch.models.layers import (ConvBNReLU, ConvND, Res,
                                             TrConvBNReLU2D, pixel_shuffle_2x)
-from mdfnet_tpu_torch.ops.cuda.conv_kernel import conv2d_chain
 from mdfnet_tpu_torch.ops.cuda.conv_vjp import conv2d_train
 from mdfnet_tpu_torch.ops.sample import resize_bilinear_2x_align_corners
+from mdfnet_tpu_torch.parallel import halo
 
 
 def _normalised(depth, depth_range, dtype):
@@ -66,7 +74,7 @@ class RefineNet2(nn.Module):
                              else 1.0, device=depth.device)
                   for i, m in enumerate(layers)]
         offsets = [torch.zeros_like(s) for s in scales]
-        x = conv2d_chain(x, [m.weight.to(dtype) for m in layers], scales,
+        x = banded_chain(x, [m.weight.to(dtype) for m in layers], scales,
                          offsets, relu_flags=relus, residuals=resid,
                          plain=plain)
         x = pixel_shuffle_2x(x).contiguous()
@@ -130,6 +138,10 @@ class RefineNet(nn.Module):
                 plain: bool = False, train: bool = False) -> torch.Tensor:
         """ref_img (B, H, W, 3), depth (B, H/2, W/2) f32, depth_range (B, 2)
         -> (B, H, W) f32. ``dtype``: compute dtype of the convs."""
+        if halo.current_ctx() is not None:
+            raise ValueError("spatial sharding is not exact for RefineNet v1 "
+                             "(refine_impl='refine1'): its align-corners "
+                             "upsample depends on the global height")
         x, xin, dmin, dmax = _normalised(depth, depth_range, dtype)
         kw = dict(plain=plain, train=train)
         img = self.conv_img(ref_img.to(dtype), **kw)

@@ -67,6 +67,7 @@ def build_model(config: ModelConfig | None = None, *,
                     refine_impl=config.refine_impl,
                     remat=config.remat)
     init_parameters(model, torch.Generator().manual_seed(seed))
+    model.config = config      # what a spawned rank rebuilds it from
     return model.to(device).eval().requires_grad_(False)
 
 

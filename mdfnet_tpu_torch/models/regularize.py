@@ -12,6 +12,10 @@ same graph on the differentiable convs of ``ops/cuda/conv_vjp.py`` (K8) with
 batch-statistics BatchNorm; each upsampling block's output is cropped on D
 to its skip before the add, and ProbConv is one conv to Co = 1 in the
 compute dtype, then cast to f32.
+
+Under spatial sharding of the eval forward every conv, transposed conv and
+ProbConv runs band-wise through the hooks of ``models/layers.py`` (JAX
+``regularize.py:73-99``); the softmax over D is pointwise.
 """
 from __future__ import annotations
 

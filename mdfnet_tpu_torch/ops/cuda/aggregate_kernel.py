@@ -15,6 +15,14 @@ statistics describe exactly the field that K1 normalises. They have no
 source window, so unlike the TPU kernels they need no coverage contract:
 they are exact for any camera.
 
+Under spatial sharding (``parallel/spatial.py``) the eval kernel takes a
+reference band: its grid is the H rows from the source images' row
+``row0``, the sources are the all-gathered Hs full-height rows, and every
+source bound and the grid convention's normalisation use Hs, as the JAX
+kernel's source height does (``aggregate_kernel.py:298,376,439``). The
+train launch and the stats kernel keep Hs == H (the JAX package has no
+spatial training).
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``plain=True`` asks for the plain version explicitly (used to compare
 the two on the card).
@@ -90,26 +98,29 @@ def depth_weight_folded(sim: torch.Tensor, k0, bn_scale, bn_offset, k1,
     return torch.sigmoid(k1 * torch.relu(s * bn_scale + bn_offset) + b1)
 
 
-def _similarities(src_diffs, ref_diffs, src_projs, ref_proj, depth_hypos):
+def _similarities(src_diffs, ref_diffs, src_projs, ref_proj, depth_hypos,
+                  row0: int = 0):
     """Per source view, sim = p q + (1-p)(1-q) (B, D, H, W, G) in f32, from
-    the gather warp of ``ops/warp.py``: the plain versions' shared chain."""
+    the gather warp of ``ops/warp.py``: the plain versions' shared chain.
+    The reference grid is ref_diffs' H rows from the sources' row
+    ``row0``."""
     if src_diffs.is_cuda:
         exact_cuda_math()
     q = torch.sigmoid(ref_diffs.float())[:, None]          # (B, 1, H, W, G)
     for s in range(src_diffs.shape[1]):
-        p = torch.sigmoid(homography_warp(src_diffs[:, s].float(),
-                                          src_projs[:, s], ref_proj,
-                                          depth_hypos))
+        p = torch.sigmoid(homography_warp(
+            src_diffs[:, s].float(), src_projs[:, s], ref_proj, depth_hypos,
+            height=ref_diffs.shape[1], row0=row0))
         yield p * q + (1.0 - p) * (1.0 - q)
 
 
 def _aggregate_plain(src_diffs, ref_diffs, src_projs, ref_proj, depth_hypos,
-                     k0, bn_s, bn_o, k1, b1):
+                     k0, bn_s, bn_o, k1, b1, row0: int = 0):
     """(volume, weight sum) with source view s normalised by (bn_s[s],
     bn_o[s])."""
     vol = wsum = 0.0
     for s, sim in enumerate(_similarities(src_diffs, ref_diffs, src_projs,
-                                          ref_proj, depth_hypos)):
+                                          ref_proj, depth_hypos, row0)):
         wgt = depth_weight_folded(sim, k0, bn_s[s], bn_o[s], k1, b1)
         vol = vol + wgt[..., None] * sim
         wsum = wsum + wgt
@@ -117,13 +128,14 @@ def _aggregate_plain(src_diffs, ref_diffs, src_projs, ref_proj, depth_hypos,
 
 
 def rowsweep_aggregate_plain(src_diffs, ref_diffs, src_projs, ref_proj,
-                             depth_hypos, k0, bn_scale, bn_offset, k1, b1):
+                             depth_hypos, k0, bn_scale, bn_offset, k1, b1,
+                             row0: int = 0):
     """Plain PyTorch version of :func:`rowsweep_aggregate` (f32 math): the
     gather warp of ``ops/warp.py`` followed by the aggregation."""
     n_src = src_diffs.shape[1]
     return _aggregate_plain(src_diffs, ref_diffs, src_projs, ref_proj,
                             depth_hypos, k0, [bn_scale] * n_src,
-                            [bn_offset] * n_src, k1, b1)[0]
+                            [bn_offset] * n_src, k1, b1, row0)[0]
 
 
 def rowsweep_aggregate_with_wsum_plain(src_diffs, ref_diffs, src_projs,
@@ -147,8 +159,12 @@ def rowsweep_stats_plain(src_diffs, ref_diffs, src_projs, ref_proj,
     return torch.stack(rows)
 
 
-def _check_inputs(name, src_diffs, ref_diffs, depth_hypos):
-    b, n_src, h, w, g = src_diffs.shape
+def _check_inputs(name, src_diffs, ref_diffs, depth_hypos,
+                  band: bool = False):
+    """(B, S, D, H, W, G, per_pixel, Hs): H is the reference grid's rows,
+    Hs the sources'; they differ only for a ``band`` launch."""
+    b, n_src, hs, w, g = src_diffs.shape
+    h = ref_diffs.shape[1] if band else hs
     d = depth_hypos.shape[1]
     if g not in _GROUPS:
         raise ValueError(f"{name}: G={g} not in {_GROUPS}")
@@ -161,7 +177,7 @@ def _check_inputs(name, src_diffs, ref_diffs, depth_hypos):
     if depth_hypos.shape != ((b, d, h, w) if per_pixel else (b, d, 1, 1)):
         raise ValueError(f"{name}: depth_hypos {tuple(depth_hypos.shape)} "
                          "does not match the grid")
-    return b, n_src, d, h, w, g, per_pixel
+    return b, n_src, d, h, w, g, per_pixel, hs
 
 
 def _scalars(device, *values) -> torch.Tensor:
@@ -171,12 +187,14 @@ def _scalars(device, *values) -> torch.Tensor:
 
 
 def _launch_aggregate(src_diffs, ref_diffs, src_projs, ref_proj, depth_hypos,
-                      k0, bn_scale, bn_offset, k1, b1, *, train: bool):
+                      k0, bn_scale, bn_offset, k1, b1, *, train: bool,
+                      row0: int = 0):
     """One launch of K1; ``train``: bn_scale/bn_offset are (S,) and the
-    weight sum is returned too."""
+    weight sum is returned too; else the reference grid may be a band of
+    the sources' rows from ``row0``."""
     name = "rowsweep_aggregate_with_wsum" if train else "rowsweep_aggregate"
-    b, n_src, d, h, w, g, per_pixel = _check_inputs(name, src_diffs,
-                                                    ref_diffs, depth_hypos)
+    b, n_src, d, h, w, g, per_pixel, hs = _check_inputs(
+        name, src_diffs, ref_diffs, depth_hypos, band=not train)
     dev = src_diffs.device
     rel = geometry.relative_transforms(src_projs, ref_proj).contiguous()
     hypos = depth_hypos.float().contiguous()
@@ -199,18 +217,20 @@ def _launch_aggregate(src_diffs, ref_diffs, src_projs, ref_proj, depth_hypos,
     device, stream = build.launch_context(src_diffs)
     lib = build.load_library()
     plan = aggregate_plan(b, d, h, w, g)
-    common = (b, n_src, d, h, w, g, int(per_pixel), plan.planes, plan.blocks,
-              _DTYPES[src_diffs.dtype], w / (w - 1.0), h / (h - 1.0), device,
-              stream)
+    # the grid convention normalises by the source's extent
+    tail = (int(per_pixel), plan.planes, plan.blocks,
+            _DTYPES[src_diffs.dtype], w / (w - 1.0), hs / (hs - 1.0), device,
+            stream)
     if train:
         err = lib.mdf_rowsweep_aggregate_train(
             src_diffs.data_ptr(), ref_diffs.data_ptr(), rel.data_ptr(),
             hypos.data_ptr(), params.data_ptr(), bn.data_ptr(),
-            out.data_ptr(), wsum.data_ptr(), *common)
+            out.data_ptr(), wsum.data_ptr(), b, n_src, d, h, w, g, *tail)
     else:
         err = lib.mdf_rowsweep_aggregate(
             src_diffs.data_ptr(), ref_diffs.data_ptr(), rel.data_ptr(),
-            hypos.data_ptr(), params.data_ptr(), out.data_ptr(), *common)
+            hypos.data_ptr(), params.data_ptr(), out.data_ptr(), b, n_src, d,
+            h, w, g, hs, int(row0), *tail)
     build.check(err, name)
     LAUNCHES[name] += 1
     return (out, wsum) if train else out
@@ -219,14 +239,16 @@ def _launch_aggregate(src_diffs, ref_diffs, src_projs, ref_proj, depth_hypos,
 def rowsweep_aggregate(src_diffs: torch.Tensor, ref_diffs: torch.Tensor,
                        src_projs: torch.Tensor, ref_proj: torch.Tensor,
                        depth_hypos: torch.Tensor, k0: torch.Tensor, bn_scale,
-                       bn_offset, k1, b1, *, plain: bool = False
-                       ) -> torch.Tensor:
+                       bn_offset, k1, b1, *, row0: int = 0,
+                       plain: bool = False) -> torch.Tensor:
     """Warp S sources onto D planes and aggregate them into a cost volume.
 
     Args:
-        src_diffs: (B, S, H, W, G) source pair differences (even minus odd
+        src_diffs: (B, S, Hs, W, G) source pair differences (even minus odd
             channels), bf16 or f32.
-        ref_diffs: (B, H, W, G) reference pair differences, same dtype.
+        ref_diffs: (B, H, W, G) reference pair differences, same dtype: the
+            reference grid, rows row0 .. row0 + H - 1 of the sources' Hs
+            (H == Hs and row0 == 0 but under spatial sharding).
         src_projs: (B, S, 4, 4); ref_proj: (B, 4, 4).
         depth_hypos: (B, D, H, W) or (B, D, 1, 1).
         k0: (G,) DepthWeight conv0 weights; bn_scale, bn_offset: its folded
@@ -237,10 +259,10 @@ def rowsweep_aggregate(src_diffs: torch.Tensor, ref_diffs: torch.Tensor,
     if plain or not src_diffs.is_cuda:
         return rowsweep_aggregate_plain(src_diffs, ref_diffs, src_projs,
                                         ref_proj, depth_hypos, k0, bn_scale,
-                                        bn_offset, k1, b1)
+                                        bn_offset, k1, b1, row0)
     return _launch_aggregate(src_diffs, ref_diffs, src_projs, ref_proj,
                              depth_hypos, k0, bn_scale, bn_offset, k1, b1,
-                             train=False)
+                             train=False, row0=row0)
 
 
 def rowsweep_aggregate_with_wsum(src_diffs: torch.Tensor,
@@ -283,7 +305,7 @@ def rowsweep_stats(src_diffs: torch.Tensor, ref_diffs: torch.Tensor,
     if plain or not src_diffs.is_cuda:
         return rowsweep_stats_plain(src_diffs, ref_diffs, src_projs,
                                     ref_proj, depth_hypos, k0)
-    b, n_src, d, h, w, g, per_pixel = _check_inputs(
+    b, n_src, d, h, w, g, per_pixel, _ = _check_inputs(
         "rowsweep_stats", src_diffs, ref_diffs, depth_hypos)
     dev = src_diffs.device
     rel = geometry.relative_transforms(src_projs, ref_proj).contiguous()

@@ -31,7 +31,7 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points (csrc/*.cu): pointers and the stream are c_void_p
 SIGNATURES = {
-    "mdf_rowsweep_aggregate": [_P] * 6 + [_I] * 10 + [_F, _F, _I, _P],
+    "mdf_rowsweep_aggregate": [_P] * 6 + [_I] * 12 + [_F, _F, _I, _P],
     "mdf_rowsweep_aggregate_train": [_P] * 8 + [_I] * 10 + [_F, _F, _I, _P],
     "mdf_rowsweep_stats": [_P] * 7 + [_I] * 8 + [_F, _F, _I, _I, _P],
     "mdf_conv_bn_act": [_P] * 6 + [_I] * 16 + [_P],

@@ -56,6 +56,14 @@
 // The train instantiation (TRAIN = true) reads a per-source-view BN affine
 // bn = [bn_s[S], bn_o[S]] instead of the two scalars in params, and also
 // writes the weight sum wsum (B, D, H, W) f32, which the backward needs.
+//
+// The reference grid may be a band of the sources' rows (spatial sharding
+// of the eval forward, mdfnet_tpu_torch/parallel/spatial.py): H x W
+// reference pixels at source rows row0 .. row0 + H - 1, against sources of
+// Hs rows, which bound the taps and normalise the grid convention (sy =
+// Hs / (Hs - 1)). The pixel's row enters the projection as row0 + h, an
+// exact float, so a band's coordinates are bitwise those of the same
+// pixels in the full launch. The train entry passes Hs = H, row0 = 0.
 
 #include "common.cuh"
 
@@ -77,7 +85,7 @@ template <int G> struct Plan {
 
 template <typename T, int G, bool TRAIN>
 __global__ void __launch_bounds__(kBlock, kMinBlocks) rowsweep_aggregate_kernel(
-    const T* __restrict__ src,         // (B, S, H, W, G) source pair diffs
+    const T* __restrict__ src,         // (B, S, Hs, W, G) source pair diffs
     const T* __restrict__ ref,         // (B, H, W, G) reference pair diffs
     const float* __restrict__ rel,     // (B, S, 4, 4) src_proj @ inv(ref_proj)
     const float* __restrict__ hypos,   // (B, D, H, W) or (B, D)
@@ -85,9 +93,10 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) rowsweep_aggregate_kernel(
     const float* __restrict__ bn,      // TRAIN: [bn_s[S], bn_o[S]]
     float* __restrict__ out,           // (B, D, H, W, G)
     float* __restrict__ wsum_out,      // TRAIN: (B, D, H, W)
-    int S, int D, int H, int W, int hypo_per_pixel, int planes, float sx, float sy) {
+    int S, int D, int H, int W, int Hs, int row0, int hypo_per_pixel, int planes, float sx,
+    float sy) {
   constexpr int L = Plan<G>::L, P = Plan<G>::P;
-  const int HW = H * W;
+  const int HW = H * W, HsW = Hs * W;
   const int tiles = (HW + P - 1) / P, runs = (D + planes - 1) / planes;
   const int tile = blockIdx.x % tiles;
   const int run = (blockIdx.x / tiles) % runs;
@@ -97,7 +106,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) rowsweep_aggregate_kernel(
   const int pixel = tile * P + threadIdx.x / L;
   const bool live = pixel < HW;   // the others compute a copy and store nothing
   const int pix = live ? pixel : HW - 1;
-  const float xf = (float)(pix % W), yf = (float)(pix / W);
+  const float xf = (float)(pix % W), yf = (float)(row0 + pix / W);
 
   float q[kCh], k0[kCh];
   mdf::ldg8(ref + ((long long)b * HW + pix) * G + c0, q);
@@ -107,7 +116,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) rowsweep_aggregate_kernel(
     k0[i] = __ldg(params + 4 + c0 + i);
   }
   const float k1 = params[2], b1 = params[3];
-  const T* srcb = src + (long long)b * S * HW * G + c0;
+  const T* srcb = src + (long long)b * S * HsW * G + c0;
   const float* relb = rel + (long long)b * S * 16;
 
   const int d_end = min(D, (run + 1) * planes);
@@ -120,14 +129,14 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) rowsweep_aggregate_kernel(
       // the group's L lanes project the pixel into L sources at once, lane
       // l into source s0 + l; each tap set then goes to the whole group
       const mdf::Taps mine =
-          mdf::sweep_taps(relb + min(s0 + lane, S - 1) * 16, xf, yf, hyp, H, W, sx, sy);
+          mdf::sweep_taps(relb + min(s0 + lane, S - 1) * 16, xf, yf, hyp, Hs, W, sx, sy);
       const int ns = min(L, S - s0);
       for (int k = 0; k < ns; ++k) {
         const int s = s0 + k;
         const mdf::Taps t{from_lane<L>(mine.x0, k), from_lane<L>(mine.y0, k),
                           from_lane<L>(mine.wx, k), from_lane<L>(mine.wy, k)};
         float sim[kCh];
-        mdf::lane_similarity<T, G>(srcb + (long long)s * HW * G, t, H, W, q, sim);
+        mdf::lane_similarity<T, G>(srcb + (long long)s * HsW * G, t, Hs, W, q, sim);
         const float sfield = group_field<L>(sim, k0);
         const float bn_s = TRAIN ? bn[s] : params[0];
         const float bn_o = TRAIN ? bn[S + s] : params[1];
@@ -151,26 +160,27 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) rowsweep_aggregate_kernel(
 struct Args {
   const void *src, *ref, *rel, *hypos, *params, *bn;
   void *out, *wsum;
-  int B, S, D, H, W, hypo_per_pixel, planes, blocks;
+  int B, S, D, H, W, Hs, row0, hypo_per_pixel, planes, blocks;
   float sx, sy;
 };
 
 template <typename T, int G, bool TRAIN>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int P = Plan<G>::P;
-  if (a.planes < 1) return cudaErrorInvalidValue;
+  if (a.planes < 1 || a.Hs < 2 || a.row0 < 0) return cudaErrorInvalidValue;
   // the wrapper's plan must be this kernel's
   const long long hw = (long long)a.H * a.W;
   const long long blocks =
       (long long)a.B * ((a.D + a.planes - 1) / a.planes) * ((hw + P - 1) / P);
-  if (blocks != a.blocks || blocks > 0x7fffffffLL || hw * G > 0x7fffffffLL)
+  if (blocks != a.blocks || blocks > 0x7fffffffLL || hw * G > 0x7fffffffLL ||
+      (long long)a.Hs * a.W * G > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   rowsweep_aggregate_kernel<T, G, TRAIN><<<(unsigned)blocks, kBlock, 0, stream>>>(
       static_cast<const T*>(a.src), static_cast<const T*>(a.ref),
       static_cast<const float*>(a.rel), static_cast<const float*>(a.hypos),
       static_cast<const float*>(a.params), static_cast<const float*>(a.bn),
-      static_cast<float*>(a.out), static_cast<float*>(a.wsum), a.S, a.D, a.H, a.W,
-      a.hypo_per_pixel, a.planes, a.sx, a.sy);
+      static_cast<float*>(a.out), static_cast<float*>(a.wsum), a.S, a.D, a.H, a.W, a.Hs,
+      a.row0, a.hypo_per_pixel, a.planes, a.sx, a.sy);
   return cudaGetLastError();
 }
 
@@ -199,16 +209,18 @@ cudaError_t dispatch(const Args& a, int G, int dtypes, cudaStream_t st) {
 
 // Each entry returns cudaGetLastError() after the launch (0 on success);
 // planes and blocks are the wrapper's launch plan, checked against the
-// kernel's.
+// kernel's. The eval entry's reference grid is H rows from the sources'
+// row row0 (of Hs; sy = Hs / (Hs - 1)).
 extern "C" int mdf_rowsweep_aggregate(const void* src, const void* ref, const void* rel,
                                       const void* hypos, const void* params, void* out,
-                                      int B, int S, int D, int H, int W, int G,
-                                      int hypo_per_pixel, int planes, int blocks, int dtypes,
-                                      float sx, float sy, int device, void* stream) {
+                                      int B, int S, int D, int H, int W, int G, int Hs,
+                                      int row0, int hypo_per_pixel, int planes, int blocks,
+                                      int dtypes, float sx, float sy, int device,
+                                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Args a{src, ref, rel, hypos, params, nullptr, out, nullptr,
-               B, S, D, H, W, hypo_per_pixel, planes, blocks, sx, sy};
+               B, S, D, H, W, Hs, row0, hypo_per_pixel, planes, blocks, sx, sy};
   return dispatch<false>(a, G, dtypes, static_cast<cudaStream_t>(stream));
 }
 
@@ -223,7 +235,7 @@ extern "C" int mdf_rowsweep_aggregate_train(const void* src, const void* ref, co
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Args a{src, ref, rel, hypos, params, bn, out, wsum,
-               B, S, D, H, W, hypo_per_pixel, planes, blocks, sx, sy};
+               B, S, D, H, W, H, 0, hypo_per_pixel, planes, blocks, sx, sy};
   return dispatch<true>(a, G, dtypes, static_cast<cudaStream_t>(stream));
 }
 

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from mdfnet_tpu_torch.ops.sample import resize_bicubic_2x
+from mdfnet_tpu_torch.parallel import halo
 
 
 def depth_regression(prob_volume: torch.Tensor,
@@ -45,5 +46,9 @@ def confidence_regression(prob_volume: torch.Tensor,
     depth_index = depth_index.clamp(0, d - 1)
     conf = torch.gather(window_sum, 1, depth_index[:, None])[:, 0]
     if last_confidence is not None:
+        if halo.current_ctx() is not None:
+            # JAX's sharded EMA reads 0.23 off its unsharded one: refused
+            raise ValueError("spatial sharding is not exact for the bicubic "
+                             "confidence EMA (last_confidence)")
         conf = 0.8 * resize_bicubic_2x(last_confidence) + 0.2 * conf
     return conf

@@ -4,6 +4,14 @@
 padding_mode='zeros', align_corners=False)`` in pixel space, with the JAX
 package's tap rounding: coordinates fully outside the image snap to -1, where
 both taps read zeros or carry zero weight.
+
+Under spatial sharding (``parallel/halo.py``) the two half-pixel 2x bilinear
+upsamples exchange one row a side with the neighbouring bands, replicated
+at the image's edges, upsample, and drop the two extra output rows a side
+(JAX ``sample.py:141-150``); the nearest upsample is row-local. The
+align-corners upsample depends on the global height and the bicubic one
+has no halo: the units that use them are refused under sharding
+(``parallel/spatial.py``).
 """
 from __future__ import annotations
 
@@ -11,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from mdfnet_tpu_torch.geometry import fma
+from mdfnet_tpu_torch.parallel import halo
 
 
 def bilinear_sample_2d(image: torch.Tensor, x: torch.Tensor,
@@ -84,16 +93,28 @@ def _upsample_axis(v: torch.Tensor, axis: int) -> torch.Tensor:
     return out.reshape(v.shape[:axis] + (2 * n,) + v.shape[axis + 1:])
 
 
+def _upsample_rows(v: torch.Tensor, axis: int) -> torch.Tensor:
+    """:func:`_upsample_axis` along the H axis ``axis``; band-wise under
+    spatial sharding: one true row a side from the neighbouring bands
+    (the band's own edge row at the image's edges, as the stencil
+    replicates it), the two extra output rows a side dropped."""
+    if halo.current_ctx() is None:
+        return _upsample_axis(v, axis)
+    v = halo.halo_exchange(v, axis, 1, 1, edge="replicate")
+    return _upsample_axis(v, axis).narrow(
+        axis, 2, 2 * v.shape[axis] - 4).contiguous()
+
+
 def resize_bilinear_2x(x: torch.Tensor) -> torch.Tensor:
     """2x bilinear upsample of (..., H, W), half-pixel centres (torch
     ``align_corners=False``): a fixed 0.25/0.75 stencil, width then height."""
-    return _upsample_axis(_upsample_axis(x, -1), -2)
+    return _upsample_rows(_upsample_axis(x, -1), x.dim() - 2)
 
 
 def upsample_2x_nhwc(x: torch.Tensor) -> torch.Tensor:
     """:func:`resize_bilinear_2x` of (N, H, W, C) over H and W, in place of
     its channels-last layout (the same arithmetic, so the same bits)."""
-    return _upsample_axis(_upsample_axis(x, 2), 1)
+    return _upsample_rows(_upsample_axis(x, 2), 1)
 
 
 def resize_bilinear_2x_align_corners(x: torch.Tensor) -> torch.Tensor:

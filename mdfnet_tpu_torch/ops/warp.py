@@ -19,21 +19,26 @@ from mdfnet_tpu_torch.ops.sample import bilinear_sample_2d
 
 
 def homography_warp(src_feat: torch.Tensor, src_proj: torch.Tensor,
-                    ref_proj: torch.Tensor,
-                    depth_hypos: torch.Tensor) -> torch.Tensor:
-    """Warp (B, H, W, C) source features onto the ref plane sweep.
+                    ref_proj: torch.Tensor, depth_hypos: torch.Tensor, *,
+                    height: int | None = None, row0: int = 0
+                    ) -> torch.Tensor:
+    """Warp (B, Hs, W, C) source features onto the ref plane sweep.
 
     Args:
         src_proj, ref_proj: (B, 4, 4).
         depth_hypos: (B, D, H, W) or (B, D, 1, 1).
+        height: the reference grid's rows H (default Hs), from the
+            reference image's row ``row0`` (a band of it under spatial
+            sharding, where the sources are all-gathered to full height).
     Returns:
         (B, D, H, W, C) warped volume.
     """
-    b, h, w, c = src_feat.shape
+    b, hs, w, c = src_feat.shape
+    h = hs if height is None else height
     d = depth_hypos.shape[1]
     x_src, y_src = geometry.sweep_coordinates(src_proj, ref_proj,
-                                              depth_hypos, h, w)
-    x_eff, y_eff = geometry.reference_grid_coords(x_src, y_src, h, w)
+                                              depth_hypos, h, w, row0)
+    x_eff, y_eff = geometry.reference_grid_coords(x_src, y_src, hs, w)
     warped = bilinear_sample_2d(src_feat, x_eff, y_eff)    # (B, D, H*W, C)
     return warped.reshape(b, d, h, w, c)
 
@@ -81,19 +86,24 @@ def homography_warp_train(src_feats: torch.Tensor, src_projs: torch.Tensor,
 
 @torch.no_grad()
 def sweep_sample_coords(src_projs: torch.Tensor, ref_proj: torch.Tensor,
-                        depth_hypos: torch.Tensor, height: int, width: int
+                        depth_hypos: torch.Tensor, height: int, width: int,
+                        *, src_height: int | None = None, row0: int = 0
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """The f32 pixel coordinates at which every ref pixel, lifted to every
     plane, samples every source: (x, y), each (B*S, D, H, W), source-major
     within each batch item. src_projs (B, S, 4, 4); ref_proj (B, 4, 4);
-    depth_hypos (B, D, H, W) or (B, D, 1, 1)."""
+    depth_hypos (B, D, H, W) or (B, D, 1, 1). The reference grid is H =
+    ``height`` rows from the reference image's row ``row0``; the sources
+    are ``src_height`` (default H) rows high: under spatial sharding a band
+    samples the all-gathered full-height sources."""
     b, s = src_projs.shape[:2]
     d = depth_hypos.shape[1]
     hypos = depth_hypos.float()[:, None].expand((b, s) + depth_hypos.shape[1:])
     x, y = geometry.sweep_coordinates(
         src_projs.reshape(b * s, 4, 4),
         ref_proj[:, None].expand(b, s, 4, 4).reshape(b * s, 4, 4),
-        hypos.reshape((b * s,) + hypos.shape[2:]), height, width)
-    x, y = geometry.reference_grid_coords(x, y, height, width)
+        hypos.reshape((b * s,) + hypos.shape[2:]), height, width, row0)
+    x, y = geometry.reference_grid_coords(
+        x, y, height if src_height is None else src_height, width)
     return (x.reshape(b * s, d, height, width).contiguous(),
             y.reshape(b * s, d, height, width).contiguous())

@@ -47,11 +47,13 @@ def data_world(batch_size: int, n_devices: int) -> int:
 def data_extent(mesh: MeshConfig, batch_size: int, n_devices: int) -> int:
     """The number of data-parallel ranks for ``mesh``: ``data_parallel`` =
     -1 takes :func:`data_world`; any other value must divide the batch.
-    Spatial sharding is not ported: ``spatial_parallel != 1`` raises."""
+    Training has no spatial sharding (nor has the JAX package's):
+    ``spatial_parallel != 1`` raises; the eval forward shards H with
+    ``parallel/spatial.py`` (``cli.eval --spatial N``)."""
     if mesh.spatial_parallel != 1:
         raise NotImplementedError(
-            "spatial sharding (MeshConfig.spatial_parallel != 1) is not "
-            "ported yet")
+            "spatial sharding (MeshConfig.spatial_parallel != 1) shards the "
+            "eval forward only (cli.eval --spatial N), not training")
     if mesh.data_parallel == -1:
         return data_world(batch_size, n_devices)
     if mesh.data_parallel < 1 or batch_size % mesh.data_parallel:

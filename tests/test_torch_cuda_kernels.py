@@ -105,6 +105,39 @@ def test_rowsweep_aggregate_lane_groups(dtype, g, planes):
     assert aggregate_kernel.LAUNCHES["rowsweep_aggregate"] == before + 1
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g,per_pixel", [(32, False), (16, True), (8, False)])
+def test_rowsweep_aggregate_on_a_band(dtype, g, per_pixel):
+    """K1 with a reference band (spatial sharding): H rows from row0 of the
+    Hs-row sources, Hs != H, against its plain version; in f32 each band
+    gives the full launch's rows bit for bit (the same coordinates)."""
+    b, s, d, hs, w = 1, 3, 6, 24, 36
+    ref_proj, src_projs = _cameras(hs, w, s + 1)
+    hyp = torch.linspace(425, 935, d).reshape(1, d, 1, 1)
+    if per_pixel:
+        hyp = hyp + torch.rand(1, d, hs, w) * 30
+    src = torch.randn(b, s, hs, w, g).cuda().to(dtype)
+    ref = torch.randn(b, hs, w, g).cuda().to(dtype)
+    dw = (torch.randn(g).cuda() * 0.3,
+          *(torch.tensor(v).cuda() for v in (0.9, 0.1, 1.2, -0.2)))
+    hyp = hyp.cuda()
+    full = aggregate_kernel.rowsweep_aggregate(src, ref, src_projs, ref_proj,
+                                               hyp, *dw)
+    for row0, h in ((0, 8), (8, 8), (16, 8), (4, 12)):
+        rows = slice(row0, row0 + h)
+        band_hyp = hyp[:, :, rows] if per_pixel else hyp
+        before = aggregate_kernel.LAUNCHES["rowsweep_aggregate"]
+        _agree(lambda p: aggregate_kernel.rowsweep_aggregate(
+            src, ref[:, rows].contiguous(), src_projs, ref_proj,
+            band_hyp.contiguous(), *dw, row0=row0, plain=p), dtype)
+        assert aggregate_kernel.LAUNCHES["rowsweep_aggregate"] == before + 1
+        if dtype == torch.float32:
+            band = aggregate_kernel.rowsweep_aggregate(
+                src, ref[:, rows].contiguous(), src_projs, ref_proj,
+                band_hyp.contiguous(), *dw, row0=row0)
+            assert torch.equal(band, full[:, :, rows]), row0
+
+
 def test_rowsweep_aggregate_rejects_unsupported_groups():
     ref_proj, src_projs = _cameras(8, 16, 2)
     args = (torch.randn(1, 1, 8, 16, 12).cuda(),

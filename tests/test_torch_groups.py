@@ -85,10 +85,15 @@ def test_groups_train_step_matches_jax(train_oracle, warp_impl):
     same path (JAX sends it to its dense warp).
 
     Not test_torch_train.py's 3e-3 for every parameter: stage 2's
-    DepthWeight reads 2.4e-2 against JAX (-s prints the worst). DepthWeight's gradients cancel across the source views
-    (sum_v w_v dL/dw_v = 0 at every voxel), so f32 summation orders move
-    them by percents: JAX's own gather and dense paths, equally exact,
-    part there too."""
+    DepthWeight reads 2.4e-2 against JAX (-s prints the worst).
+    DepthWeight's gradients cancel across the source views (sum_v w_v
+    dL/dw_v = 0 at every voxel), so f32 rounding moves them by percents:
+    swapping the two source views, which leaves the function unchanged,
+    moves JAX's own gradient of that parameter by 1.6e-2 and the port's
+    gap to JAX to 7.7e-3
+    (test_depth_weight_gap_is_within_jax_own_spread). The gap is that
+    noise, not a fault; 0.1 leaves 4x above the gap, 6x above JAX's
+    spread."""
     batch, want = train_oracle
     port = port_from_jax(GROUPS, want["variables"], warp_impl=warp_impl)
     before = dict(splat_kernel.LAUNCHES)
@@ -107,6 +112,37 @@ def test_groups_train_step_matches_jax(train_oracle, warp_impl):
                                    atol=1e-5, err_msg=name)
     assert int(port.state_dict()[
         "Homoaggre.0.depth_weight.0.bn.num_batches_tracked"]) == 2
+
+
+def test_depth_weight_gap_is_within_jax_own_spread(train_oracle):
+    """The port's worst gradient against JAX (stage 2's DepthWeight) is
+    cancellation noise: a permutation of the source views leaves the
+    aggregate (a weighted mean over the sources) unchanged but moves the
+    f32 rounding, and JAX's own gradient then moves by as much (-s prints
+    the readings: the gap 2.4e-2, JAX's spread 1.6e-2 on that parameter,
+    the gap after the permutation 7.7e-3)."""
+    batch, want = train_oracle
+    views = [0, 2, 1]
+    swapped = {k: (v[:, views] if k in ("imgs", "extrinsics", "intrinsics")
+                   else v) for k, v in batch.items()}
+    jax_swapped = jax_train_oracle(GROUPS, swapped)["grads"]
+    spread = grad_errors(jax_swapped, want["grads"])
+
+    def port_grads(b):
+        port = port_from_jax(GROUPS, want["variables"])
+        loss_and_grads(port, batch_to_device(b, "cpu"))
+        return {k: p.grad.numpy() for k, p in port.named_parameters()}
+    gap = grad_errors(port_grads(batch), want["grads"])
+    gap_swapped = grad_errors(port_grads(swapped), jax_swapped)
+    worst = max(gap, key=gap.get)
+    print(f"worst {worst}: port vs JAX {gap[worst]:.2e}, JAX swapped vs "
+          f"JAX {spread[worst]:.2e}, port vs JAX both swapped "
+          f"{gap_swapped[worst]:.2e}; median spread "
+          f"{np.median(list(spread.values())):.2e}")
+    assert "depth_weight" in worst
+    assert spread[worst] >= 1e-3            # the cancellation is real
+    assert gap[worst] <= 2 * spread[worst]
+    assert gap_swapped[worst] <= 2 * spread[worst]
 
 
 def test_groups_fused_and_dense_train_give_the_same_bits(train_oracle):
