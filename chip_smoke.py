@@ -6,6 +6,8 @@
     python3 chip_smoke.py --chain-tiles [ROOT]   # the chain kernel at each tile
     python3 chip_smoke.py --eval-profile ROOT   # the eval forward, ROOT's
     python3 chip_smoke.py --spatial   # the spatial phase alone
+    python3 chip_smoke.py --pair-fault PATH   # K10 on saved pairs (the pair phase's fault copy)
+    python3 chip_smoke.py --wgmma-rate   # clocks a wgmma.m64nNk16 as the conv kernels issue it
 
 ``--gate-spread`` reads the bf16 and f32 step gates' metrics over equally
 correct summation orders and over the injected faults (gate_spread), from
@@ -60,9 +62,15 @@ Phases (each prints one line; any failure raises and exits non-zero):
      forward on the card: depth (median <= 0.4%, p95 <= 3% of the depth
      range, the bounds of tools/check_fused_oracle.py), confidence, and each
      stage's cost and probability volumes (FORWARD_BOUNDS);
-  5. pair    — the conv3d pair kernel (K10, on no model path) on the
-     stage-0 U-Net's three stride-1 pairs, fed that forward's own volumes,
-     against the two conv3d launches (tc route) each pair replaces;
+  5. pair    — the conv3d pair kernel (K10, on no model path: its
+     depth-streamed tensor-core body in bf16) on the stage-0 U-Net's three
+     stride-1 pairs, fed that forward's own volumes, against the two conv3d
+     launches (tc route) each pair replaces and the plain pair (REL_TOL),
+     its bits over two calls; at each pair K10's, the two tc launches' and
+     cuDNN's two convs' device times (PAIR_ROUNDS paired reads of K10 and
+     the tc launches, the median of their ratios), the bound, the f32 pair
+     on the CUDA cores at the first; the intermediate's halo zeroed in a
+     copy of the tree (PAIR_HALO_FAULT) must read >= 2x REL_TOL at each;
   6. serve   — ``python -m mdfnet_tpu_torch.cli.eval`` on a synthetic DTU
      eval tree (1600x1200 cropped to 1184, 3 reference views);
   6'. alternatives — each alternative unit (ALT_CONFIGS: the variance
@@ -104,16 +112,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
      splat and the stats kernel each run twice with bit-identical output,
      and each differentiable conv's (K8) output, input gradient and weight
      gradient vs plain autograd on the plain conv; each timed by wall and by device
-     time (every kernel of one call in a profile);
+     time (every kernel of one call in a profile); the transposed conv's
+     input gradient at each of its launch shapes in a step on the tc and
+     the stream kernel (PAIR_ROUNDS paired reads) beside cuDNN's
+     convolution_backward: where conv_kernel.stream_route streams it, the
+     stream kernel must be the faster by the median of the ratios;
   8. train gate — one train step at that configuration on the kernels in
      bf16 against the plain versions in f32 (loss, each stage's cost and
      probability volume, the gradients' cosines: STEP_BOUNDS_BF16), and on
      the kernels in f32 against the plain versions in f32 (loss and every
      parameter's gradient, its error over a floor of its layer's gradient:
      STEP_BOUNDS_F32); every launch counter of the bf16 step must move, the
-     tc kernel's too; the f32 step launches no tc; each of six injected
-     faults (FAULTS) must read >= 2x an f32 bound and, but the faults of
-     the backward alone (BF16_BLIND: K7's 1-px shift), >= 2x a bf16 bound;
+     tc kernel's and the stream kernel's too; the f32 step launches no tc;
+     each of seven injected faults (FAULTS) must read >= 2x an f32 bound
+     and, but the faults of the backward alone (BF16_BLIND: K7's 1-px
+     shift, the stream kernel's zeroed tap), >= 2x a bf16 bound;
   9. learn   — 20 Adam steps on one batch: finite losses, the last below 0.9
      x the first; ms/step, device time and idle share (torch.profiler),
      peak memory, and one step's time by layer (CUDA events);
@@ -243,7 +256,7 @@ PEAK_BYTES_PER_S, PEAK_BF16_TC_PER_S, PEAK_F32_PER_S = 3.35e12, 989e12, 67e12
 PEAK_MUFU_PER_S = 16 * 132 * 1.98e9
 CONV_KERNELS = {"conv3d_bn_act", "trconv3d_bn_act", "conv2d_bn_act",
                 "conv2d_chain", "conv3d_pair_bn_act", "conv3d_train",
-                "trconv3d_train", "conv2d_train", "conv_co1"}
+                "trconv3d_train", "conv2d_train", "conv_co1", "conv_stream"}
 # K2-K5 (and K8's input gradients) run their bf16 convs with Ci, Co
 # multiples of 8 on the tc kernel, the rest on the direct kernel
 _TC = dict(source=_SRC + "conv_tc.cu", direct_source=_SRC + "conv_bn_act.cu")
@@ -285,6 +298,24 @@ KERNELS = {   # wrapper name -> its CUDA source and the TPU kernel it replaces
 PAIR_KERNEL = {"conv3d_pair_bn_act": dict(
     source=_SRC + "conv3d_pair.cu",
     replaces="mdfnet_tpu/ops/pallas/conv3d_kernel.py:472")}
+# the pair phase reads K10 and the two tc launches it replaces this many
+# times each, in turn, by device time (the median of the rounds' ratios)
+PAIR_ROUNDS = 7
+# the fault the pair phase injects into a copy of the tensor-core body: the
+# intermediate ring's halo rows written as zero (a tile's edge taken for the
+# volume's), which must read at least twice REL_TOL against the two tc
+# launches at every pair
+PAIR_HALO_FAULT = [("conv3d_pair.cu", [(
+    "const bool in = lh < a.TH + 2 && lw < a.TW + 2 && gh >= 0 && gh < a.H"
+    " && gw >= 0 &&",
+    "const bool in = lh > 0 && lh < a.TH + 1 && lw > 0 && lw < a.TW + 1 &&"
+    " gh >= 0 && gh < a.H && gw >= 0 &&")])]
+# the K-streamed conv (csrc/conv_stream.cu): the transposed conv's input
+# gradient where conv_kernel.stream_route sends it; its launches are the
+# bf16 train step's
+STREAM_KERNEL = {"conv_stream": dict(
+    source=_SRC + "conv_stream.cu",
+    replaces="mdfnet_tpu/ops/pallas/conv3d_vjp.py:112")}
 # the training step's kernels; a K8 entry's launches are its Function's
 # input-gradient launches (the conv kernels on mirrored weights)
 TRAIN_KERNELS = {
@@ -1237,7 +1268,8 @@ def route_table(traced: list, what: str) -> None:
             pack = (lambda w_kio=w.permute(*range(2, w.dim()), 1, 0):
                     conv_kernel.pack_tc_weight(w_kio, kd=kd, k=k, stride=s))
         fns = {r: (lambda r=r: conv(x, w, one, zero, stride=s, route=r))
-               for r in ("tc", "co1", "direct") if r in (route, "direct")
+               for r in ("tc", "co1", "direct", "stream")
+               if r in (route, "direct")
                or r == "tc" and conv_kernel.tc_plan(kd, k, s, shape[-1], co,
                                                     tr)}
         ms = {r: {"dev": device_ms(fn, iters=5)} for r, fn in fns.items()}
@@ -1460,13 +1492,20 @@ def forward_phase(build_s, scene):
     return model, args, launches, tc
 
 
-def pair_phase(model, args) -> int:
+def pair_phase(model, args) -> tuple[int, dict]:
     """K10 on the stage-0 U-Net's three stride-1 pairs, fed the eval
     forward's own volumes: each pair against the two conv3d (K2) launches
-    that it replaces in that forward, which take the tc route. K10 sums in
-    another order and rounds its intermediate as the first launch does, so
-    they differ by about one bf16 step (REL_TOL). Returns K10's launches
-    here."""
+    that it replaces in that forward, which take the tc route, and against
+    the plain pair. K10 sums in another order and rounds its intermediate
+    as the first launch does, so they differ by about one bf16 step
+    (REL_TOL). Then, at each pair: K10's, the two tc launches' and cuDNN's
+    two convs' device times (PAIR_ROUNDS paired reads of K10 and the tc
+    launches in turn, the median of their ratios), the bound, the bits of
+    two calls, the f32 pair (the CUDA-core body) at the first pair, and
+    the halo fault (PAIR_HALO_FAULT, in a copy of the tree) at every pair.
+    Returns K10's launches in the first three calls and the numbers of its
+    JSON entry."""
+    import torch.nn.functional as F
     from mdfnet_tpu_torch.ops.cuda import conv_kernel
     reg = model.Regular[0]
     pairs = [(reg.conv01[0], reg.conv01[1]), (reg.conv12[1], reg.conv12[2]),
@@ -1482,26 +1521,133 @@ def pair_phase(model, args) -> int:
     finally:
         for h in hooks:
             h.remove()
+    operands = [(seen["in", i], first.folded(seen["in", i].dtype),
+                 second.folded(seen["in", i].dtype))
+                for i, (first, second) in enumerate(pairs)]
     conv_kernel.LAUNCHES["conv3d_pair_bn_act"] = 0
-    outs = []
-    for i, (first, second) in enumerate(pairs):
-        x = seen["in", i]
-        outs.append(conv_kernel.conv3d_pair_bn_act(
-            x, *first.folded(x.dtype), *second.folded(x.dtype)))
+    outs = [conv_kernel.conv3d_pair_bn_act(x, *e1, *e2)
+            for x, e1, e2 in operands]
     torch.cuda.synchronize()
     launches = conv_kernel.LAUNCHES["conv3d_pair_bn_act"]
-    errs = []
-    for i, got in enumerate(outs):
-        ref = seen["out", i].float()
-        errs.append((got.float() - ref).abs().max().item()
-                    / max(ref.abs().max().item(), 1e-6))
-    print(f"pair: the stage-0 U-Net's stride-1 pairs "
-          f"{[tuple(seen['in', i].shape) for i in range(3)]} on K10 vs two "
-          f"K2 launches (tc) each: rel err {[f'{e:.2e}' for e in errs]} (tol "
-          f"{REL_TOL[torch.bfloat16]:.0e}); launches {launches}", flush=True)
-    require(launches == 3 and all(e <= REL_TOL[torch.bfloat16] for e in errs),
-            "pair phase: K10 disagrees with the two K2 launches")
-    return launches
+    faulty = pair_halo_fault(operands)
+    cases, worst = [], 0.0
+    for i, ((x, e1, e2), got) in enumerate(zip(operands, outs)):
+        two = seen["out", i].float()
+        plain = conv_kernel.conv3d_pair_bn_act(x, *e1, *e2, plain=True)
+        again = conv_kernel.conv3d_pair_bn_act(x, *e1, *e2)
+        torch.cuda.synchronize()
+        scale = max(two.abs().max().item(), 1e-6)
+        rel_tc = (got.float() - two).abs().max().item() / scale
+        err_plain = (got.float() - plain.float()).abs().max().item()
+        rel_plain = err_plain / max(plain.float().abs().max().item(), 1e-6)
+        rel_fault = (faulty[i].float() - two).abs().max().item() / scale
+        worst = max(worst, err_plain)
+
+        def k10(x=x, e1=e1, e2=e2):
+            return conv_kernel.conv3d_pair_bn_act(x, *e1, *e2)
+
+        def tc(x=x, e1=e1, e2=e2):
+            return conv_kernel.conv3d_bn_act(conv_kernel.conv3d_bn_act(
+                x, *e1), *e2)
+
+        def library(x=cl(x), w1=cl_weight(e1[0]), w2=cl_weight(e2[0])):
+            return F.conv3d(F.conv3d(x, w1, padding=1), w2, padding=1)
+        reads = {"k10": [], "tc": []}
+        for r in range(PAIR_ROUNDS):
+            for name in (("k10", "tc") if r % 2 == 0 else ("tc", "k10")):
+                reads[name].append(device_ms(k10 if name == "k10" else tc))
+        ci, cm, co = x.shape[-1], e1[0].shape[0], e2[0].shape[0]
+        vox = x.numel() // ci
+        case = {"shape": list(x.shape), "channels": [ci, cm, co],
+                "plan": conv_kernel.pair_plan(
+                    x.dtype, *x.shape[:4], ci, cm, co,
+                    conv_kernel.sm_count(x.device.index))._asdict(),
+                "ms": statistics.median(reads["k10"]),
+                "tc_ms": statistics.median(reads["tc"]),
+                "k10_over_tc": statistics.median(
+                    k / t for k, t in zip(reads["k10"], reads["tc"])),
+                "library_ms": statistics.median(
+                    device_ms(library) for _ in range(3)),
+                "plain_ms": cuda_ms(lambda: conv_kernel.conv3d_pair_bn_act(
+                    x, *e1, *e2, plain=True), iters=3),
+                **bound("conv3d_pair_bn_act",
+                        size(x, e1[0], e2[0]) + size(got),
+                        conv_ops(vox, 27, ci, cm) + conv_ops(vox, 27, cm, co)),
+                "rel_err_tc": rel_tc, "rel_err_plain": rel_plain,
+                "max_abs_err": err_plain, "bits_stable": torch.equal(got, again),
+                "halo_fault_rel_err": rel_fault}
+        if i == 0:   # the f32 pair: the CUDA-core body
+            xf = x.float()
+            f1 = (e1[0].float(), *e1[1:])
+            f2 = (e2[0].float(), *e2[1:])
+            case["f32_ms"] = device_ms(
+                lambda: conv_kernel.conv3d_pair_bn_act(xf, *f1, *f2), iters=2)
+        cases.append(case)
+        print(f"pair {i}: {tuple(x.shape)} {ci}->{cm}->{co} on K10 "
+              f"(plan {case['plan']['route']} {case['plan']['th']}x"
+              f"{case['plan']['tw']}, {case['plan']['planes']} planes a "
+              f"block, ring {case['plan']['ring']}, {case['plan']['taps']} "
+              f"taps a weight stage, {case['plan']['smem']} B): device "
+              f"{case['ms']:.4f} ms, the two tc launches {case['tc_ms']:.4f} "
+              f"ms (K10 / tc, median of {PAIR_ROUNDS} paired reads: "
+              f"{case['k10_over_tc']:.3f}), cuDNN's two convs "
+              f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+              f"({case['bound_by']}), plain {case['plain_ms']:.3f} ms (wall)"
+              + (f", f32 on the CUDA cores {case['f32_ms']:.3f} ms"
+                 if "f32_ms" in case else "")
+              + f"; rel err vs the two tc launches {rel_tc:.2e}, vs the "
+              f"plain pair {rel_plain:.2e} (tol "
+              f"{REL_TOL[torch.bfloat16]:.0e}); bits of two calls "
+              f"{'equal' if case['bits_stable'] else 'DIFFER'}; halo fault "
+              f"rel err {rel_fault:.2e} ({rel_fault / REL_TOL[torch.bfloat16]:.1f}"
+              f"x tol)", flush=True)
+        require(rel_tc <= REL_TOL[torch.bfloat16]
+                and rel_plain <= REL_TOL[torch.bfloat16]
+                and case["bits_stable"],
+                f"pair phase: K10 at pair {i} disagrees with the two K2 "
+                f"launches or the plain pair, or its bits move")
+        require(rel_fault >= 2 * REL_TOL[torch.bfloat16],
+                f"pair phase: the halo fault reads {rel_fault:.2e} at pair "
+                f"{i}, within 2x of the tolerance")
+    print(f"pair: the stage-0 U-Net's stride-1 pairs on K10, launches "
+          f"{launches}", flush=True)
+    require(launches == 3, "pair phase: K10 did not launch once a pair")
+    first = cases[0]
+    report = {k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "tc_ms", "k10_over_tc",
+                                    "f32_ms")}
+    report["max_abs_err"] = worst
+    report["cases"] = cases
+    return launches, report
+
+
+def pair_halo_fault(operands) -> list:
+    """K10 with the halo fault (PAIR_HALO_FAULT) on each pair's operands:
+    a copy of the port with the edited source builds its kernels and runs
+    the pairs in a process of its own (pair_fault_mode)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = edited_copy(tmp, "pair halo fault", PAIR_HALO_FAULT)
+        path = os.path.join(tmp, "pairs.pt")
+        torch.save([(x.cpu(), [v.cpu() for v in e1], [v.cpu() for v in e2])
+                    for x, e1, e2 in operands], path)
+        proc = subprocess.run([sys.executable, os.path.join(
+            root, "chip_smoke.py"), "--pair-fault", path], cwd=root,
+            capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0, "the pair halo fault's run failed:\n"
+                + "\n".join((proc.stdout + proc.stderr).splitlines()[-20:]))
+        return [y.to(DEV) for y in torch.load(path + ".out")]
+
+
+def pair_fault_mode(path: str) -> None:
+    """K10 of this tree on the pairs saved at ``path``; the outputs go to
+    ``path``.out (pair_halo_fault runs it in an edited copy)."""
+    from mdfnet_tpu_torch.ops.cuda import conv_kernel
+    outs = []
+    for x, e1, e2 in torch.load(path):
+        outs.append(conv_kernel.conv3d_pair_bn_act(
+            x.to(DEV), *(v.to(DEV) for v in e1), *(v.to(DEV) for v in e2))
+            .cpu())
+    torch.save(outs, path + ".out")
 
 
 def _layer_names(model) -> list[str]:
@@ -2698,6 +2844,100 @@ def check_train_kernels(batch):
     return report
 
 
+def trconv_dgrad_phase() -> dict:
+    """The transposed conv's input gradient (K8's trconv3d_train) at each
+    of its launch shapes in the bf16 DTU train step
+    (conv_routes.train_unet_routes): the stride-2 conv of the cotangent on
+    the tc kernel and on the stream kernel, PAIR_ROUNDS device-time reads
+    of each in turn (the median of their ratios), cuDNN's
+    convolution_backward beside them, the stream kernel against the plain
+    conv and its bits over two calls. Where stream_route takes the stream
+    kernel, it must be the faster by that median. Returns conv_stream's
+    JSON entry: the numbers at the first launch the rule streams (the
+    stage-0 U-Net's conv232_3, x (4, 12, 16, 20, 64)) and every shape's
+    under "cases"."""
+    from mdfnet_tpu_torch.config import ModelConfig
+    from mdfnet_tpu_torch.models.conv_routes import train_unet_routes
+    from mdfnet_tpu_torch.models.registry import build_model
+    from mdfnet_tpu_torch.ops.cuda import conv_kernel
+    sms = conv_kernel.sm_count(torch.cuda.current_device())
+    model = build_model(ModelConfig(compute_dtype="bfloat16"), device="cpu")
+    launches = {}
+    for what, kd, k, s, xs, co, tr, route in train_unet_routes(
+            model, TRAIN_BATCH, TRAIN_HEIGHT, TRAIN_WIDTH, sms):
+        if what == "dgrad" and s == 2 and not tr:
+            launches.setdefault((xs, co, route), 0)
+            launches[xs, co, route] += 1
+    gen = torch.Generator().manual_seed(16)
+    cases, main = [], None
+    for (gshape, ci_x, route), n in launches.items():
+        g = torch.randn(*gshape, generator=gen).to(DEV, torch.bfloat16)
+        w = (torch.randn(ci_x, gshape[-1], 3, 3, 3, generator=gen)
+             * 0.1).to(DEV, torch.bfloat16)
+        one = torch.ones(ci_x, device=DEV)
+        zero = torch.zeros(ci_x, device=DEV)
+        fns = {r: (lambda r=r: conv_kernel.conv3d_bn_act(
+            g, w, one, zero, stride=2, relu=False, route=r))
+            for r in ("tc", "stream")}
+        got, again = fns["stream"](), fns["stream"]()
+        plain = conv_kernel.conv3d_bn_act(g, w, one, zero, stride=2,
+                                          relu=False, plain=True)
+        torch.cuda.synchronize()
+        err = (got.float() - plain.float()).abs().max().item()
+        rel = err / max(plain.float().abs().max().item(), 1e-6)
+        reads = {"stream": [], "tc": []}
+        for r in range(PAIR_ROUNDS):
+            for name in (("stream", "tc") if r % 2 == 0 else ("tc", "stream")):
+                reads[name].append(device_ms(fns[name]))
+        x = torch.empty(gshape[0], *(-(-e // 2) for e in gshape[1:4]), ci_x,
+                        device=DEV, dtype=torch.bfloat16)
+
+        def library(go=cl(g), x=cl(x), wt=cl_weight(w)):
+            return torch.ops.aten.convolution_backward(
+                go, x, wt, None, [2] * 3, [1] * 3, [1] * 3, True, [1] * 3, 1,
+                [True, False, False])
+        vox = x.numel() // ci_x
+        case = {"shape": list(gshape), "co": ci_x, "route": route,
+                "launches": n, "ms": statistics.median(reads["stream"]),
+                "tc_ms": statistics.median(reads["tc"]),
+                "stream_over_tc": statistics.median(
+                    a / b for a, b in zip(reads["stream"], reads["tc"])),
+                "library_ms": statistics.median(
+                    device_ms(library) for _ in range(3)),
+                "plain_ms": cuda_ms(lambda: conv_kernel.conv3d_bn_act(
+                    g, w, one, zero, stride=2, relu=False, plain=True),
+                    iters=3),
+                **bound("conv_stream", size(g, w, got),
+                        conv_ops(vox, 27, gshape[-1], ci_x)),
+                "max_abs_err": err, "rel_err": rel,
+                "bits_stable": torch.equal(got, again)}
+        cases.append(case)
+        if main is None and route == "stream":
+            main = case
+        print(f"train kernel trconv3d input gradient, g {tuple(gshape)} -> "
+              f"{ci_x} (x{n} a step, the rule's route {route}): stream "
+              f"{case['ms']:.4f} ms, tc {case['tc_ms']:.4f} ms (stream / tc, "
+              f"median of {PAIR_ROUNDS} paired reads: "
+              f"{case['stream_over_tc']:.3f}), cuDNN "
+              f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+              f"({case['bound_by']}); stream vs plain max_abs_err {err:.3e} "
+              f"rel {rel:.3e} (tol {REL_TOL[torch.bfloat16]:.0e}); bits of "
+              f"two calls {'equal' if case['bits_stable'] else 'DIFFER'}",
+              flush=True)
+        require(rel <= REL_TOL[torch.bfloat16] and case["bits_stable"],
+                f"conv_stream at {tuple(gshape)} disagrees with its plain "
+                f"version or its bits move")
+        require(route != "stream" or case["stream_over_tc"] <= 1.0,
+                f"conv_stream at {tuple(gshape)}: the rule's route takes "
+                f"{case['stream_over_tc']:.3f}x the tc route's device time")
+        del g, w, got, again, plain, x
+    require(main is not None, "the rule streams no input gradient of the "
+            "DTU train step")
+    return {**{k: v for k, v in main.items()
+               if k not in ("shape", "co", "route", "launches")},
+            "cases": cases}
+
+
 def _step(dtype: str, plain: bool, batch, *, launches=None,
           warp_impl: str = "dense", config=None):
     """One train step's loss, gradients and per-stage volumes from the
@@ -2775,6 +3015,30 @@ def _zeroed_corner_tap(hit):
     return [(conv_kernel, "_launch", faulty)]
 
 
+def _zeroed_stream_tap():
+    """A fault of the stream kernel alone: its launches (route "stream",
+    the transposed convs' input gradients that stream_route sends there in
+    bf16) run with the weights' corner tap zeroed; in f32, where those
+    launches take the direct kernel, the launches of the same class and
+    shape do."""
+    from mdfnet_tpu_torch.ops.cuda import conv_kernel
+    launch = conv_kernel._launch
+
+    def faulty(counter, x5, w_kio, *args, kd, k, stride, transposed=False,
+               route=None, **kw):
+        if route == "stream" or (
+                x5.dtype == torch.float32 and counter == "trconv3d_dgrad"
+                and conv_kernel.stream_route(
+                    torch.bfloat16, kd, k, stride, x5.shape[-1],
+                    w_kio.shape[-1], tuple(x5.shape[:4]),
+                    conv_kernel.sm_count(x5.device.index)) == "stream"):
+            w_kio = w_kio.clone()
+            w_kio[(0,) * (w_kio.dim() - 2)] = 0.0
+        return launch(counter, x5, w_kio, *args, kd=kd, k=k, stride=stride,
+                      transposed=transposed, route=route, **kw)
+    return [(conv_kernel, "_launch", faulty)]
+
+
 def _shifted_sample_taps():
     """A K6 fault: its launches sample one pixel to the right."""
     from mdfnet_tpu_torch.ops import aggregate_train, warp
@@ -2799,11 +3063,15 @@ def _shifted_splat_taps():
 # The step gates' injected faults: name -> the patches that inject it.
 K6_FAULT = "K6 1-px shift"
 K7_FAULT = "K7 1-px shift"
+STREAM_FAULT = "stream tap"
 # (path, fault) pairs that the bf16 gate cannot see: the fused step runs K6
-# only in its backward, and both steps run K7 only there, where every bf16
-# metric reads the fault as it reads a correct order (PERF.md section 2).
-# The f32 gate holds each of them (and fused_gate the fused step's).
-BF16_BLIND = {("fused", K6_FAULT), ("dense", K7_FAULT), ("fused", K7_FAULT)}
+# only in its backward, and both steps run K7 and the stream kernel (the
+# transposed convs' input gradients) only there, where every bf16 metric
+# reads the fault as it reads a correct order (PERF.md section 2; the
+# stream fault at most 0.44x a bf16 bound). The f32 gate holds each of
+# them (and fused_gate the fused step's).
+BF16_BLIND = {("fused", K6_FAULT), ("dense", K7_FAULT), ("fused", K7_FAULT),
+              ("dense", STREAM_FAULT), ("fused", STREAM_FAULT)}
 FAULTS = {
     "conv3d tap": lambda: _zeroed_corner_tap(
         lambda kd, k, co, tr: kd == 3 and not tr and co > 1),
@@ -2814,6 +3082,7 @@ FAULTS = {
         lambda kd, k, co, tr: kd == 3 and not tr and co == 1),
     K6_FAULT: _shifted_sample_taps,
     K7_FAULT: _shifted_splat_taps,
+    STREAM_FAULT: _zeroed_stream_tap,
 }
 
 
@@ -4256,9 +4525,10 @@ def device_ms_mode(root: str) -> None:
 def eval_profile_mode(root: str) -> None:
     """The bf16 eval forward (seed-0 weights, sharpened) with the package
     of the checkout at ``root``, at the DTU eval shape and at Tanks
-    2048x1056 (11 views): ms/map (median of 6 after one), peak memory,
-    device busy ms, ATen's elementwise and ``cat`` device ms (device_split,
-    3 forwards) and the time by layer (CUDA events): one line
+    2048x1056 (11 views): digests of its depth and confidence (bit-equal
+    trees give equal digests), ms/map (median of 6 after one), peak
+    memory, device busy ms, ATen's elementwise and ``cat`` device ms
+    (device_split, 3 forwards) and the time by layer (CUDA events): one line
     ``EVAL_PROFILE {...}``. Run it for two checkouts in one call (parent,
     change, change, parent) to compare them on one card."""
     root = os.path.abspath(root)
@@ -4287,12 +4557,106 @@ def eval_profile_mode(root: str) -> None:
             times.append((time.perf_counter() - t0) * 1e3)
         split = device_split(lambda: model(*args), iters=3)
         layers, total = layer_ms(model, args)
-        out[name] = {"ms_map": statistics.median(times[1:]),
+        maps = model(*args)
+        out[name] = {"depth_digest": _digest(maps["depth"]),
+                     "confidence_digest": _digest(maps["confidence"]),
+                     "ms_map": statistics.median(times[1:]),
                      "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
                      "device_ms": sum(split.values()), **glue_ms(split),
                      "layers_ms": layers, "total_ms": total}
         del args, batch
     print("EVAL_PROFILE " + json.dumps(out), flush=True)
+
+
+# --wgmma-rate: a loop of wgmma.m64nNk16 (bf16, A and B from shared
+# memory, f32 accumulators) as the conv kernels issue it: kFlush K steps a
+# run, each run's sums added into f32 totals after its wait (without the
+# add, the compiler may drop the runs whose sums are never read); clocks a
+# wgmma per SM
+_WGMMA_RATE_SRC = r"""
+#include "wgmma.cuh"
+using namespace mdf;
+template <int N, int CH>
+__global__ void __launch_bounds__(256) rate(long long* out, int iters) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  for (int i = threadIdx.x; i < 16384; i += blockDim.x)
+    reinterpret_cast<uint32_t*>(smem)[i] = 0x3f803f80u;
+  fence_proxy_async();
+  __syncthreads();
+  const uint32_t base = smem_u32(smem);
+  const uint64_t da = descriptor(base, 64, 8), db = descriptor(base + 32768, N, 8);
+  float acc[CH][N / 2], total[CH][N / 2];
+  for (int c = 0; c < CH; ++c)
+    for (int j = 0; j < N / 2; ++j) acc[c][j] = total[c][j] = 0.f;
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+    wgmma_fence();
+    for (int s = 0; s < kFlush; ++s)
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        Wgmma<N>::mma(acc[c], da + 64 * c + 2 * s, db + 2 * N * s, s > 0);
+    wgmma_commit_and_wait();
+    for (int c = 0; c < CH; ++c)
+      for (int j = 0; j < N / 2; ++j) total[c][j] += acc[c][j];
+  }
+  const long long t1 = clock64();
+  float sum = 0.f;
+  for (int c = 0; c < CH; ++c)
+    for (int j = 0; j < N / 2; ++j) sum += total[c][j] + acc[c][j];
+  if (threadIdx.x == 0) out[blockIdx.x] = sum == 1.2345f ? 0 : t1 - t0;
+}
+template <int N, int CH>
+int go(long long* out, int iters, int wgs, int blocks) {
+  cudaFuncSetAttribute(rate<N, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize, 70000);
+  rate<N, CH><<<blocks, 128 * wgs, 70000>>>(out, iters);
+  return cudaDeviceSynchronize();
+}
+extern "C" int wgmma_rate(int n, long long* out, int iters, int wgs, int blocks) {
+  if (n == 16) return go<16, 2>(out, iters, wgs, blocks);
+  if (n == 32) return go<32, 2>(out, iters, wgs, blocks);
+  if (n == 64) return go<64, 1>(out, iters, wgs, blocks);
+  return -1;
+}
+"""
+
+
+def wgmma_rate() -> None:
+    """Clocks a wgmma.m64nNk16 on an SM (N = 16 and 32: two accumulator
+    chains a warpgroup, as K10's first conv; N = 64: one), one block an SM
+    of one or two warpgroups, each run of kFlush K steps followed by its
+    wait and the f32 add of its sums into totals (csrc/wgmma.cuh kFlush).
+    One line ``WGMMA_RATE {...}``; the ideal is the H100's dense bf16 rate,
+    2048 MACs a clock on an SM."""
+    import ctypes
+    from mdfnet_tpu_torch.ops.cuda import build
+    out_dir = os.path.join(ROOT, "build", "wgmma_rate")
+    os.makedirs(out_dir, exist_ok=True)
+    src, lib = os.path.join(out_dir, "rate.cu"), os.path.join(out_dir, "rate.so")
+    with open(src, "w") as f:
+        f.write(_WGMMA_RATE_SRC)
+    subprocess.run([build._nvcc(), *build._ARCH, "-std=c++17", "-O3", "-shared",
+                    "-Xcompiler", "-fPIC", "-I", str(build.CSRC), "-o", lib, src],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(lib).wgmma_rate
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.zeros(sms, dtype=torch.int64, device=DEV)
+    iters, res = 2000, {}
+    for n, ch in ((16, 2), (32, 2), (64, 1)):
+        for wgs in (1, 2):
+            require(fn(n, out.data_ptr(), iters, wgs, sms) == 0,
+                    "the wgmma rate kernel failed")
+            res[f"N={n} warpgroups={wgs}"] = out.float().mean().item() / (
+                iters * mdf_kflush() * ch * wgs)
+        res[f"ideal N={n}"] = 64 * n * 16 / 2048
+    print("WGMMA_RATE " + json.dumps(res), flush=True)
+
+
+def mdf_kflush() -> int:
+    """csrc/wgmma.cuh's kFlush."""
+    from mdfnet_tpu_torch.ops.cuda import build
+    text = (build.CSRC / "wgmma.cuh").read_text()
+    return int(re.search(r"constexpr int kFlush = (\d+);", text)[1])
 
 
 def sass_counts(lib_path, prefix: str) -> dict:
@@ -4358,6 +4722,12 @@ def main():
         return
     if sys.argv[1:2] == ["--eval-profile"] and len(sys.argv) == 3:
         eval_profile_mode(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--pair-fault"] and len(sys.argv) == 3:
+        pair_fault_mode(sys.argv[2])
+        return
+    if sys.argv[1:] == ["--wgmma-rate"]:
+        wgmma_rate()
         return
     start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4426,6 +4796,18 @@ def main():
           flush=True)
     require(len(k9) == 6 and not any(v[1] for v in k9.values()),
             f"the stats kernel's instantiations spill or are missing: {k9}")
+    # K10's tensor-core body (N1, N2 in {16, 32, 64}) and the stream kernel
+    # (N x output type)
+    pt = {k: v for k, v in kern.items()
+          if k.startswith("conv3d_pair_tc_kernel")}
+    sk = {k: v for k, v in kern.items() if k.startswith("conv_stream_kernel")}
+    print("build: K10's tensor-core body and the stream kernel (registers, "
+          "spill store bytes): " + ", ".join(
+              f"{k} {v}" for k, v in {**pt, **sk}.items()), flush=True)
+    require(len(pt) == 9 and len(sk) == 6
+            and not any(v[1] for v in (*pt.values(), *sk.values())),
+            f"K10's or the stream kernel's instantiations spill or are "
+            f"missing: {pt} {sk}")
 
     def entry(name, info, report, launches, tc_launches=None):
         info = dict(info)
@@ -4440,7 +4822,10 @@ def main():
     model, args, launches, tc = forward_phase(build_s, scene)
     kernels = [entry(n, info, report, launches[n], tc.get(n))
                for n, info in KERNELS.items()]
-    pair_launches = pair_phase(model, args)
+    pair_launches, pair_report = pair_phase(model, args)
+    k10 = report["conv3d_pair_bn_act"]
+    k10["kernel_phase_cases"] = k10.pop("cases", [])
+    k10.update(pair_report)
     kernels += [entry(n, info, report, pair_launches)
                 for n, info in PAIR_KERNEL.items()]
     serve_phase(model)
@@ -4455,10 +4840,13 @@ def main():
 
     batch = train_batch()
     report = check_train_kernels(batch)
+    report["conv_stream"] = trconv_dgrad_phase()
     launches, tc, unfused_f32 = train_gate(batch)
     kernels += [entry(n, info, report, launches[info.get("counter", n)],
                       tc.get(info.get("counter", n)))
                 for n, info in TRAIN_KERNELS.items()]
+    kernels += [entry(n, info, report, launches[n])
+                for n, info in STREAM_KERNEL.items()]
     kernels += [entry(n, info, report, groups_launches[info["counter"]])
                 for n, info in GROUPS_KERNELS.items()]
     unfused_layers = learn_phase(batch, smi)

@@ -20,8 +20,10 @@ packed K = 16 / 48 GEMM; launches planned by :func:`chain_plan` at the
 chain's tile in CHAIN_FUSED), or as consecutive launches of the K4
 kernels, one per layer, with the Res blocks' 0.1 scale and skip adds in
 the epilogue. The pair (K10, ``csrc/conv3d_pair.cu``) is two stride-1 conv3d
-layers in one launch whose intermediate volume stays in shared memory; as
-in the JAX package, no model path runs it.
+layers in one launch whose intermediate volume stays in shared memory (bf16:
+a block walks D on wgmma with rings of input and intermediate planes,
+:func:`pair_plan`; f32 and odd channel counts: the CUDA cores); as in the
+JAX package, no model path runs it.
 
 On the card a conv takes one of three kernels, by one static rule
 (:func:`conv_route`): a bf16 conv with Ci and Co multiples of 8 (Co <= 64;
@@ -34,7 +36,11 @@ f32, on ``csrc/conv_co1.cu`` (a per-voxel reduction over a shared-memory
 tile, :func:`co1_plan`); every other conv, the f32 ones with Co > 1 and Ci
 in {1, 3}, runs on the direct kernels of ``csrc/conv_bn_act.cu`` (f32 FMA
 on the CUDA cores). There is no fallback between them: a launch that fails
-raises.
+raises. The transposed conv's input gradient in training asks
+:func:`stream_route` instead, which sends the launches that the tc kernel's
+resident tile would starve to ``csrc/conv_stream.cu`` (K streamed through
+a ring of stages, no halo tile) and the rest to :func:`conv_route`'s
+kernel.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``plain=True`` asks for the plain version explicitly.
@@ -63,11 +69,12 @@ from mdfnet_tpu_torch.ops.cuda import build, exact_cuda_math
 LAUNCHES = {"conv3d_bn_act": 0, "trconv3d_bn_act": 0, "conv2d_bn_act": 0,
             "conv2d_chain": 0, "conv3d_dgrad": 0, "trconv3d_dgrad": 0,
             "conv2d_dgrad": 0, "conv3d_pair_bn_act": 0, "conv_tc": 0,
-            "conv_co1": 0}
+            "conv_co1": 0, "conv_stream": 0}
 # the tc-route launches among each conv wrapper counter's (their sum is
-# LAUNCHES["conv_tc"]; the chain kernel is a route of its own)
+# LAUNCHES["conv_tc"]; the chain and stream kernels are routes of their own)
 TC_LAUNCHES = {k: 0 for k in LAUNCHES
-               if k not in ("conv_tc", "conv_co1", "conv2d_chain")}
+               if k not in ("conv_tc", "conv_co1", "conv2d_chain",
+                            "conv_stream")}
 # None, or a list to which every conv launch appends (route, kd, k, stride,
 # x's (N, D, H, W, Ci) shape, Co, transposed): what a run sends to which
 # kernel
@@ -75,7 +82,7 @@ TRACE = None
 
 _COB = 8                    # output channels per thread (csrc/conv_bn_act.cu)
 _MAX_SMEM = 227 * 1024      # shared memory one block may use on the H100
-_PAIR_MID_VOXELS = 4 * 10 * 18   # csrc/conv3d_pair.cu's tile with its halo
+_SM_SMEM = 228 * 1024       # an SM's, shared by its blocks (1 KB a block)
 # csrc/conv_tc.cu: 64-row M blocks per warpgroup, by N (Co padded); the
 # bytes of its table of K-step descriptors
 _TC_MB = {8: 4, 16: 4, 32: 2, 64: 2}
@@ -338,6 +345,193 @@ def _trconv_tc_plan(ci: int, co: int, depth: int,
             if smem <= _MAX_SMEM:
                 return TcPlan(n, td, bh, q, q_stage, smem)
     return None
+
+
+def two_per_sm(smem: int) -> bool:
+    """Whether two blocks of ``smem`` bytes of shared memory fit on an SM."""
+    return 2 * (smem + 1024) <= _SM_SMEM
+
+
+# csrc/conv3d_pair.cu. The CUDA-core body: one thread an output voxel of a
+# 2 x 8 x 16 tile, the intermediate tile with its one-voxel halo (4 x 10 x
+# 18) in shared memory. The tensor-core body: the 64-row M blocks a conv
+# may have, by N (what a block's four warpgroups hold at once: two each at
+# N = 16 and 32, one at 64, 128 registers a thread); the tiles, input rings
+# and taps per weight stage that pair_plan weighs; a shared-memory row is
+# 16 bytes.
+_PAIR_DIRECT_TILE, _PAIR_DIRECT_MID = (2, 8, 16), 4 * 10 * 18
+_PAIR_BLOCKS = {16: 8, 32: 8, 64: 4}
+_PAIR_TILES = ((16, 16), (16, 8), (8, 16), (8, 8), (16, 32), (8, 32))
+_PAIR_RINGS = (4, 3)
+_PAIR_STAGES = (27, 9, 3)
+# pair_plan's cost of one byte of weights that a block streams through
+# shared memory in its MACs: the tensor cores do ~2048 MACs a clock on an
+# SM, a block's copies from L2 move ~64 bytes
+_PAIR_BYTE_MACS = 32
+
+
+class PairPlan(NamedTuple):
+    """How csrc/conv3d_pair.cu runs a pair (see :func:`pair_plan`)."""
+    route: str      # "tc": wgmma, D streamed; "direct": CUDA-core f32 FMA
+    th: int         # output tile th x tw (h, w) a block
+    tw: int
+    planes: int     # output planes a block walks along D (tc)
+    ring: int       # input planes held in shared memory, 3 or 4 (tc)
+    taps: int       # taps per weight stage; 27: both convs' held whole (tc)
+    pitch: int      # positions a row of a plane buffer: tw + 4 (tc)
+    mblocks: tuple  # 64-row M blocks of the first and second conv (tc)
+    rows: tuple     # 16-byte rows a channel chunk of an input and an
+                    # intermediate plane (tc)
+    smem: int       # bytes of shared memory a block
+    grid: tuple     # blocks along w, h, and N x D segments
+
+
+def pair_geometry(th: int, tw: int, ci: int, cm: int, co: int, ring: int,
+                  taps: int) -> tuple[int, int, int, int, int, int]:
+    """The tensor-core pair's extents for a th x tw tile, as
+    csrc/conv3d_pair.cu computes them: (pitch, M blocks of the first and
+    second conv, rows of an input and an intermediate plane's channel
+    chunk, shared-memory bytes).
+
+    Every plane buffer flattens (h, w) with the pitch p = tw + 4 (the input
+    plane's width), so a GEMM row is a position and a tap (kh, kw) one
+    shift of kh p + kw rows. The first conv computes the intermediate over
+    the tile and its one-voxel halo, (th + 2) p rows, the second the
+    output, th p rows; the columns past the region are computed and left.
+    A chunk's rows hold the plane and what the last M block's taps read
+    past it; an odd count spreads the chunks over the banks. Before the
+    rings, two tables of the K steps' A descriptors (8 bytes a step of
+    either conv, to 128 bytes)."""
+    p = tw + 4
+    nb1, nb2 = -(-(th + 2) * p // 64), -(-th * p // 64)
+    npx = max((th + 4) * p, 64 * nb1 + 2 * p + 2) | 1
+    npm = max(64 * nb1, 64 * nb2 + 2 * p + 2) | 1
+    nchx, nchm = ci // 8, cm // 8
+    tables = -(-16 * 27 * (nchx + nchm) // 2 // 128) * 128
+    wrows = (27 * (nchx * cm + nchm * co) if taps == 27
+             else taps * max(nchx * cm, nchm * co))
+    return p, nb1, nb2, npx, npm, tables + 16 * (
+        ring * nchx * npx + 3 * nchm * npm + wrows)
+
+
+@functools.lru_cache(maxsize=None)
+def pair_plan(dtype: torch.dtype, n: int, d: int, h: int, w: int, ci: int,
+              cm: int, co: int, sms: int = 132) -> PairPlan | None:
+    """How csrc/conv3d_pair.cu runs the pair Ci -> Cm -> Co on an (n, d, h,
+    w) volume on a card of ``sms`` SMs, or None where it takes no such
+    pair (Cm not a multiple of 8, or its intermediate tile too large).
+
+    bf16 with Ci % 16 == 0 and Cm, Co in {16, 32, 64} runs on the tensor
+    cores ("tc"): a block of four warpgroups owns a th x tw column of the
+    output and walks ``planes`` planes along D, each plane's intermediate
+    computed once into a ring of three (one-voxel H/W halo) from a ring of
+    ``ring`` input planes (two-voxel halo), the next input plane copied
+    while the current one computes, the weights held whole or streamed
+    ``taps`` taps a stage. Of the plans whose M blocks fit a warpgroup's
+    registers (:data:`_PAIR_BLOCKS`) and whose shared memory fits, the one of
+    least cost: the waves of blocks on the SMs times a block's work, its
+    MACs (the recomputed halo rows and the edge planes of a D segment
+    included) and the weight bytes it streams (:data:`_PAIR_BYTE_MACS`);
+    on a tie the longer walk, the larger weight stage, ring and tile.
+    Everything else ("direct": f32, Ci = 3, Cm = 8 ...) runs on the CUDA
+    cores."""
+    if dtype == torch.bfloat16 and ci % 16 == 0 and cm in _PAIR_BLOCKS \
+            and co in _PAIR_BLOCKS:
+        best = None
+        for th, tw in _PAIR_TILES:
+            tiles = n * -(-h // th) * -(-w // tw)
+            for ring in _PAIR_RINGS:
+                for taps in _PAIR_STAGES:
+                    p, nb1, nb2, npx, npm, smem = pair_geometry(
+                        th, tw, ci, cm, co, ring, taps)
+                    if (nb1 > _PAIR_BLOCKS[cm] or nb2 > _PAIR_BLOCKS[co]
+                            or smem > _MAX_SMEM or max(npx, npm) > 0x3FFF):
+                        continue
+                    per_sm = 2 if two_per_sm(smem) else 1
+                    for segs in range(1, d + 1):
+                        planes = -(-d // segs)
+                        if -(-d // planes) != segs:
+                            continue    # the same walk as fewer segments
+                        macs = 27 * ((planes + 2) * nb1 * 64 * ci * cm
+                                     + planes * nb2 * 64 * cm * co)
+                        if taps < 27:
+                            macs += _PAIR_BYTE_MACS * 2 * 27 * (
+                                (planes + 2) * ci * cm + planes * cm * co)
+                        waves = -(-tiles * segs // (sms * per_sm))
+                        key = (waves * per_sm * macs, -planes, -taps,
+                               -ring, -th * tw)
+                        if best is None or key < best[0]:
+                            best = (key, PairPlan(
+                                "tc", th, tw, planes, ring, taps, p,
+                                (nb1, nb2), (npx, npm), smem,
+                                (-(-w // tw), -(-h // th), n * segs)))
+        if best:
+            return best[1]
+    smem = _PAIR_DIRECT_MID * cm * dtype.itemsize
+    if cm % _COB or smem > _MAX_SMEM:
+        return None
+    td, th, tw = _PAIR_DIRECT_TILE
+    return PairPlan("direct", th, tw, td, 0, 0, 0, (), (), smem,
+                    (-(-w // tw), -(-h // th), n * -(-d // td)))
+
+
+# csrc/conv_stream.cu: the stages in its ring (kStages there)
+_STREAM_STAGES = 3
+
+
+class StreamPlan(NamedTuple):
+    """How csrc/conv_stream.cu runs a conv (see :func:`stream_plan`)."""
+    n: int          # Co padded to 16, 32 or 64
+    chunks: int     # K chunks of 8 input channels a stage
+    smem: int       # bytes of shared memory a block
+
+
+def stream_plan(ci: int, co: int) -> StreamPlan | None:
+    """csrc/conv_stream.cu's plan for a 3x3x3 conv from Ci to Co channels,
+    or None where it takes none (Ci or Co not a multiple of 8, Co > 64).
+    One warpgroup owns 64 consecutive output voxels and the whole Co; K
+    (the taps x 8-channel chunks, in that order) streams through a ring of
+    _STREAM_STAGES stages of ``chunks`` chunks (four taps', at most 32: a
+    divisor of the block's 128 threads), A gathered per output row beside
+    the weights' slice. The shared memory holds the rows' input origins
+    and the ring."""
+    if ci <= 0 or ci % 8 or co % 8 or not 0 < co <= 64:
+        return None
+    n = next(v for v in (16, 32, 64) if v >= co)
+    chunks = min(4 * (ci // 8), 32)
+    smem = 16 * (64 + _STREAM_STAGES * chunks * (65 + n))
+    return StreamPlan(n, chunks, smem) if smem <= _MAX_SMEM else None
+
+
+def stream_route(dtype: torch.dtype, kd: int, k: int, stride: int, ci: int,
+                 co: int, shape: tuple, sms: int) -> str:
+    """The route of a conv that may take csrc/conv_stream.cu (its caller:
+    the transposed conv's input gradient, conv_vjp.py): "stream" for a bf16
+    3x3x3 stride-2 conv where the tc kernel's resident tile
+    (:func:`tc_plan`) lets one block only on an SM and its grid leaves SMs
+    idle (fewer blocks than ``sms``), so that its loads have nothing to
+    hide behind; else :func:`conv_route`'s. ``shape``: the input's (N, D,
+    H, W). From shapes and the SM count alone."""
+    plan = tc_plan(kd, k, stride, ci, co)
+    if (dtype == torch.bfloat16 and (kd, k, stride) == (3, 3, 2) and plan
+            and not two_per_sm(plan.smem)):
+        nb, di, hi, wi = shape
+        do, ho, wo = -(-di // 2), -(-hi // 2), -(-wi // 2)
+        blocks = (-(-wo // 8) * -(-ho // (8 * plan.bh)) * nb
+                  * -(-do // plan.td))
+        if blocks < sms and stream_plan(ci, co):
+            return "stream"
+    return conv_route(dtype, kd, k, stride, ci, co)
+
+
+def pack_tap_weight(w_kio: torch.Tensor) -> torch.Tensor:
+    """(3, 3, 3, Ci, Co) weights as the pair's tensor-core body and the
+    stream kernel take them: (27 Ci/8, Co, 8) bf16, K chunk tap * Ci/8 + c
+    (tap = (kd*3 + kh)*3 + kw) holding input channels 8c..8c+7 for each
+    output channel."""
+    ci, co = w_kio.shape[-2:]
+    return w_kio.to(torch.bfloat16).reshape(27, ci // 8, 8, co) \
+        .permute(0, 1, 3, 2).contiguous().view(-1, co, 8)
 
 
 class Co1Plan(NamedTuple):
@@ -736,7 +930,7 @@ def conv_route(dtype: torch.dtype, kd: int, k: int, stride: int, ci: int,
 # ------------------------------------------------------------ kernel launches
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device: int) -> int:
+def sm_count(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -757,11 +951,13 @@ def _padded(v: torch.Tensor, cop: int) -> torch.Tensor:
 def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
             stride, relu, transposed=False, route=None):
     """Launch the conv (or transposed conv) kernel on (N, D, H, W, Ci) and
-    count the launch under ``LAUNCHES[counter]`` (and ``"conv_tc"`` or
-    ``"conv_co1"`` on those routes).
+    count the launch under ``LAUNCHES[counter]`` (and ``"conv_tc"``,
+    ``"conv_co1"`` or ``"conv_stream"`` on those routes).
 
     ``w_kio``: (*taps, Ci, Co) weights in any float dtype. ``route``: None
-    follows :func:`conv_route`; "tc", "co1" or "direct" forces one."""
+    follows :func:`conv_route`; "tc", "co1", "direct" or "stream" (a bf16
+    3x3x3 conv on csrc/conv_stream.cu, :func:`stream_route`) forces
+    one."""
     n, di, hi, wi, ci = x5.shape
     co = w_kio.shape[-1]
     if (x5.dtype, out_dtype) not in _DTYPES:
@@ -805,6 +1001,15 @@ def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
         w = w_kio.float().reshape(-1).contiguous()
         s = scale.float().reshape(1).contiguous()
         o = offset.float().reshape(1).contiguous()
+    elif route == "stream":
+        plan = stream_plan(ci, co)
+        if (plan is None or x5.dtype != torch.bfloat16 or transposed
+                or (kd, k) != (3, 3)):
+            raise ValueError(f"conv stream kernel: no tile for {x5.dtype} "
+                             f"kd={kd} k={k} stride={stride} Ci={ci} Co={co}"
+                             f"{' (transposed)' if transposed else ''}")
+        w = pack_tap_weight(w_kio)
+        s, o = scale.float().contiguous(), offset.float().contiguous()
     elif route == "direct":
         if 27 * ci * _COB * 4 > _MAX_SMEM:
             raise ValueError(f"conv kernel: Ci={ci} exceeds the shared "
@@ -829,7 +1034,7 @@ def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
                  * -(-wi // 8))
         err = lib.mdf_trconv_tc(*ptrs, n, di, hi, wi, ci, co, cop, int(relu),
                                 plan.td, plan.bh,
-                                trconv_tc_groups(tiles, _sm_count(device)),
+                                trconv_tc_groups(tiles, sm_count(device)),
                                 int(plan.q_stage == plan.q), dtypes, device,
                                 stream)
     elif route == "tc":
@@ -843,6 +1048,11 @@ def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
         err = lib.mdf_conv_co1(*ptrs, n, di, hi, wi, ci, kd, int(relu),
                                plan.td, plan.th, plan.tw, plan.channels,
                                dtypes, device, stream)
+    elif route == "stream":
+        name = "conv_stream"
+        err = lib.mdf_conv_stream(*ptrs, n, di, hi, wi, ci, do, ho, wo, co,
+                                  plan.n, stride, int(relu), plan.chunks,
+                                  plan.smem, dtypes, device, stream)
     elif transposed:
         name = "trconv_bn_act"
         err = lib.mdf_trconv_bn_act(*ptrs, n, di, hi, wi, ci, co, cop,
@@ -856,8 +1066,8 @@ def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
     if route == "tc":
         LAUNCHES["conv_tc"] += 1
         TC_LAUNCHES[counter] += 1
-    elif route == "co1":
-        LAUNCHES["conv_co1"] += 1
+    elif route in ("co1", "stream"):
+        LAUNCHES[name] += 1
     LAUNCHES[counter] += 1
     if TRACE is not None:
         TRACE.append((route, kd, k, stride, tuple(x5.shape), co, transposed))
@@ -970,29 +1180,40 @@ def conv3d_pair_bn_act(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
             or tuple(w2.shape) != (co, cm, 3, 3, 3):
         raise ValueError(f"conv3d pair kernel: weights {tuple(w1.shape)}, "
                          f"{tuple(w2.shape)} do not chain from Ci={ci}")
-    if cm % _COB:
-        raise ValueError(f"conv3d pair kernel: Cm={cm} is not a multiple "
-                         f"of {_COB}")
-    cop = -(-co // _COB) * _COB
-    elem = x.element_size()
-    if _PAIR_MID_VOXELS * cm * elem > _MAX_SMEM:
-        raise ValueError(f"conv3d pair kernel: Cm={cm} exceeds the shared "
-                         "memory of the intermediate tile")
-    w1k = w1.float().permute(2, 3, 4, 1, 0).reshape(27 * ci, cm).contiguous()
-    w2k = _padded(w2.float().permute(2, 3, 4, 1, 0).reshape(27 * cm, co), cop)
-    s1p, o1p = s1.float().contiguous(), o1.float().contiguous()
-    s2p, o2p = _padded(s2, cop), _padded(o2, cop)
+    plan = pair_plan(x.dtype, n, d, h, w, ci, cm, co,
+                     sm_count(x.device.index))
+    if plan is None:
+        raise ValueError(f"conv3d pair kernel: no plan for Cm={cm} (a "
+                         f"multiple of {_COB} whose intermediate tile fits)")
     y = torch.empty((n, d, h, w, co), dtype=x.dtype, device=x.device)
+    if plan.route == "tc":
+        w1k = pack_tap_weight(w1.permute(2, 3, 4, 1, 0))
+        w2k = pack_tap_weight(w2.permute(2, 3, 4, 1, 0))
+        s1p, o1p, s2p, o2p = (v.float().contiguous()
+                              for v in (s1, o1, s2, o2))
+    else:
+        cop = -(-co // _COB) * _COB
+        w1k = w1.float().permute(2, 3, 4, 1, 0).reshape(27 * ci, cm) \
+            .contiguous()
+        w2k = _padded(w2.float().permute(2, 3, 4, 1, 0).reshape(27 * cm, co),
+                      cop)
+        s1p, o1p = s1.float().contiguous(), o1.float().contiguous()
+        s2p, o2p = _padded(s2, cop), _padded(o2, cop)
     for t, name in ((x, "x"), (w1k, "w1"), (s1p, "s1"), (o1p, "o1"),
                     (w2k, "w2"), (s2p, "s2"), (o2p, "o2"), (y, "out")):
         build.check_operand(t, name)
     device, stream = build.launch_context(x)
     lib = build.load_library()
-    err = lib.mdf_conv3d_pair(
-        x.data_ptr(), w1k.data_ptr(), s1p.data_ptr(), o1p.data_ptr(),
-        w2k.data_ptr(), s2p.data_ptr(), o2p.data_ptr(), y.data_ptr(), n, d,
-        h, w, ci, cm, co, cop, int(relu), _DTYPES[(x.dtype, x.dtype)],
-        device, stream)
+    ptrs = (x.data_ptr(), w1k.data_ptr(), s1p.data_ptr(), o1p.data_ptr(),
+            w2k.data_ptr(), s2p.data_ptr(), o2p.data_ptr(), y.data_ptr())
+    if plan.route == "tc":
+        err = lib.mdf_conv3d_pair_tc(
+            *ptrs, n, d, h, w, ci, cm, co, int(relu), plan.th, plan.tw,
+            plan.planes, plan.ring, plan.taps, plan.smem, device, stream)
+    else:
+        err = lib.mdf_conv3d_pair(
+            *ptrs, n, d, h, w, ci, cm, co, cop, int(relu),
+            _DTYPES[(x.dtype, x.dtype)], device, stream)
     build.check(err, "conv3d_pair")
     LAUNCHES["conv3d_pair_bn_act"] += 1
     return y

@@ -20,7 +20,11 @@ conv kernels of ``conv_kernel.py``:
   weight, whose ``(Co, Ci, 3, 3, 3)`` layout is the transposed conv's
   ``(in, out, ...)``, cropped to the input extent (odd extents round up);
 - d_input of the transposed conv: the stride-2 conv (K2) with the
-  transposed conv's own ``(Ci, Co, 3, 3, 3)`` weight read as ``(out, in)``.
+  transposed conv's own ``(Ci, Co, 3, 3, 3)`` weight read as ``(out, in)``,
+  on the route ``conv_kernel.stream_route`` gives it from its shape and the
+  card's SM count: the K-streamed tensor-core conv (``csrc/conv_stream.cu``)
+  where the tc kernel's resident tile would leave SMs idle, else
+  ``conv_route``'s.
 
 Two parts stay library calls (``torch.nn.grad``), as the JAX package leaves
 them to XLA outside any Pallas kernel: d_weight, a small (Co, Ci, k..)
@@ -38,7 +42,7 @@ from __future__ import annotations
 
 import torch
 
-from mdfnet_tpu_torch.ops.cuda import exact_cuda_math
+from mdfnet_tpu_torch.ops.cuda import conv_kernel, exact_cuda_math
 from mdfnet_tpu_torch.ops.cuda.conv_kernel import (conv2d_bn_act,
                                                    conv3d_bn_act,
                                                    trconv3d_bn_act)
@@ -104,9 +108,15 @@ class _TrConv3dTrain(torch.autograd.Function):
         g = g.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
+            route = None
+            if g.is_cuda and not ctx.plain:
+                route = conv_kernel.stream_route(
+                    g.dtype, 3, 3, 2, g.shape[-1], weight.shape[0],
+                    tuple(g.shape[:4]),
+                    conv_kernel.sm_count(g.device.index))
             dx = conv3d_bn_act(g, weight, *_identity(x.shape[-1], x.device),
                                stride=2, relu=False, plain=ctx.plain,
-                               counter="trconv3d_dgrad")
+                               counter="trconv3d_dgrad", route=route)
         if ctx.needs_input_grad[1]:
             # the transposed conv's adjoint in x is the stride-2 conv of g
             # with this weight, so its weight gradient is that conv's

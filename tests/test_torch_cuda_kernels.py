@@ -810,15 +810,21 @@ def _kernel_conv(kind, stride):
     return lambda x, w: conv_vjp.conv2d_train(x, w, stride)
 
 
-def _dgrad_counters(kind, stride, wshape, dtype, counter):
+def _dgrad_counters(kind, stride, wshape, dtype, counter, xshape):
     """The counters an input gradient moves: its ``*_dgrad`` counter, and
     ``conv_tc`` where the rule sends its conv there (a stride-1 conv's input
     gradient is a conv from Co to Ci; the transposed conv's a stride-2 conv
-    from its Co to its Ci; a stride-2 conv3d's is the transposed conv)."""
+    from its Co to its Ci, by ``stream_route``, which may send it to
+    ``conv_stream`` instead; a stride-2 conv3d's is the transposed conv)."""
     if counter is None:
         return set()
     if kind == "trconv3d":
-        conv = (3, 3, 2, wshape[1], wshape[0])
+        g = (xshape[0], *(2 * e for e in xshape[1:4]))
+        route = conv_kernel.stream_route(
+            dtype, 3, 3, 2, wshape[1], wshape[0], g,
+            conv_kernel.sm_count(torch.cuda.current_device()))
+        return {counter} | ({"conv_tc"} if route == "tc" else
+                            {"conv_stream"} if route == "stream" else set())
     elif stride == 1:
         conv = (3 if kind == "conv3d" else 1, wshape[-1], 1, wshape[0],
                 wshape[1])
@@ -858,7 +864,7 @@ def test_conv_train_grads(dtype, kind, stride, xshape, wshape, counter):
             moved = {k for k, n in conv_kernel.LAUNCHES.items()
                      if n != before[k]}
             assert moved == _dgrad_counters(kind, stride, wshape, dtype,
-                                            counter)
+                                            counter, xshape)
     torch.cuda.synchronize()
     for got, ref in zip(*results):
         assert got.shape == ref.shape and got.dtype == dtype
@@ -1109,23 +1115,131 @@ def test_fused_train_aggregate_gradients(dtype):
         assert err <= 1e-3 * want.float().abs().max().item()
 
 
+@pytest.mark.parametrize("relu", [True, False])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,ci,cm,co", [((1, 5, 11, 19), 32, 16, 16),
                                             ((2, 3, 9, 17), 8, 8, 3),
                                             ((1, 4, 6, 20), 64, 64, 64),
-                                            ((1, 3, 5, 7), 3, 8, 1)])
-def test_conv3d_pair(dtype, shape, ci, cm, co):
+                                            ((1, 3, 5, 7), 3, 8, 1),
+                                            ((2, 5, 9, 21), 16, 32, 64),
+                                            ((1, 7, 18, 37), 32, 32, 16),
+                                            ((1, 9, 20, 22), 64, 16, 32),
+                                            ((1, 13, 37, 50), 64, 64, 64)])
+def test_conv3d_pair(dtype, shape, ci, cm, co, relu):
     """The pair kernel vs two chained plain convs, at odd extents (partial
-    tiles), Ci not a multiple of 8 and Co < 8."""
+    tiles and D segments), Ci not a multiple of 8 and Co < 8 (the CUDA-core
+    body), Ci/Cm/Co in {16, 32, 64} (bf16: the tensor-core body, weights
+    whole or streamed), with and without the ReLU; one launch a call, the
+    same bits from two calls."""
     x = torch.randn(*shape, ci).cuda().to(dtype)
     w1 = (torch.randn(cm, ci, 3, 3, 3) * 0.1).cuda().to(dtype)
     w2 = (torch.randn(co, cm, 3, 3, 3) * 0.1).cuda().to(dtype)
-    e1 = (torch.rand(cm).cuda() + 0.5, torch.randn(cm).cuda() * 0.3)
+    e1 = (torch.rand(cm).cuda() + 0.5, torch.rand(cm).cuda() * 0.3 + 0.2)
     e2 = (torch.rand(co).cuda() + 0.5, torch.randn(co).cuda() * 0.1)
+    plan = conv_kernel.pair_plan(dtype, *shape, ci, cm, co,
+                                 conv_kernel.sm_count(0))
+    assert plan.route == ("tc" if dtype == torch.bfloat16 and ci % 16 == 0
+                          and cm >= 16 and co >= 16 else "direct")
     before = conv_kernel.LAUNCHES["conv3d_pair_bn_act"]
     _agree(lambda p: conv_kernel.conv3d_pair_bn_act(x, w1, *e1, w2, *e2,
-                                                    plain=p), dtype)
+                                                    relu=relu, plain=p),
+           dtype)
     assert conv_kernel.LAUNCHES["conv3d_pair_bn_act"] == before + 1
+    one = conv_kernel.conv3d_pair_bn_act(x, w1, *e1, w2, *e2, relu=relu)
+    two = conv_kernel.conv3d_pair_bn_act(x, w1, *e1, w2, *e2, relu=relu)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+
+
+def test_conv3d_pair_tc_refuses_a_plan_not_its_own():
+    """The tensor-core body checks the plan it is given: shared memory
+    that is not its geometry's, or M blocks past a warpgroup's registers,
+    return an error that the wrapper's check raises; nothing is counted."""
+    from mdfnet_tpu_torch.ops.cuda import build
+    x = torch.randn(1, 4, 16, 16, 32).cuda().to(torch.bfloat16)
+    w = torch.zeros(27 * 4, 16, 8).cuda().to(torch.bfloat16)
+    e = torch.ones(16).cuda()
+    y = torch.empty(1, 4, 16, 16, 16).cuda().to(torch.bfloat16)
+    plan = conv_kernel.pair_plan(torch.bfloat16, 1, 4, 16, 16, 32, 16, 16,
+                                 conv_kernel.sm_count(0))
+    lib = build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for th, tw, smem in ((plan.th, plan.tw, plan.smem + 16),
+                         (64, 64, plan.smem)):
+        err = lib.mdf_conv3d_pair_tc(
+            x.data_ptr(), w.data_ptr(), e.data_ptr(), e.data_ptr(),
+            w.data_ptr(), e.data_ptr(), e.data_ptr(), y.data_ptr(), 1, 4, 16,
+            16, 32, 16, 16, 1, th, tw, plan.planes, plan.ring, plan.taps,
+            smem, 0, stream)
+        assert err != 0
+        with pytest.raises(RuntimeError):
+            build.check(err, "conv3d_pair")
+
+
+@pytest.mark.parametrize("out", ["bf16", "f32+res"])
+@pytest.mark.parametrize("shape,ci,co,stride", [
+    ((2, 7, 9, 11), 32, 64, 2), ((4, 24, 32, 40), 32, 64, 2),
+    ((1, 5, 6, 13), 16, 32, 2), ((2, 4, 7, 9), 8, 16, 2),
+    ((1, 3, 5, 6), 64, 24, 2), ((1, 4, 6, 7), 16, 16, 1)])
+def test_conv_stream(shape, ci, co, stride, out):
+    """The K-streamed conv (route "stream") vs the plain conv at odd
+    extents, stride 2 and 1, Ci = 8 (a stage of four taps), Co padded;
+    bf16 output, and f32 with a residual (f32 tolerance: bf16 products are
+    exact in f32); one launch a call under ``conv_stream``, the same bits
+    from two calls."""
+    x = torch.randn(*shape, ci).cuda().to(torch.bfloat16)
+    w = (torch.randn(co, ci, 3, 3, 3) * 0.1).cuda().to(torch.bfloat16)
+    sc, off = torch.rand(co).cuda() + 0.5, torch.randn(co).cuda() * 0.3
+    out_dtype = torch.float32 if out == "f32+res" else torch.bfloat16
+    oshape = [(e + stride - 1) // stride for e in shape[1:]]
+    res = (torch.randn(shape[0], *oshape, co).cuda() if out == "f32+res"
+           else None)
+
+    def fn(p):
+        return conv_kernel.conv3d_bn_act(x, w, sc, off, stride=stride,
+                                         residual=res, out_dtype=out_dtype,
+                                         plain=p, route="stream")
+    before = dict(conv_kernel.LAUNCHES)
+    _agree(fn, out_dtype)
+    assert conv_kernel.LAUNCHES["conv_stream"] == before["conv_stream"] + 1
+    assert conv_kernel.LAUNCHES["conv_tc"] == before["conv_tc"]
+    one, two = fn(False), fn(False)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+
+
+def test_trconv_input_gradient_takes_the_stream_route():
+    """At the DTU train step's stage-0 shape the transposed conv's input
+    gradient launches the stream kernel once (stream_route) and agrees
+    with plain autograd; a forced f32 conv or transposed conv refuses the
+    route before any launch."""
+    x = torch.randn(4, 12, 16, 20, 64).cuda().to(torch.bfloat16)
+    w = (torch.randn(64, 32, 3, 3, 3) * 0.1).cuda().to(torch.bfloat16)
+    xg = x.clone().requires_grad_(True)
+    y = conv_vjp.trconv3d_train(xg, w)
+    g = torch.randn(y.shape).cuda().to(y.dtype)
+    before = dict(conv_kernel.LAUNCHES)
+    y.backward(g)
+    assert conv_kernel.LAUNCHES["conv_stream"] == before["conv_stream"] + 1
+    assert conv_kernel.LAUNCHES["trconv3d_dgrad"] == \
+        before["trconv3d_dgrad"] + 1
+    xr = x.float().clone().requires_grad_(True)
+    _plain_conv("trconv3d", 2)(xr, w.float()).backward(g.float())
+    torch.cuda.synchronize()
+    err = (xg.grad.float() - xr.grad).abs().max().item()
+    assert err <= REL_TOL[torch.bfloat16] * xr.grad.abs().max().item()
+    before = dict(conv_kernel.LAUNCHES)
+    one = torch.ones(32).cuda()
+    for args in ((x.float(), w.float()), (x, w)):
+        with pytest.raises(ValueError):
+            if args[0].dtype == torch.float32:
+                conv_kernel.conv3d_bn_act(args[0], args[1].transpose(0, 1),
+                                          one, one, stride=2,
+                                          route="stream")
+            else:
+                conv_kernel.trconv3d_bn_act(args[0], args[1], one, one,
+                                            route="stream")
+    assert conv_kernel.LAUNCHES == before
 
 
 def test_fused_train_step_on_the_kernels():
