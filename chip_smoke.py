@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gate-spread   # the bf16 step gate's readings
-    python3 chip_smoke.py --device-ms ROOT   # K1, K7, K9 device time, ROOT's
+    python3 chip_smoke.py --device-ms ROOT   # K1, K7, K9, K6 device time, ROOT's
     python3 chip_smoke.py --chain-tiles [ROOT]   # the chain kernel at each tile
     python3 chip_smoke.py --eval-profile ROOT   # the eval forward, ROOT's
     python3 chip_smoke.py --spatial   # the spatial phase alone
     python3 chip_smoke.py --pair-fault PATH   # K10 on saved pairs (the pair phase's fault copy)
     python3 chip_smoke.py --wgmma-rate   # clocks a wgmma.m64nNk16 as the conv kernels issue it
+    python3 chip_smoke.py --k6   # the K6 phase alone
+    python3 chip_smoke.py --k6-compare FILE   # two checkouts' K6_DEVICE_MS lines, paired
 
 ``--gate-spread`` reads the bf16 and f32 step gates' metrics over equally
 correct summation orders and over the injected faults (gate_spread), from
@@ -18,10 +20,11 @@ beside the per-layer route (chain_tiles): conv_kernel's CHAIN_FUSED rule
 and its tiles, and CHAIN_CASE_TILES, come from it; with ROOT, the package
 of the checkout at ROOT runs them (a parent's ``git archive``, to hold two
 commits' chain kernels side by side in one call).
-``--device-ms ROOT`` times K1 at the three DTU eval stages and K7 and K9
-(the stats kernel and K1's train launch) at the three DTU train stages with
-the package of the checkout at ROOT (device_ms_mode), with digests of their
-outputs, to hold two commits' kernels side by side in one call.
+``--device-ms ROOT`` times K1 at the three DTU eval stages, K7 and K9
+(the stats kernel and K1's train launch) at the three DTU train stages and
+K6 at every shape its paths launch with the package of the checkout at
+ROOT (device_ms_mode), with digests of their outputs, to hold two commits'
+kernels side by side in one call.
 ``--eval-profile ROOT`` runs the bf16 eval forward at DTU and Tanks
 2048x1056 with the package of the checkout at ROOT (eval_profile_mode):
 ms/map, peak memory, device ms, ATen's elementwise and ``cat`` device ms,
@@ -47,9 +50,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
      chain kernel beside its per-layer route, read in turn CHAIN_ROUNDS
      times, the rule's route the faster by the median of the rounds'
      ratios; K1's device time at the three stages,
-     and K1 on stress cameras at stage 0 (f32); K6 at the variance
-     aggregate's eval shapes (k6_eval_cases: one source, DTU stages 0 and
-     2), grid_sample beside it; how near the exact (f64)
+     and K1 on stress cameras at stage 0 (f32); K6 (k6_phase) at every
+     shape its paths launch (K6_PATHS: the dense train step, its fused
+     backward in f32, the variance eval warp and the C/G = 4 train step in
+     bf16 and f32, each at stages 0-2): f32 bit-equal to plain, its global branch's bits, the
+     units of each branch (the staged branch most of them), its plan
+     against its variants by K6_ROUNDS paired reads, grid_sample beside
+     it, the bound; stress cameras on both branches; the staged-box fault
+     (K6_BOX_FAULT) built in a copy of the tree; how near the exact (f64)
      sums the tc kernels' f32 sums come beside the direct kernel's (K2, K3,
      K4, the chain kernel's Ci = 3 and 1 heads);
   4. forward — the CoreNet eval forward at 1600x1184, 5 views, B=1, bf16
@@ -82,9 +90,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the plain f32 forward (the forward gate, FORWARD_BOUNDS), and each of
      its conv launches (the tc kernel at Ci = C under the variance
      aggregate, RefineNet v1's convs) against its plain version on the
-     same inputs (REL_TOL, uncounted launches); one train step of
-     all four and one of C/G = 4 (ALT_TRAIN) at DTU train, f32 kernels vs
-     plain f32 (STEP_BOUNDS_F32), with K6, K7 and K8 launched;
+     same inputs (REL_TOL, uncounted launches); into the variance and
+     C/G = 4 configs' bf16 forwards, K6's 1-px shift and a zeroed conv3d
+     tap (ALT_FAULTS), each read against every forward bound; one train
+     step of all four and one of C/G = 4 (ALT_TRAIN) at DTU train, f32
+     kernels vs plain f32 (STEP_BOUNDS_F32), with K6, K7 and K8 launched;
   6a. tanks  — the eval forward at the Tanks & Temples shapes (11 views,
      1920x1056 and 2048x1056): K1 against its plain version at the three
      stages with S = 10 sources (bf16 and f32), every kernel of the path
@@ -102,9 +112,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
   6c. metric — ``cli.dtu_eval`` on a cloud fused (vote, on the card) from a
      400x296 11-view scan: Acc, Comp and Overall (METRIC_BOUND);
   7. train kernels — the training step's kernels at the DTU train shapes
-     (640x512, 5 views, batch 4): the sample kernel (K6) vs its plain
-     version at stages 0 and 2 (and at C/G = 4: one source's 64 or 16
-     channels, with K7); the splat kernel (K7) and the fused train
+     (640x512, 5 views, batch 4): the splat kernel (K7; also at C/G =
+     4: one source's 64 or 16 channels) and the fused train
      aggregate's kernels (K9: the stats kernel, on K1's lane groups with
      all planes a block, and K1 with a per-view affine) at stages 0, 1 and
      2 and on stress cameras at stage 0, each stage timed in bf16 and f32,
@@ -577,6 +586,18 @@ def k1_inputs(gen, scene, dt, height=HEIGHT, width=WIDTH, nviews=NVIEWS):
     return stages
 
 
+def stress_extrinsics(extr):
+    """The stress cameras: ``extr`` (..., V, 4, 4) with view i turned by i
+    x 20 degrees about its y axis."""
+    extr = extr.clone()
+    for i in range(extr.shape[-3]):
+        c, sn = math.cos(math.radians(20.0 * i)), math.sin(math.radians(20.0 * i))
+        yaw = torch.tensor([[c, 0, sn, 0], [0, 1, 0, 0], [-sn, 0, c, 0],
+                            [0, 0, 0, 1]], dtype=extr.dtype, device=extr.device)
+        extr[..., i, :, :] = yaw @ extr[..., i, :, :]
+    return extr
+
+
 def k1_stress_inputs(scene):
     """K1's arguments at the DTU stage-0 shape (48 planes, 148x200, G =
     32, f32) on stress cameras: the scene's cameras with source view i
@@ -585,12 +606,7 @@ def k1_stress_inputs(scene):
     from mdfnet_tpu_torch import geometry
     gen = torch.Generator().manual_seed(7)
     d, g, h, w = NDEPTHS[0], NGROUPS[0], HEIGHT >> 3, WIDTH >> 3
-    extr = torch.from_numpy(scene.extrinsics).clone()
-    for i in range(NVIEWS):
-        c, sn = math.cos(math.radians(20.0 * i)), math.sin(math.radians(20.0 * i))
-        yaw = torch.tensor([[c, 0, sn, 0], [0, 1, 0, 0], [-sn, 0, c, 0],
-                            [0, 0, 0, 1]], dtype=extr.dtype)
-        extr[i] = yaw @ extr[i]
+    extr = stress_extrinsics(torch.from_numpy(scene.extrinsics))
     ref_proj, src_projs = geometry.projection_matrices(
         torch.from_numpy(scene.intrinsics)[None].to(DEV), extr[None].to(DEV),
         0, num_stages=4)
@@ -636,13 +652,7 @@ def train_sweeps(batch, gen, stress: bool = False):
     b = TRAIN_BATCH
     extr = batch["extrinsics"].float()
     if stress:
-        extr = extr.clone()
-        for i in range(NVIEWS):
-            c, sn = (math.cos(math.radians(20.0 * i)),
-                     math.sin(math.radians(20.0 * i)))
-            yaw = torch.tensor([[c, 0, sn, 0], [0, 1, 0, 0], [-sn, 0, c, 0],
-                                [0, 0, 0, 1]], device=extr.device)
-            extr[:, i] = yaw @ extr[:, i]
+        extr = stress_extrinsics(extr)
     for stage, (d, g) in enumerate(zip(NDEPTHS, NGROUPS)):
         if stress and stage:
             break
@@ -661,6 +671,336 @@ def train_sweeps(batch, gen, stress: bool = False):
                                    device=DEV) * 40.0
         yield (stage, d, g, h, w, src_projs, ref_proj,
                hyp.expand(b, d, *hyp.shape[2:]))
+
+
+def eval_sweeps(scene, gen, stress: bool = False):
+    """The plane sweeps of the three DTU eval stages (1600x1184, 5 views):
+    (stage, planes, h, w, src_projs, ref_proj, hypotheses); stage 0 48
+    uniform planes (1, D, 1, 1), stages 1-2 per-pixel planes (1, D, H, W)
+    drawn from ``gen`` (a CUDA generator). ``stress``: stage 0 only, on
+    k1_stress_inputs' cameras and planes."""
+    from mdfnet_tpu_torch import geometry
+    extr = torch.from_numpy(scene.extrinsics)
+    if stress:
+        extr = stress_extrinsics(extr)
+    for stage, d in enumerate(NDEPTHS):
+        if stress and stage:
+            break
+        h, w = HEIGHT >> (3 - stage), WIDTH >> (3 - stage)
+        ref_proj, src_projs = geometry.projection_matrices(
+            torch.from_numpy(scene.intrinsics)[None].to(DEV),
+            extr[None].to(DEV), stage, num_stages=4)
+        if stress:
+            hyp = torch.linspace(0.2 * DEPTH_RANGE[0], 5.0 * DEPTH_RANGE[1],
+                                 d, device=DEV).reshape(1, d, 1, 1)
+        elif stage == 0:
+            hyp = torch.linspace(*DEPTH_RANGE, d, device=DEV).reshape(
+                1, d, 1, 1)
+        else:
+            hyp = 560.0 + torch.arange(d, device=DEV).reshape(1, d, 1, 1) \
+                * 4.0 + torch.rand(1, 1, h, w, generator=gen,
+                                   device=DEV) * 40.0
+        yield stage, d, h, w, src_projs, ref_proj, hyp
+
+
+# K6 at every shape that a path launches it: (path, image dtype, one
+# source a launch, channels at stages 0-2, launches a stage as the path's
+# code makes them). The dense train step warps all 4 sources of 4 items (16
+# images, G channels) in one launch a stage; the fused step's backward
+# recomputes that warp in f32 (ops/aggregate_train.py); the variance
+# aggregate's eval forward warps one source's C backbone channels a launch
+# (as does the C/G = 4 vector aggregate's, at the same shapes); the C/G = 4
+# train step one source of 4 items at C = 4 G a launch. The last two in f32
+# too: the f32 kernel forwards (eval --exact, the alternatives phase) and
+# the C/G = 4 f32 train step (ALT_TRAIN).
+K6_PATHS = (("dense train", torch.bfloat16, False, NGROUPS, 1),
+            ("fused backward", torch.float32, False, NGROUPS, 1),
+            ("variance eval", torch.bfloat16, True, (64, 32, 16), NVIEWS - 1),
+            ("C/G = 4 train", torch.bfloat16, True, (64, 32, 16), NVIEWS - 1),
+            ("variance eval", torch.float32, True, (64, 32, 16), NVIEWS - 1),
+            ("C/G = 4 train", torch.float32, True, (64, 32, 16), NVIEWS - 1))
+
+
+def k6_inputs(scene, batch, stress: bool = False):
+    """K6's arguments at every shape of K6_PATHS: yields (path, stage,
+    launches a stage, (image, x, y)), from a seeded CUDA generator so that
+    two checkouts read the same inputs in one call. The train paths sample
+    the DTU train batch's sweeps (train_sweeps), the eval path the DTU eval
+    scene's (eval_sweeps). ``stress``: stage 0 of each path on the stress
+    cameras (sources turned by i x 20 degrees, planes from 0.2x the near
+    to 5x the far depth), where most samples fall outside the source."""
+    from mdfnet_tpu_torch.ops.warp import sweep_sample_coords
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    train = list(train_sweeps(batch, gen, stress))
+    ev = list(eval_sweeps(scene, gen, stress))
+    for path, dt, one, chs, launches in K6_PATHS:
+        for stage, d, h, w, src_projs, ref_proj, hyp in (
+                ev if path == "variance eval"
+                else [(t[0], t[1], *t[3:]) for t in train]):
+            x, y = sweep_sample_coords(src_projs[:, :1] if one else src_projs,
+                                       ref_proj, hyp, h, w)
+            img = torch.randn(x.shape[0], h, w, chs[stage], generator=gen,
+                              device=DEV).to(dt)
+            yield path, stage, launches, (img, x, y)
+
+
+# the JSON entry of each K6 path: the dense train step's (its fused
+# backward's cases beside it), the eval warp's, the C/G = 4 train step's
+K6_ENTRY = {"dense train": "sample_2d", "fused backward": "sample_2d",
+            "variance eval": "sample_2d_eval",
+            "C/G = 4 train": "sample_2d_groups"}
+# K6's branch by warp_kernel.stage_route against the other, at each shape:
+# this many device-time reads of each in turn, the median of their ratios
+# at most K6_ROUTE_SLACK (where the two branches tie, 0.998-1.003 at DTU
+# train stage 0 and C/G = 4 stage 1, either may read faster in a run)
+K6_ROUNDS = 7
+K6_ROUTE_SLACK = 1.02
+# the fault the K6 phase injects into a copy of the kernel: the staged box
+# copied from one column left of its origin (but at the source's left
+# edge, so that no read leaves the image), which must read at least twice
+# REL_TOL against the plain version at every DTU shape
+K6_BOX_FAULT = [("sample_2d.cu", [(
+    "const T* row = src + (y * a.Ws + b.x0) * a.C;",
+    "const T* row = src + (y * a.Ws + max(b.x0 - 1, 0)) * a.C;")])]
+
+
+def k6_phase(scene, batch) -> dict:
+    """K6 at every shape that a path launches it (k6_inputs, K6_PATHS):
+    against its plain version (f32 bit-equal, bf16 within REL_TOL), the
+    global branch bit-equal to the staged one, the units of work on each
+    branch where every unit that fits stages (the counter buffer: the
+    staged branch must serve most units at the DTU shapes), the kernel's
+    device time on its plan beside the other branch (K6_ROUNDS reads of
+    each in turn; the rule's branch must not be the slower by more than
+    K6_ROUTE_SLACK by the median of the ratios), grid_sample's device time on the
+    same samples and the bound; then stage
+    0 of each path on the stress cameras, staged wherever a box fits (both
+    branches must be taken), and
+    the staged-box fault (K6_BOX_FAULT, in a copy of the tree) at every
+    DTU shape. Returns the JSON entries of K6_ENTRY, each with its first
+    (stage-0) case's numbers and every case under "cases"."""
+    import torch.nn.functional as F
+    from mdfnet_tpu_torch.ops.cuda import warp_kernel
+    report, stress_counts = {}, torch.zeros(2, dtype=torch.int64)
+    rel_errs, failures = [], []
+    for stress in (False, True):
+        for path, stage, launches, (img, x, y) in k6_inputs(scene, batch,
+                                                            stress):
+            # the stress cameras stage wherever a box fits, so that both
+            # branches run in one launch
+            staged = True if stress else warp_kernel.stage_route(
+                img.shape[-1], x.shape[1], img.dtype)
+            counts = torch.zeros(2, 2, dtype=torch.int64, device=DEV)
+            got = warp_kernel.sample_2d(img, x, y, counts=counts[0],
+                                        staged=staged)
+            ref = warp_kernel.sample_2d(img, x, y, plain=True)
+            other = warp_kernel.sample_2d(img, x, y, counts=counts[1],
+                                          staged=not staged)
+            torch.cuda.synchronize()
+            err, rel = _rel_err(got, ref)
+            dt = img.dtype
+            # the units of each branch where every unit that fits stages
+            counts = counts[0 if staged else 1].cpu()
+            case = {"path": path, "stage": stage, "dtype": str(dt)[6:],
+                    "image": list(img.shape), "planes": x.shape[1],
+                    "max_abs_err": err, "rel_err": rel,
+                    "bits_equal_plain": torch.equal(got, ref),
+                    "units_staged": int(counts[0]),
+                    "units_global": int(counts[1])}
+            line = (f"K6 {'stress ' if stress else ''}{path} stage {stage} "
+                    f"{case['dtype']} image {tuple(img.shape)}, {x.shape[1]}"
+                    f" planes: rel err {rel:.2e} (tol {REL_TOL[dt]:.0e}), "
+                    f"bits {'equal to' if case['bits_equal_plain'] else 'differ from'}"
+                    f" plain; {'staged' if staged else 'global'} by the rule; "
+                    f"staging what fits: units staged {case['units_staged']}, "
+                    f"global {case['units_global']}")
+            require(rel <= REL_TOL[dt] and math.isfinite(err)
+                    and (dt != torch.float32 or case["bits_equal_plain"]),
+                    f"K6 {path} stage {stage}{' stress' if stress else ''}:"
+                    f" disagrees with its plain version (rel {rel:.2e})")
+            require(torch.equal(got, other), f"K6 {path} stage {stage}: the "
+                    f"global branch's bits differ from the staged one's")
+            if stress:
+                stress_counts += counts
+                print(line, flush=True)
+                del got, ref, other
+                continue
+            if case["units_staged"] <= case["units_global"]:
+                failures.append(
+                    f"K6 {path} stage {stage}: the staged branch serves "
+                    f"{case['units_staged']} of "
+                    f"{case['units_staged'] + case['units_global']} units")
+            rel_errs.append(rel)
+            # the rule's branch against the other
+            branch = "global" if staged else "staged"
+            variants = {"plan": lambda: warp_kernel.sample_2d(img, x, y),
+                        branch: lambda: warp_kernel.sample_2d(
+                            img, x, y, staged=not staged)}
+            reads = {k: [] for k in variants}
+            for r in range(K6_ROUNDS):
+                for k in (list(variants) if r % 2 == 0
+                          else list(variants)[::-1]):
+                    reads[k].append(device_ms(variants[k]))
+            s_, h, w, c = img.shape
+            grid = torch.stack([(2.0 * x + 1.0) / w - 1.0,
+                                (2.0 * y + 1.0) / h - 1.0], -1).reshape(
+                                    s_, x.shape[1], -1, 2).to(dt)
+
+            def library(img=cl(img), grid=grid):
+                return F.grid_sample(img, grid, mode="bilinear",
+                                     padding_mode="zeros",
+                                     align_corners=False)
+            case.update({
+                "ms": statistics.median(reads["plan"]),
+                **{f"{k} ms": statistics.median(v) for k, v in reads.items()
+                   if k != "plan"},
+                **{f"plan / {k}": statistics.median(
+                    p / q for p, q in zip(reads["plan"], v))
+                   for k, v in reads.items() if k != "plan"},
+                "kernel_ms": kernel_device_ms(variants["plan"], "sample_2d"),
+                "plain_ms": cuda_ms(lambda: warp_kernel.sample_2d(
+                    img, x, y, plain=True), iters=3),
+                "library_ms": device_ms(library),
+                **bound("sample_2d", size(img, x, y) + size(got),
+                        x.numel() * (10 + 9 * c))})
+            case["share_of_bound"] = case["bound_ms"] / case["ms"]
+            print(line + f"; device {case['ms']:.4f} ms (kernel alone "
+                  f"{case['kernel_ms']:.4f}), " + ", ".join(
+                      f"{k} {case[k + ' ms']:.4f} ms (plan / {k} "
+                      f"{case['plan / ' + k]:.3f})" for k in reads
+                      if k != "plan")
+                  + f", bound {case['bound_ms']:.4f} ms "
+                  f"({case['bound_by']}, {case['share_of_bound']:.0%}), "
+                  f"grid_sample {case['library_ms']:.4f} ms, plain "
+                  f"{case['plain_ms']:.3f} ms (wall); launches a stage by "
+                  f"the path's code {launches}", flush=True)
+            if case["plan / " + branch] > K6_ROUTE_SLACK:
+                failures.append(
+                    f"K6 {path} stage {stage}: the plan takes "
+                    f"{case['plan / ' + branch]:.3f}x the device time of "
+                    f"{branch}")
+            entry = report.setdefault(K6_ENTRY[path], {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            if "ms" not in entry:
+                entry.update({k: case[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "kernel_ms")})
+            entry.setdefault("cases", []).append(case)
+            del got, ref, other, grid
+    print(f"K6 stress cameras, stage 0 of each path: units staged "
+          f"{int(stress_counts[0])}, global {int(stress_counts[1])}",
+          flush=True)
+    require(bool((stress_counts > 0).all()), "K6: the stress cameras do "
+            "not take both branches")
+    faulty = k6_box_fault()
+    print("K6 staged-box fault (the box copied from one column left), rel "
+          "err against plain at each DTU shape: " + ", ".join(
+              f"{r:.2e}" for r in faulty), flush=True)
+    require(len(faulty) == len(rel_errs) and min(faulty) >= 2 * max(
+        REL_TOL.values()), "K6: the staged-box fault reads within 2x "
+            "REL_TOL")
+    require(not failures, "; ".join(failures))
+    return report
+
+
+def k6_box_fault() -> list:
+    """The staged-box fault (K6_BOX_FAULT): a copy of the port with the
+    edited source runs k6_fault_mode in a process of its own; returns its
+    rel errors against the plain version at each DTU shape of k6_inputs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = edited_copy(tmp, "k6 box fault", K6_BOX_FAULT)
+        proc = subprocess.run([sys.executable, os.path.join(
+            root, "chip_smoke.py"), "--k6-fault"], cwd=root,
+            capture_output=True, text=True, timeout=600)
+        lines = [v for v in proc.stdout.splitlines()
+                 if v.startswith("K6_FAULT ")]
+        require(proc.returncode == 0 and lines, "the K6 box fault's run "
+                "failed:\n" + "\n".join(
+                    (proc.stdout + proc.stderr).splitlines()[-20:]))
+        return json.loads(lines[-1][len("K6_FAULT "):])
+
+
+def k6_fault_mode() -> None:
+    """K6 of this tree, staged wherever a box fits, against its plain
+    version at each DTU shape of k6_inputs: one line ``K6_FAULT [rel err,
+    ...]`` (k6_box_fault runs it in an edited copy)."""
+    from mdfnet_tpu_torch.ops.cuda import warp_kernel
+    rels = []
+    for _, _, _, (img, x, y) in k6_inputs(dtu_scene(), train_batch()):
+        rels.append(_rel_err(warp_kernel.sample_2d(img, x, y, staged=True),
+                             warp_kernel.sample_2d(img, x, y, plain=True))[1])
+    print("K6_FAULT " + json.dumps(rels), flush=True)
+
+
+def k6_device_ms(warp_kernel, root: str) -> None:
+    """K6 (``warp_kernel``: a checkout's module) at every shape of
+    k6_inputs: K6_ROUNDS reads of its kernel's device time
+    (kernel_device_ms), their median, a digest of its output and
+    grid_sample's device time on the same samples: one line
+    ``K6_DEVICE_MS {...}``. Two checkouts run in one call (parent, change,
+    change, parent) give paired reads and, by equal digests, equal bits."""
+    import torch.nn.functional as F
+    cases = []
+    for path, stage, _, (img, x, y) in k6_inputs(dtu_scene(),
+                                                 train_batch()):
+        def run(img=img, x=x, y=y):
+            return warp_kernel.sample_2d(img, x, y)
+        out = run()
+        s, h, w, c = img.shape
+        grid = torch.stack([(2.0 * x + 1.0) / w - 1.0,
+                            (2.0 * y + 1.0) / h - 1.0], -1).reshape(
+                                s, x.shape[1], -1, 2).to(img.dtype)
+        reads = [kernel_device_ms(run, "sample_2d") for _ in range(K6_ROUNDS)]
+        cases.append({
+            "path": path, "stage": stage, "dtype": str(img.dtype)[6:],
+            "image": list(img.shape), "planes": x.shape[1],
+            "ms": statistics.median(reads),
+            "reads": reads, "digest": _digest(out),
+            "bound_ms": (size(img, x, y) + size(out)) / PEAK_BYTES_PER_S * 1e3,
+            "library_ms": kernel_device_ms(lambda: F.grid_sample(
+                cl(img), grid, mode="bilinear", padding_mode="zeros",
+                align_corners=False), "")})
+        print(f"K6 {path} stage {stage}: {cases[-1]}", flush=True)
+        del out, grid
+    print("K6_DEVICE_MS " + json.dumps({"root": root, "cases": cases}),
+          flush=True)
+
+
+def k6_compare(path: str) -> None:
+    """The K6_DEVICE_MS lines in the file at ``path`` for two checkouts,
+    read in the order A, B, B, A (two runs a checkout on one card): per
+    shape, each checkout's median over its reads, the median of the
+    ratios B / A of the reads paired by run (first A with first B, second
+    with second) and index, whether their digests agree, the bound and
+    grid_sample: one line ``K6_COMPARE {...}``."""
+    with open(path) as f:
+        runs = [json.loads(v[len("K6_DEVICE_MS "):]) for v in f
+                if v.startswith("K6_DEVICE_MS ")]
+    roots = list(dict.fromkeys(r["root"] for r in runs))
+    require(len(roots) == 2, f"K6_DEVICE_MS lines of {roots}, not two roots")
+    by = {root: [r for r in runs if r["root"] == root] for root in roots}
+    a, b = roots
+    out = []
+    for i, case in enumerate(by[a][0]["cases"]):
+        reads = {root: [c["cases"][i]["reads"] for c in by[root]]
+                 for root in roots}
+        ratios = [y / x for ra, rb in zip(reads[a], reads[b])
+                  for x, y in zip(ra, rb)]
+        digests = {c["cases"][i]["digest"] for root in roots
+                   for c in by[root]}
+        out.append({k: case[k] for k in ("path", "stage", "dtype", "image",
+                                         "planes", "bound_ms")}
+                   | {"ms": {root: statistics.median(sum(reads[root], []))
+                             for root in roots},
+                      "ratio": statistics.median(ratios),
+                      "pairs": len(ratios), "bits_equal": len(digests) == 1,
+                      "library_ms": statistics.median(
+                          c["cases"][i]["library_ms"] for root in roots
+                          for c in by[root])})
+        print(f"K6 {case['path']} stage {case['stage']}: {out[-1]}",
+              flush=True)
+    print("K6_COMPARE " + json.dumps({"a": a, "b": b, "cases": out}),
+          flush=True)
 
 
 def k9_inputs(batch, stress: bool = False):
@@ -973,48 +1313,6 @@ def kernel_cases(gen, scene):
             cases.append(("conv3d_pair_bn_act", dt, lambda p, x=x, wa=wa,
                           wb=wb, e1=e1, e2=e2: conv3d_pair_bn_act(
                               x, wa, *e1, wb, *e2, plain=p), meta))
-    return cases + k6_eval_cases(scene)
-
-
-def k6_eval_cases(scene):
-    """K6 in eval: the variance aggregate's warp of one source view's
-    C-channel features at DTU eval stage 0 (48 uniform planes, 148x200, C =
-    64) and stage 2 (8 per-pixel planes, 592x800, C = 16), bf16 and f32;
-    the yardstick is grid_sample on the same samples. Its own generator
-    keeps the other cases' inputs as they were."""
-    import torch.nn.functional as F
-    from mdfnet_tpu_torch import geometry
-    from mdfnet_tpu_torch.ops.cuda.warp_kernel import sample_2d
-    from mdfnet_tpu_torch.ops.warp import sweep_sample_coords
-    gen = torch.Generator().manual_seed(6)
-    intr = torch.from_numpy(scene.intrinsics)[None].to(DEV)
-    extr = torch.from_numpy(scene.extrinsics)[None].to(DEV)
-    chs = (64, 32, 16)      # the backbone's C at stages 0-2
-    cases = []
-    for dt in (torch.bfloat16, torch.float32):
-        for stage in (0, 2):
-            d, c = NDEPTHS[stage], chs[stage]
-            h, w = HEIGHT >> (3 - stage), WIDTH >> (3 - stage)
-            ref_proj, src_projs = geometry.projection_matrices(
-                intr, extr, stage, num_stages=4)
-            if stage == 0:
-                hyp = torch.linspace(*DEPTH_RANGE, d).reshape(1, d, 1, 1)
-            else:
-                hyp = 560.0 + torch.arange(d).reshape(1, d, 1, 1) * 4.0 \
-                    + torch.rand(1, 1, h, w, generator=gen) * 40.0
-            x, y = sweep_sample_coords(src_projs[:, :1], ref_proj,
-                                       hyp.to(DEV), h, w)
-            img = torch.randn(1, h, w, c, generator=gen).to(DEV, dt)
-            grid = torch.stack([(2.0 * x + 1.0) / w - 1.0,
-                                (2.0 * y + 1.0) / h - 1.0], -1)
-            meta = dict(in_bytes=size(img, x, y), ops=x.numel() * (10 + 9 * c),
-                        kernel="sample_2d_kernel",
-                        library=lambda img=cl(img), gd=grid.reshape(
-                            1, d, h * w, 2).to(dt): F.grid_sample(
-                                img, gd, mode="bilinear",
-                                padding_mode="zeros", align_corners=False))
-            cases.append(("sample_2d_eval", dt, lambda p, img=img, x=x, y=y:
-                          sample_2d(img, x, y, plain=p), meta))
     return cases
 
 
@@ -1846,6 +2144,42 @@ def checked_launches(errs: dict) -> list:
     return [(conv_kernel, "_launch", checked)]
 
 
+# The faults injected into the bf16 eval forwards of the alternatives
+# whose units no default-config fault sized the forward bounds for: K6's
+# 1-px shift (its eval launches) and a zeroed conv3d tap. Each must read
+# at least twice one forward bound (FORWARD_BOUNDS, the depth bounds) but
+# the (config, fault) pairs of ALT_BLIND, which none sees. K6's shift
+# reads at most 0.79x a bound under the variance aggregate (prob 0: 1.59e-4,
+# what the correct bf16 forward reads) and 1.62x under the vector aggregate
+# at C/G = 4 (cost 0: 9.72e-3 against the correct forward's 2.72e-3, so a
+# bound that saw it at 2x, <= 4.86e-3, would sit below 2x a correct reading,
+# 5.44e-3; the other keys likewise; PERF.md). The zeroed tap reads 4.09x
+# and 6.98x (prob 0).
+ALT_FAULTS = {"variance": ("K6 1-px shift", "conv3d tap"),
+              "groups": ("K6 1-px shift", "conv3d tap")}
+ALT_BLIND = {("variance", "K6 1-px shift"), ("groups", "K6 1-px shift")}
+
+
+def alt_fault_readings(model, plain_model, args, name: str) -> list:
+    """Each of ALT_FAULTS[name] injected into ``model``'s forward (bf16
+    kernels) against the plain f32 forward: its reading over every bound
+    of the forward gate, printed. Returns the faults that read within 2x
+    of every bound."""
+    blind = []
+    for fault in ALT_FAULTS[name]:
+        with patched(FAULTS[fault]()):
+            gate = forward_gate(model, plain_model, args)
+        over = {"depth median": gate["median"] / MEDIAN_BOUND,
+                "depth p95": gate["p95"] / P95_BOUND,
+                **{k: v / FORWARD_BOUNDS[k] for k, v in gate["diffs"].items()}}
+        print(f"alternatives {name} bf16, injected fault '{fault}' (reading "
+              f"/ bound): " + ", ".join(f"{k} {v:.3g}x" for k, v in
+                                        over.items()), flush=True)
+        if max(over.values()) < 2.0:
+            blind.append(fault)
+    return blind
+
+
 def alternatives_phase(scene, smi: str) -> tuple[int, dict]:
     """The alternative units (ALT_CONFIGS: the variance aggregate, ATV
     hypotheses, RefineNet v1, gauss0 curves, all four together, and the
@@ -1860,8 +2194,10 @@ def alternatives_phase(scene, smi: str) -> tuple[int, dict]:
     ALT_TRAIN (all four; the vector aggregate at C/G = 4) at the DTU train
     configuration on the kernels in f32 against the plain f32 step
     (STEP_BOUNDS_F32's loss and gradient bounds), with K6, K7 and K8
-    launched and a finite loss. Returns K6's launches in the variance
-    config's bf16 forward and the C/G = 4 train step's launches."""
+    launched and a finite loss; into the variance and C/G = 4 configs' bf16
+    forwards, the faults of ALT_FAULTS (alt_fault_readings). Returns K6's
+    launches in the variance config's bf16 forward and the C/G = 4 train
+    step's launches."""
     from mdfnet_tpu_torch.config import ModelConfig
     from mdfnet_tpu_torch.data import make_batch
     from mdfnet_tpu_torch.models.registry import build_model
@@ -1932,6 +2268,12 @@ def alternatives_phase(scene, smi: str) -> tuple[int, dict]:
               + ", ".join(f"{key[1:]}: {rel:.2e}"
                           for key, rel in sorted(tc.items())), flush=True)
         require_gate(gate, f"alternatives {name} bf16 kernel forward")
+        if name in ALT_FAULTS:
+            blind = alt_fault_readings(models["bfloat16"], models["float32"],
+                                       args, name)
+            require(all((name, f) in ALT_BLIND for f in blind),
+                    f"alternatives {name}: the injected faults {blind} read "
+                    f"within 2x of every forward bound")
         for key, rel in errs.items():
             require(rel <= REL_TOL[torch.bfloat16] and math.isfinite(rel),
                     f"alternatives {name}: the {key[0]} launch {key[1:]} "
@@ -2528,7 +2870,6 @@ def train_kernel_cases(gen, batch):
     against plain autograd on the plain conv; its time, bound and yardstick
     are the input gradient's."""
     import torch.nn.functional as F
-    from mdfnet_tpu_torch import geometry
     from mdfnet_tpu_torch.ops.cuda import exact_cuda_math
     from mdfnet_tpu_torch.ops.cuda.aggregate_kernel import (
         rowsweep_aggregate_with_wsum, rowsweep_stats)
@@ -2536,7 +2877,6 @@ def train_kernel_cases(gen, batch):
                                                     conv3d_train,
                                                     trconv3d_train)
     from mdfnet_tpu_torch.ops.cuda.splat_kernel import splat_2d
-    from mdfnet_tpu_torch.ops.cuda.warp_kernel import sample_2d
     from mdfnet_tpu_torch.ops.warp import sweep_sample_coords
 
     def rnd(*shape, scale=1.0):
@@ -2544,39 +2884,6 @@ def train_kernel_cases(gen, batch):
 
     b, s = TRAIN_BATCH, NVIEWS - 1
     cases = []
-    # K6 — stage 0 (48 uniform planes, 1/8 res, G = 32) and stage 2 (8
-    # per-pixel planes, 1/2 res, G = 8), all 4 sources of 4 items
-    for stage, d, g in ((0, NDEPTHS[0], NGROUPS[0]), (2, NDEPTHS[2], NGROUPS[2])):
-        h, w = TRAIN_HEIGHT >> (3 - stage), TRAIN_WIDTH >> (3 - stage)
-        ref_proj, src_projs = geometry.projection_matrices(
-            batch["intrinsics"].float(), batch["extrinsics"].float(), stage,
-            num_stages=4)
-        if stage == 0:
-            hyp = torch.linspace(*DEPTH_RANGE, d).reshape(1, d, 1, 1) \
-                .expand(b, d, 1, 1)
-        else:
-            hyp = 560.0 + torch.arange(d).reshape(1, d, 1, 1) * 4.0 \
-                + torch.rand(b, 1, h, w, generator=gen) * 40.0
-        x, y = sweep_sample_coords(src_projs, ref_proj, hyp.to(DEV), h, w)
-        # grid_sample's normalised grid for the same samples (align_corners
-        # False): x_pixel = ((gx + 1) W - 1) / 2
-        grid = torch.stack([(2.0 * x + 1.0) / w - 1.0,
-                            (2.0 * y + 1.0) / h - 1.0], -1)
-        grid = grid.reshape(b * s, d, h * w, 2)
-        for dt in (torch.bfloat16, torch.float32):
-            img = rnd(b * s, h, w, g).to(dt)
-            sample = (lambda p, img=img, x=x, y=y: sample_2d(img, x, y, plain=p))
-            n_samples = x.numel()
-            sample_meta = dict(
-                device=lambda f=sample: f(False),
-                nbytes=size(img, x, y) + n_samples * g * img.element_size(),
-                ops=n_samples * (10 + 9 * g),
-                library=lambda img=cl(img), gd=grid.to(dt): F.grid_sample(
-                    img, gd, mode="bilinear", padding_mode="zeros",
-                    align_corners=False))
-            cases.append(("sample_2d", dt, sample,
-                          lambda p, f=sample: cuda_ms(lambda: f(p)),
-                          sample_meta if not cases else None))
     # K7 — the three stages (k7_inputs), each timed in bf16 (the dense
     # step's) and f32 (the fused step's), and the stress cameras at stage 0
     for stress in (False, True):
@@ -2599,9 +2906,9 @@ def train_kernel_cases(gen, batch):
                           dt, splat, lambda p, f=splat: cuda_ms(lambda: f(p)),
                           None if stress else splat_meta))
 
-    # K6 and K7 at C/G != 2 (GROUPS_KERNELS): one source's C = 2 G channels
-    # of 4 items a launch, stage 0 (48 uniform planes, C = 64) and stage 2
-    # (8 per-pixel planes, C = 16), bf16 then f32; stage 0 in bf16 timed
+    # K7 at C/G != 2 (GROUPS_KERNELS): one source's C = 2 G channels of 4
+    # items a launch, stage 0 (48 uniform planes, C = 64) and stage 2 (8
+    # per-pixel planes, C = 16), bf16 then f32; stage 0 in bf16 timed
     gen_groups = torch.Generator(device=DEV).manual_seed(12)
     for stage, d, g, h, w, src_projs, ref_proj, hyp in train_sweeps(
             batch, gen_groups):
@@ -2613,24 +2920,11 @@ def train_kernel_cases(gen, batch):
                             (2.0 * y + 1.0) / h - 1.0], -1).reshape(
                                 b, d, h * w, 2)
         for dt in (torch.bfloat16, torch.float32):
-            img = torch.randn(b, h, w, c, generator=gen_groups,
-                              device=DEV).to(dt)
+            # (the image drawn first keeps the cotangents as they were)
+            torch.randn(b, h, w, c, generator=gen_groups, device=DEV)
             gr = torch.randn(b, d, h, w, c, generator=gen_groups,
                              device=DEV).to(dt)
             first = stage == 0 and dt == torch.bfloat16
-            sample = (lambda p, img=img, x=x, y=y: sample_2d(img, x, y,
-                                                             plain=p))
-            cases.append(("sample_2d_groups", dt, sample,
-                          lambda p, f=sample: cuda_ms(lambda: f(p)),
-                          dict(device=lambda f=sample: f(False),
-                               nbytes=size(img, x, y) + x.numel() * c
-                               * img.element_size(),
-                               ops=x.numel() * (10 + 9 * c),
-                               library=lambda img=cl(img), gd=grid.to(dt):
-                               F.grid_sample(img, gd, mode="bilinear",
-                                             padding_mode="zeros",
-                                             align_corners=False))
-                          if first else None))
             splat = (lambda p, a=(gr, x, y, h, w): splat_2d(*a, plain=p))
             cases.append(("splat_2d_groups", dt, splat,
                           lambda p, f=splat: cuda_ms(lambda: f(p)),
@@ -2644,7 +2938,7 @@ def train_kernel_cases(gen, batch):
                                torch.ops.aten.grid_sampler_2d_backward(
                                    gn, im, gd, 0, 0, False, [True, False]))
                           if first else None))
-        del img, gr
+        del gr
 
     def plain_conv(kind, stride):
         def run(x, w):
@@ -3040,13 +3334,18 @@ def _zeroed_stream_tap():
 
 
 def _shifted_sample_taps():
-    """A K6 fault: its launches sample one pixel to the right."""
+    """A K6 fault: its launches sample one pixel to the right, at every
+    call site (the train warp, the fused step's backward, and the eval
+    warps of the variance aggregate and of the vector aggregate at C/G !=
+    2)."""
+    from mdfnet_tpu_torch.models import aggregate, aggregate_variance
     from mdfnet_tpu_torch.ops import aggregate_train, warp
     from mdfnet_tpu_torch.ops.cuda.warp_kernel import sample_2d
 
     def faulty(image, x, y, *, plain=False):
         return sample_2d(image, x if plain else x + 1.0, y, plain=plain)
-    return [(warp, "sample_2d", faulty), (aggregate_train, "sample_2d", faulty)]
+    return [(m, "sample_2d", faulty) for m in (
+        warp, aggregate_train, aggregate, aggregate_variance)]
 
 
 def _shifted_splat_taps():
@@ -4384,6 +4683,8 @@ def device_split(fn, iters: int = 10) -> dict:
 
 
 def _digest(t: torch.Tensor) -> str:
+    if t.dtype == torch.bfloat16:   # (numpy has no bf16: its bits)
+        t = t.view(torch.int16)
     return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
@@ -4435,7 +4736,7 @@ def k9_device_ms(aggregate_kernel, root: str) -> None:
 
 
 def device_ms_mode(root: str) -> None:
-    """K1's, K7's and K9's device time with the package of the checkout at
+    """K1's, K7's, K9's and K6's device time with the package of the checkout at
     ``root`` (say a parent commit's ``git archive``, whose kernels build
     under its own build/), and a digest of each output; run it for two
     checkouts in one call to compare them on one card (equal digests mean
@@ -4446,7 +4747,8 @@ def device_ms_mode(root: str) -> None:
     the device memory a call takes beyond its output, and
     grid_sampler_2d_backward's device time on the same samples: one line
     ``K7_DEVICE_MS {...}``. K9 at the same stages (k9_device_ms):
-    ``K9_DEVICE_MS {...}``. Then the DTU train step (bf16, dense and
+    ``K9_DEVICE_MS {...}``; K6 at every shape its paths launch
+    (k6_device_ms): ``K6_DEVICE_MS {...}``. Then the DTU train step (bf16, dense and
     fused): ms/step (median of 5 after 2), peak memory and device time
     (every kernel and copy of a step in a profile): ``TRAIN_STEP {...}``."""
     root = os.path.abspath(root)
@@ -4493,6 +4795,8 @@ def device_ms_mode(root: str) -> None:
     print("K7_DEVICE_MS " + json.dumps({"root": root, "cases": cases}),
           flush=True)
     k9_device_ms(aggregate_kernel, root)
+    from mdfnet_tpu_torch.ops.cuda import warp_kernel
+    k6_device_ms(warp_kernel, root)
     from mdfnet_tpu_torch.config import ModelConfig
     from mdfnet_tpu_torch.models.registry import build_model
     from mdfnet_tpu_torch.train_lib import make_optimizer, poly_lr, train_step
@@ -4729,6 +5033,18 @@ def main():
     if sys.argv[1:] == ["--wgmma-rate"]:
         wgmma_rate()
         return
+    if sys.argv[1:] == ["--k6-fault"]:
+        k6_fault_mode()
+        return
+    if sys.argv[1:] == ["--k6"]:
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip(), flush=True)
+        k6_phase(dtu_scene(), train_batch())
+        return
+    if sys.argv[1:2] == ["--k6-compare"] and len(sys.argv) == 3:
+        k6_compare(sys.argv[2])
+        return
     start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4818,6 +5134,8 @@ def main():
 
     scene = dtu_scene()
     report = check_kernels(scene)
+    k6 = k6_phase(scene, train_batch())
+    report.update(k6)
     tc_sums()
     model, args, launches, tc = forward_phase(build_s, scene)
     kernels = [entry(n, info, report, launches[n], tc.get(n))
@@ -4840,6 +5158,7 @@ def main():
 
     batch = train_batch()
     report = check_train_kernels(batch)
+    report.update(k6)
     report["conv_stream"] = trconv_dgrad_phase()
     launches, tc, unfused_f32 = train_gate(batch)
     kernels += [entry(n, info, report, launches[info.get("counter", n)],

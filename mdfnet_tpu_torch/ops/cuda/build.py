@@ -43,7 +43,7 @@ SIGNATURES = {
     "mdf_conv3d_pair": [_P] * 8 + [_I] * 11 + [_P],
     "mdf_conv3d_pair_tc": [_P] * 8 + [_I] * 15 + [_P],
     "mdf_conv_stream": [_P] * 6 + [_I] * 16 + [_P],
-    "mdf_sample_2d": [_P] * 4 + [_I] * 7 + [_P],
+    "mdf_sample_2d": [_P] * 5 + [_I] * 15 + [_P],
     "mdf_splat_2d": [_P] * 8 + [_I] * 11 + [_P],
 }
 

@@ -625,6 +625,56 @@ def test_sample_2d_at_the_variance_eval_shapes(dtype, h, w, d, c, per_pixel):
     assert warp_kernel.LAUNCHES["sample_2d"] == before + 1
 
 
+# K6 at each path's stage-0 shape: (images, H, W, planes, C, dtype) of the
+# dense train step (16 images, bf16), its fused backward (f32), the
+# variance aggregate's eval warp (one source) and the C/G = 4 train step,
+# these two also in f32 (the f32 kernel forward and train step)
+K6_STAGE0 = {"dense train": (16, 64, 80, 48, 32, torch.bfloat16),
+             "fused backward": (16, 64, 80, 48, 32, torch.float32),
+             "variance eval": (1, 148, 200, 48, 64, torch.bfloat16),
+             "C/G = 4 train": (4, 64, 80, 48, 64, torch.bfloat16),
+             "variance eval f32": (1, 148, 200, 48, 64, torch.float32),
+             "C/G = 4 train f32": (4, 64, 80, 48, 64, torch.float32)}
+
+
+def _k6_agree(img, x, y, counts=None, staged=None):
+    """K6 against its plain version (f32 bit-equal, bf16 within REL_TOL),
+    the global branch bit-equal to the staged one, one launch a call."""
+    before = warp_kernel.LAUNCHES["sample_2d"]
+    got = warp_kernel.sample_2d(img, x, y, counts=counts, staged=staged)
+    assert warp_kernel.LAUNCHES["sample_2d"] == before + 1
+    glob = warp_kernel.sample_2d(img, x, y, staged=False)
+    ref = warp_kernel.sample_2d(img, x, y, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, glob)
+    if img.dtype == torch.float32:
+        assert torch.equal(got, ref)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= REL_TOL[img.dtype] * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("path", list(K6_STAGE0))
+def test_sample_2d_at_each_paths_stage0_shape(path):
+    n, h, w, d, c, dtype = K6_STAGE0[path]
+    x, y = _sweep(h, w, d, n + 1, False)
+    img = torch.randn(n, h, w, c).cuda().to(dtype)
+    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+    _k6_agree(img, x, y, counts)
+    assert counts.sum().item() > 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sample_2d_stress_cameras_take_both_branches(dtype):
+    """Sources turned by 20 degrees a view and planes from 40 to 5000: some
+    units' boxes exceed the budget (the global branch), others fit."""
+    h, w, d, v, c = 148, 200, 48, 5, 64
+    x, y = _sweep(h, w, d, v, True)
+    img = torch.randn(v - 1, h, w, c).cuda().to(dtype)
+    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+    _k6_agree(img, x, y, counts, staged=True)
+    assert counts[0].item() > 0 and counts[1].item() > 0
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("emit_diffs", [True, False])
 def test_top_down_path_matches_the_plain_conv(dtype, emit_diffs):
