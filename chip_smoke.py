@@ -10,6 +10,7 @@
     python3 chip_smoke.py --wgmma-rate   # clocks a wgmma.m64nNk16 as the conv kernels issue it
     python3 chip_smoke.py --k6   # the K6 phase alone
     python3 chip_smoke.py --k6-compare FILE   # two checkouts' K6_DEVICE_MS lines, paired
+    python3 chip_smoke.py --spans   # the port's spans at DTU eval and train (spans_mode)
 
 ``--gate-spread`` reads the bf16 and f32 step gates' metrics over equally
 correct summation orders and over the injected faults (gate_spread), from
@@ -185,6 +186,7 @@ phases, ``total:`` gives the script's seconds. The line before the last
 is one JSON object with every kernel's launches, error and times; the last
 line is ``{"ok": true, "device": {...}}``.
 """
+import collections
 import contextlib
 import hashlib
 import json
@@ -5008,6 +5010,243 @@ def sass_counts(lib_path, prefix: str) -> dict:
     return out
 
 
+def _span_ns(n: int = 200_000) -> dict:
+    """Host ns of one span with spans off (tracing.span's no-op) and
+    recorded, over an empty loop of the same length, and of one
+    time.perf_counter_ns() (a recorded span reads it twice)."""
+    from mdfnet_tpu_torch.utils import tracing
+    span, clock = tracing.span, time.perf_counter_ns
+
+    def spans():
+        for _ in range(n):
+            with span("prep"):
+                pass
+
+    def clocks():
+        for _ in range(n):
+            clock()
+
+    def empty():
+        for _ in range(n):
+            pass
+    took = collections.defaultdict(list)
+    for _ in range(2):
+        for name, fn in (("empty", empty), ("off", spans),
+                         ("clock", clocks)):
+            t0 = time.perf_counter_ns()
+            fn()
+            took[name].append(time.perf_counter_ns() - t0)
+        with tracing.recording():
+            t0 = time.perf_counter_ns()
+            spans()
+            took["recorded"].append(time.perf_counter_ns() - t0)
+    base = min(took.pop("empty"))
+    return {k: (min(v) - base) / n for k, v in took.items()}
+
+
+def _host_split(spans, items: int) -> dict:
+    """Host ms per item of a recording: the outermost ``prep`` spans, the
+    ``kernel/*`` spans less the ``prep`` inside them, the ``forward``
+    spans less both (the model's own Python and ATen glue), the
+    ``backward``, ``vjp/*`` (those on another thread than the first
+    span's) and ``train_step`` spans; and the spans per item."""
+    def ms(sel):
+        return sum(s.end_ns - s.start_ns for s in sel) / 1e6 / items
+
+    def inside(s, names):
+        p = s.parent
+        while p >= 0:
+            if spans[p].name.startswith(names):
+                return True
+            p = spans[p].parent
+        return False
+    prep = [s for s in spans if s.name == "prep" and not inside(s, "prep")]
+    kernels = [s for s in spans if s.name.startswith("kernel/")]
+    prep_in_kernels = [s for s in prep if inside(s, "kernel/")]
+    out = {"forward": ms(s for s in spans if s.name == "forward"),
+           "prep": ms(prep),
+           "launch": ms(kernels) - ms(prep_in_kernels),
+           "backward": ms(s for s in spans if s.name == "backward"),
+           "vjp": ms(s for s in spans if s.name.startswith("vjp/")),
+           "vjp_other_thread": ms(s for s in spans if s.name.startswith(
+               "vjp/") and s.tid != spans[0].tid),
+           "train_step": ms(s for s in spans if s.name == "train_step"),
+           "spans": len(spans) / items}
+    fwd_prep = [s for s in prep if inside(s, "forward")]
+    fwd_kernels = [s for s in kernels if inside(s, "forward")]
+    out["glue"] = (out["forward"] - ms(fwd_kernels)
+                   - (ms(fwd_prep) - ms(s for s in fwd_prep
+                                         if inside(s, "kernel/"))))
+    return out
+
+
+def _trace_readings(path: str, items: int, top: str) -> dict:
+    """What the spans read in one profiled pass of ``items`` maps or steps
+    (each under a ``top`` span): device operations a item, those launched
+    inside ``prep`` and their device ms, blocking runtime calls inside
+    ``top`` (and all of them, by name and innermost span), whether every
+    hand-written kernel ran inside a ``kernel/*`` span, and the idle gaps
+    inside ``top`` by the innermost span open on its thread."""
+    from mdfnet_tpu_torch.utils import tracing
+    read = tracing.read_trace(path)
+    tops = [s for s in read.spans if s[0] == top]
+    lo, hi = min(s[1] for s in tops), max(s[2] for s in tops)
+    ops = [o for o in read.ops if lo <= o[1] <= hi]
+    prep = [o for o in ops if "prep" in o[3]]
+    hand = re.compile(r"\b(conv3d_pair(_tc)?|conv_bn_act|trconv_bn_act|"
+                      r"conv_chain|conv_co1|conv_stream|(tr)?conv_tc|"
+                      r"rowsweep_aggregate|rowsweep_stats(_final)?|"
+                      r"sample_2d|splat_\w+)_kernel\b")
+    outside = sorted({o[0][:60] for o in ops if hand.search(o[0])
+                      and not any(n.startswith("kernel/") for n in o[3])})
+    waits = collections.Counter(
+        (w[0], w[4][-1] if w[4] else "-") for w in read.waits)
+    # idle gaps inside the top spans, by the innermost span on its thread
+    gaps, at = [], lo
+    for _, start, dur, _ in sorted(ops, key=lambda o: o[1]):
+        if start > at:
+            gaps.append((at, start))
+        at = max(at, start + dur)
+    tid = tops[0][3]
+    mids = [(0.5 * (a + b), tid) for a, b in gaps]
+    labels = collections.Counter()
+    for (a, b), names in zip(gaps, tracing.open_spans(read.spans, mids)):
+        labels[names[-1] if names else "outside"] += (b - a) / 1e3
+    return {"ops": len(ops) / items, "prep_ops": len(prep) / items,
+            "prep_device_ms": sum(o[2] for o in prep) / 1e3 / items,
+            "syncs": sum(top in w[4] for w in read.waits) / items,
+            "waits": {f"{n} in {inner}": c / items
+                      for (n, inner), c in waits.items()},
+            "hand_outside_kernel_spans": outside,
+            "idle_ms_by_span": {k: round(v / items, 4) for k, v in
+                                labels.most_common(12)}}
+
+
+def _alternate(one, n: int) -> tuple[list, list, list]:
+    """``one()`` (returns its host ms) 2n times, spans off and recorded in
+    turns, each recorded call a recording of its own, so the host's slow
+    phases fall on both: (ms off, ms recorded, each recorded call's
+    :func:`_host_split`)."""
+    from mdfnet_tpu_torch.utils import tracing
+    off, on, splits = [], [], []
+    for _ in range(n):
+        off.append(one())
+        with tracing.recording() as spans:
+            on.append(one())
+        splits.append(_host_split(spans, 1))
+    return off, on, splits
+
+
+def spans_mode() -> None:
+    """The spans (mdfnet_tpu_torch/utils/tracing.py) at the DTU eval and
+    train configurations, bf16: the off cost (ns a span with spans off x
+    spans a map); maps with spans off and recorded in turns, each map a
+    closed loop (pinned inputs copied in, outputs copied to the host), the
+    model call's host ms in both and the recorded split of ``forward``
+    into prep, launch and glue; then one profiled pass: device operations
+    and device ms launched inside ``prep``, blocking runtime calls inside
+    ``forward``, idle gaps by span. The same for train steps (each loss
+    read), with the backward's and the VJPs' host ms. Prints one
+    SPANS line per configuration and writes build/spans.json."""
+    from mdfnet_tpu_torch.data import make_batch
+    from mdfnet_tpu_torch.models.registry import build_model
+    from mdfnet_tpu_torch.train_lib import make_optimizer, train_step
+    from mdfnet_tpu_torch.utils import tracing
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    out = {"device": smi, "torch": torch.__version__,
+           "span_ns": _span_ns()}
+    os.makedirs("build", exist_ok=True)
+
+    model = build_model(compute_dtype="bfloat16", seed=0, device=DEV)
+    sharpen(model)
+    batch = make_batch(dtu_scene(), batch=1)
+    host = [torch.from_numpy(batch[k]).pin_memory()
+            for k in ("imgs", "extrinsics", "intrinsics", "depth_range")]
+
+    def one_map():
+        args = [t.to(DEV, non_blocking=True) for t in host]
+        t0 = time.perf_counter()
+        res = model(*args)
+        call = time.perf_counter() - t0
+        res["depth"].float().cpu()
+        res["confidence"].float().cpu()
+        return call * 1e3
+
+    for _ in range(3):
+        one_map()
+    off, on, splits = _alternate(one_map, 80)
+    ev = {k: statistics.mean(sp[k] for sp in splits) for k in splits[0]}
+    ev.update(call_off_ms=statistics.mean(off),
+              call_off_median_ms=statistics.median(off),
+              call_recorded_ms=statistics.mean(on),
+              call_recorded_median_ms=statistics.median(on),
+              forward_median_ms=statistics.median(sp["forward"]
+                                                  for sp in splits))
+    ev["off_cost_pct"] = (100 * ev["spans"] * out["span_ns"]["off"] / 1e6
+                          / ev["call_off_ms"])
+    n, path = 20, "build/spans_eval_trace.json"
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            one_map()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    ev.update(_trace_readings(path, n, "forward"))
+    os.remove(path)
+    with tracing.recording() as spans:
+        for _ in range(n):
+            one_map()
+    ev["summary"] = tracing.format_summary(spans, n)
+    out["eval"] = ev
+    print("SPANS eval " + json.dumps({k: v for k, v in ev.items()
+                                      if k != "summary"}), flush=True)
+    print(ev["summary"], flush=True)
+    del model
+
+    model = build_model(compute_dtype="bfloat16", seed=0,
+                        device=DEV).requires_grad_(True)
+    opt = make_optimizer(model, 1e-3)
+    tbatch = train_batch()
+
+    def one_step():
+        t0 = time.perf_counter()
+        float(train_step(model, opt, tbatch))
+        return (time.perf_counter() - t0) * 1e3
+
+    for _ in range(3):
+        one_step()
+    off, on, splits = _alternate(one_step, 12)
+    tr = {k: statistics.mean(sp[k] for sp in splits) for k in splits[0]}
+    tr.update(step_off_ms=statistics.mean(off),
+              step_recorded_ms=statistics.mean(on))
+    path = "build/spans_train_trace.json"
+    steps = 5
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            one_step()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    tr.update(_trace_readings(path, steps, "train_step"))
+    os.remove(path)
+    with tracing.recording() as spans:
+        for _ in range(steps):
+            one_step()
+    tr["summary"] = tracing.format_summary(spans, steps)
+    out["train"] = tr
+    print("SPANS train " + json.dumps({k: v for k, v in tr.items()
+                                       if k != "summary"}), flush=True)
+    print(tr["summary"], flush=True)
+    with open("build/spans.json", "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"SPANS device {smi}; torch {torch.__version__}; ns a span "
+          f"{json.dumps(out['span_ns'])}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5044,6 +5283,9 @@ def main():
         return
     if sys.argv[1:2] == ["--k6-compare"] and len(sys.argv) == 3:
         k6_compare(sys.argv[2])
+        return
+    if sys.argv[1:] == ["--spans"]:
+        spans_mode()
         return
     start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -2,7 +2,7 @@
 
     python -m mdfnet_tpu_torch.cli.eval -p CKPT.pth -d dtu|tanks
         [-s intermediate|advanced] [--root DIR] [-o OUTPUT] [--scans ...]
-        [--exact] [--spatial N] [--device cuda|cpu]
+        [--exact] [--spatial N] [--device cuda|cpu] [--trace PATH]
 
 CKPT is a reference-schema ``.pth`` ({'epoch', 'model'}). DTU runs 5 views
 at 1600x1184; Tanks & Temples 11 views cropped to 1056 rows, per-scene
@@ -19,6 +19,11 @@ and output a rank): the crop is aligned down to a multiple of 32 N
 then N processes meet over TCP on localhost (NCCL with a card a rank, else
 gloo: ranks that share a card, or ``--device cpu``); every rank loads the
 checkpoint and rank 0 alone writes the files.
+
+``--trace PATH`` profiles maps 2-11 with torch.profiler (the host and the
+card) and writes the Chrome trace, which holds the port's spans
+(``utils/tracing.py``), to PATH; the log gets the spans' count and host
+ms a map over the same maps. One process only (not with ``--spatial``).
 """
 from __future__ import annotations
 
@@ -77,9 +82,14 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda (default; fails without a card) or cpu "
                              "(the plain versions in f32)")
+    parser.add_argument("--trace", default=None, metavar="PATH",
+                        help="profile maps 2-11 and write their Chrome "
+                             "trace, with the port's spans, to PATH")
     args = parser.parse_args(argv)
     if args.spatial < 1:
         parser.error(f"--spatial {args.spatial}: at least 1 rank")
+    if args.trace and args.spatial > 1:
+        parser.error("--trace profiles one process: not with --spatial")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -111,11 +121,11 @@ def main(argv=None):
             crop_height=align_crop(data_cfg.tanks_crop_height,
                                    args.spatial))
     stats = run_eval(model, dataset, args.output, spatial=args.spatial,
-                     checkpoint=args.pre_model)
-    log.info("done: first map %.3f s; %.4f s/view device, %.4f s/view wall "
-             "(incl. IO) over %d views", stats["first_map_sec"],
-             stats["device_sec_per_view"], stats["wall_sec_per_view"],
-             stats["n_views"])
+                     checkpoint=args.pre_model, trace=args.trace)
+    log.info("done: first map %.3f s; %.4f s/view forward with its copies "
+             "(host clock), %.4f s/view wall (incl. IO) over %d views",
+             stats["first_map_sec"], stats["device_sec_per_view"],
+             stats["wall_sec_per_view"], stats["n_views"])
     return stats
 
 

@@ -36,6 +36,7 @@ from mdfnet_tpu_torch.parallel import (default_backend, init_data_parallel,
                                        spawn_ranks)
 from mdfnet_tpu_torch.parallel.spatial import (band_rows, check_model,
                                                spatial_eval_forward)
+from mdfnet_tpu_torch.utils import tracing
 from mdfnet_tpu_torch.utils.weights import load_checkpoint, save_checkpoint
 
 log = logging.getLogger("mdfnet_tpu_torch.eval")
@@ -55,7 +56,8 @@ def _write_views(output_dir: str, filename: str, depth: np.ndarray,
 
 def run_eval(model: torch.nn.Module, dataset, output_dir: str, *,
              spatial: int = 1, checkpoint: str | None = None,
-             timeout: float | None = None) -> Dict[str, float]:
+             timeout: float | None = None,
+             trace: str | None = None) -> Dict[str, float]:
     """Evaluate every item (batch 1, the DTU eval setting), write its files,
     return timing stats.
 
@@ -64,7 +66,10 @@ def run_eval(model: torch.nn.Module, dataset, output_dir: str, *,
     ``checkpoint`` (default: ``model``'s weights, saved for them); past
     ``timeout`` seconds the ranks are killed and this raises. Units that
     sharding does not compute exactly, and heights that do not divide
-    ``spatial`` x 32, raise ``ValueError`` first.
+    ``spatial`` x 32, raise ``ValueError`` first. ``trace`` (one process
+    only): profile maps 2-11 (:class:`tracing.Window`), write the Chrome
+    trace there and log the spans of those maps; their stats then hold
+    the profiler's cost.
 
     - ``first_map_sec``: the first batch, inputs to depth on the host
       (includes the kernels' build and first launches);
@@ -78,9 +83,11 @@ def run_eval(model: torch.nn.Module, dataset, output_dir: str, *,
       the port's warps have no window contract, so no item is re-run.
     """
     if spatial > 1:
+        if trace:
+            raise ValueError("trace: one process only, not with spatial")
         return _run_spatial(model, dataset, output_dir, spatial, checkpoint,
                             timeout)
-    return _eval_loop(model, dataset, output_dir)
+    return _eval_loop(model, dataset, output_dir, trace=trace)
 
 
 def _run_spatial(model, dataset, output_dir, n, checkpoint, timeout):
@@ -126,7 +133,7 @@ def _spatial_rank(rank: int, world: int, backend: str, init_method: str,
 
 
 def _eval_loop(model: torch.nn.Module, dataset, output_dir: str,
-               group=None) -> Dict[str, float]:
+               group=None, trace: str | None = None) -> Dict[str, float]:
     """The loop of one process: the whole forward (``group`` None), or this
     rank's band of it, rank 0 writing."""
     writes = group is None or torch.distributed.get_rank(group) == 0
@@ -145,9 +152,11 @@ def _eval_loop(model: torch.nn.Module, dataset, output_dir: str,
 
     wt = threading.Thread(target=writer, daemon=True)
     wt.start()
+    window = tracing.Window(trace, cuda=device.type == "cuda", log=log.info)
     n_views, device_time, first_map, wall_start = 0, 0.0, 0.0, None
     try:
         for i, batch in enumerate(loader):
+            window.before(i + 1)
             start = time.perf_counter()
             args = [torch.from_numpy(np.asarray(batch[k]))
                     for k in ("imgs", "extrinsics", "intrinsics",
@@ -158,6 +167,7 @@ def _eval_loop(model: torch.nn.Module, dataset, output_dir: str,
             depth = out["depth"].float().cpu().numpy()
             conf = out["confidence"].float().cpu().numpy()
             elapsed = time.perf_counter() - start
+            window.after(i + 1)
             if i == 0:
                 first_map = elapsed
                 wall_start = time.perf_counter()
@@ -171,6 +181,7 @@ def _eval_loop(model: torch.nn.Module, dataset, output_dir: str,
                 log.info("eval %d/%d  %.3fs/batch", i + 1, len(loader),
                          elapsed)
     finally:
+        window.close()
         write_q.put(None)
         wt.join()
     if write_err:

@@ -48,6 +48,7 @@ from mdfnet_tpu_torch.ops.cuda.warp_kernel import sample_2d
 from mdfnet_tpu_torch.ops.warp import (homography_warp, homography_warp_train,
                                        sweep_sample_coords)
 from mdfnet_tpu_torch.parallel import halo
+from mdfnet_tpu_torch.utils import tracing
 
 
 def gathered_sources(src: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -135,9 +136,11 @@ class VectorAggregate(nn.Module):
         # no copy where the stack is dense (B = 1, a whole K4 output); K1
         # takes dense operands, so a channel slice is copied
         src, row0 = gathered_sources(d[:, 1:])
+        with tracing.span("prep"):
+            folded = self.depth_weight.fold()
         return rowsweep_aggregate(
             src.contiguous(), d[:, 0].contiguous(), src_projs, ref_proj,
-            depth_hypos, *self.depth_weight.fold(), row0=row0, plain=plain)
+            depth_hypos, *folded, row0=row0, plain=plain)
 
     def _fused_train_path(self, feats, ref_proj, src_projs, depth_hypos,
                           plain):

@@ -57,6 +57,7 @@ from mdfnet_tpu_torch.ops.cuda import f32_matmul
 from mdfnet_tpu_torch.ops.cuda.conv_kernel import conv2d_bn_act, conv2d_chain
 from mdfnet_tpu_torch.ops.sample import upsample_2x_nhwc
 from mdfnet_tpu_torch.parallel import halo
+from mdfnet_tpu_torch.utils import tracing
 
 
 def banded_chain(x: torch.Tensor, weights, scales, offsets, *,
@@ -74,7 +75,8 @@ def banded_chain(x: torch.Tensor, weights, scales, offsets, *,
 
 def _chain(x: torch.Tensor, layers, *, final_stride: int = 1,
            plain: bool = False) -> torch.Tensor:
-    weights, scales, offsets = zip(*(m.folded(x.dtype) for m in layers))
+    with tracing.span("prep"):
+        weights, scales, offsets = zip(*(m.folded(x.dtype) for m in layers))
     return banded_chain(x, weights, scales, offsets,
                         final_stride=final_stride, plain=plain)
 

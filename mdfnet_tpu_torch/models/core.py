@@ -47,6 +47,7 @@ from mdfnet_tpu_torch.ops.regress import (confidence_regression,
                                           depth_regression)
 from mdfnet_tpu_torch.ops.sample import resize_bilinear_2x, resize_nearest_2x
 from mdfnet_tpu_torch.parallel import halo
+from mdfnet_tpu_torch.utils import tracing
 
 
 class CoreNet(nn.Module):
@@ -119,9 +120,10 @@ class CoreNet(nn.Module):
                 raise ValueError("spatial sharding shards the eval forward "
                                  "only (the JAX package has no spatial "
                                  "training)")
-            return self._train_forward(imgs, extrinsics, intrinsics,
-                                       depth_range, plain)
-        with torch.no_grad():
+            with tracing.span("forward"):
+                return self._train_forward(imgs, extrinsics, intrinsics,
+                                           depth_range, plain)
+        with torch.no_grad(), tracing.span("forward"):
             return self._eval_forward(imgs, extrinsics, intrinsics,
                                       depth_range, plain)
 
@@ -149,24 +151,35 @@ class CoreNet(nn.Module):
         b, v = imgs.shape[:2]
         nstages = len(self.ndepths)
         vstack = imgs.transpose(0, 1).reshape((v * b,) + imgs.shape[2:])
-        fs = self._block(self.Backbone, vstack.to(self.dtype), plain=plain,
-                         train=True, vgroups=v)
+        with tracing.span("backbone"):
+            fs = self._block(self.Backbone, vstack.to(self.dtype),
+                             plain=plain, train=True, vgroups=v)
         intrinsics, extrinsics = intrinsics.float(), extrinsics.float()
         depths, depth, hypos, prob = [], None, None, None
         for stage in range(nstages):
-            ref_proj, src_projs = geometry.projection_matrices(
-                intrinsics, extrinsics, stage, num_stages=nstages + 1)
-            # refined_hypotheses runs under no_grad
-            hypos = self._hypotheses(stage, depth_range, depth, prob, hypos)
-            feats = fs[stage].reshape((v, b) + fs[stage].shape[1:])
-            cost = self._block(self.Homoaggre[stage], feats.transpose(0, 1),
-                               ref_proj, src_projs, hypos, plain=plain,
-                               train=True)
-            prob = self._block(self.Regular[stage], cost.to(self.dtype),
-                               plain=plain, train=True)
-            depth = depth_regression(prob, hypos)
-            depths.append(depth)
-        depths.append(self._refine(imgs, depth, depth_range, plain, True))
+            with tracing.span("stage"):
+                ref_proj, src_projs = geometry.projection_matrices(
+                    intrinsics, extrinsics, stage, num_stages=nstages + 1)
+                # refined_hypotheses runs under no_grad
+                with tracing.span("hypotheses"):
+                    hypos = self._hypotheses(stage, depth_range, depth, prob,
+                                             hypos)
+                feats = fs[stage].reshape((v, b) + fs[stage].shape[1:])
+                with tracing.span("aggregate"):
+                    cost = self._block(self.Homoaggre[stage],
+                                       feats.transpose(0, 1), ref_proj,
+                                       src_projs, hypos, plain=plain,
+                                       train=True)
+                with tracing.span("regular"):
+                    prob = self._block(self.Regular[stage],
+                                       cost.to(self.dtype), plain=plain,
+                                       train=True)
+                with tracing.span("regress"):
+                    depth = depth_regression(prob, hypos)
+                depths.append(depth)
+        with tracing.span("refine"):
+            depths.append(self._refine(imgs, depth, depth_range, plain,
+                                       True))
         return {"depth": depths}
 
     def _block(self, module: nn.Module, *args, **kwargs):
@@ -190,23 +203,33 @@ class CoreNet(nn.Module):
         b, v = imgs.shape[:2]
         nstages = len(self.ndepths)
         stacked = imgs.reshape((b * v,) + imgs.shape[2:]).to(self.dtype)
-        fs = self.Backbone(stacked, plain=plain)    # coarsest first
+        with tracing.span("backbone"):
+            fs = self.Backbone(stacked, plain=plain)    # coarsest first
         intrinsics, extrinsics = intrinsics.float(), extrinsics.float()
 
         depth = hypos = prob = None
         for stage in range(nstages):
-            ref_proj, src_projs = geometry.projection_matrices(
-                intrinsics, extrinsics, stage, num_stages=nstages + 1)
-            hypos = self._hypotheses(stage, depth_range, depth, prob, hypos)
-            feats = fs[stage].reshape((b, v) + fs[stage].shape[1:])
-            kw = {"diffs": True} if self.Backbone.emit_diffs else {}
-            cost = self.Homoaggre[stage](feats, ref_proj, src_projs, hypos,
-                                         plain=plain, **kw)
-            prob = self.Regular[stage](cost.to(self.dtype), plain=plain)
-            depth = depth_regression(prob, hypos)
+            with tracing.span("stage"):
+                ref_proj, src_projs = geometry.projection_matrices(
+                    intrinsics, extrinsics, stage, num_stages=nstages + 1)
+                with tracing.span("hypotheses"):
+                    hypos = self._hypotheses(stage, depth_range, depth, prob,
+                                             hypos)
+                feats = fs[stage].reshape((b, v) + fs[stage].shape[1:])
+                kw = {"diffs": True} if self.Backbone.emit_diffs else {}
+                with tracing.span("aggregate"):
+                    cost = self.Homoaggre[stage](feats, ref_proj, src_projs,
+                                                 hypos, plain=plain, **kw)
+                with tracing.span("regular"):
+                    prob = self.Regular[stage](cost.to(self.dtype),
+                                               plain=plain)
+                with tracing.span("regress"):
+                    depth = depth_regression(prob, hypos)
 
-        depth = self._refine(imgs, depth, depth_range, plain, False)
-        confidence = resize_nearest_2x(confidence_regression(prob))
+        with tracing.span("refine"):
+            depth = self._refine(imgs, depth, depth_range, plain, False)
+        with tracing.span("confidence"):
+            confidence = resize_nearest_2x(confidence_regression(prob))
         return {"depth": depth, "confidence": confidence,
                 "coverage_ok": torch.ones((), dtype=torch.bool,
                                           device=depth.device)}

@@ -36,6 +36,7 @@ from mdfnet_tpu_torch.ops.cuda.conv_kernel import (
 from mdfnet_tpu_torch.ops.cuda.conv_vjp import (conv2d_train, conv3d_train,
                                                 trconv3d_train)
 from mdfnet_tpu_torch.parallel import halo
+from mdfnet_tpu_torch.utils import tracing
 
 
 def h_axis(x: torch.Tensor) -> int:
@@ -142,8 +143,9 @@ class ConvND(nn.Module):
                 residual: torch.Tensor | None = None, out_dtype=None,
                 plain: bool = False) -> torch.Tensor:
         conv = conv3d_bn_act if self.weight.dim() == 5 else conv2d_bn_act
-        scale, offset = self.epilogue()
-        w = self.weight.to(x.dtype)
+        with tracing.span("prep"):
+            scale, offset = self.epilogue()
+            w = self.weight.to(x.dtype)
         lo, hi = halo.conv_halo(w.shape[-1])
         return halo.banded(
             lambda v, res: conv(v, w, scale, offset, relu=False, residual=res,
@@ -154,7 +156,9 @@ class ConvND(nn.Module):
                       plain: bool = False) -> torch.Tensor:
         """Differentiable stride-1 conv (+ bias) in x's dtype."""
         conv = conv3d_train if self.weight.dim() == 5 else conv2d_train
-        y = conv(x, self.weight.to(x.dtype), plain=plain)
+        with tracing.span("prep"):
+            w = self.weight.to(x.dtype)
+        y = conv(x, w, plain=plain)
         return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
@@ -178,10 +182,13 @@ class ConvBNReLU(nn.Module):
         w = self.conv.weight
         if train:
             conv = conv3d_train if w.dim() == 5 else conv2d_train
-            y = conv(x, w.to(x.dtype), self.stride, plain=plain)
+            with tracing.span("prep"):
+                w = w.to(x.dtype)
+            y = conv(x, w, self.stride, plain=plain)
             return torch.relu(self.bn(y, train=True, vgroups=vgroups))
         conv = conv3d_bn_act if w.dim() == 5 else conv2d_bn_act
-        folded = self.folded(x.dtype)
+        with tracing.span("prep"):
+            folded = self.folded(x.dtype)
         lo, hi = halo.conv_halo(w.shape[-1], self.stride)
         return halo.banded(
             lambda v, _: conv(v, *folded, stride=self.stride, relu=True,
@@ -236,11 +243,15 @@ class TrConvBNReLU2D(nn.Module):
 
     def forward(self, x: torch.Tensor, plain: bool = False,
                 train: bool = False) -> torch.Tensor:
-        z, w = trconv2d_as_conv(x, self.conv.weight.to(x.dtype))
+        with tracing.span("prep"):
+            w = self.conv.weight.to(x.dtype)
+        z, w = trconv2d_as_conv(x, w)
         if train:
             y = conv2d_train(z, w, plain=plain)
             return torch.relu(self.bn(y, train=True))
-        return conv2d_bn_act(z, w, *self.bn.fold(), relu=True, plain=plain)
+        with tracing.span("prep"):
+            folded = self.bn.fold()
+        return conv2d_bn_act(z, w, *folded, relu=True, plain=plain)
 
 
 def trconv_bn_relu(x: torch.Tensor, conv: ConvTranspose3dWeight,
@@ -251,10 +262,13 @@ def trconv_bn_relu(x: torch.Tensor, conv: ConvTranspose3dWeight,
     train, the output is cropped on D to the skip before the add, as the
     JAX train path does (``regularize.py:251``)."""
     if train:
-        y = trconv3d_train(x, conv.weight.to(x.dtype), plain=plain)
+        with tracing.span("prep"):
+            w = conv.weight.to(x.dtype)
+        y = trconv3d_train(x, w, plain=plain)
         y = torch.relu(bn(y, train=True))
         return y[:, :residual.shape[1]] + residual
-    w, folded = conv.weight.to(x.dtype), bn.fold()
+    with tracing.span("prep"):
+        w, folded = conv.weight.to(x.dtype), bn.fold()
     # output rows 2i and 2i + 1 read input rows i and i + 1: one row below
     return halo.banded(
         lambda v, res: trconv3d_bn_act(v, w, *folded, relu=True,

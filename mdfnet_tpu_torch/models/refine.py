@@ -33,6 +33,7 @@ from mdfnet_tpu_torch.models.layers import (ConvBNReLU, ConvND, Res,
 from mdfnet_tpu_torch.ops.cuda.conv_vjp import conv2d_train
 from mdfnet_tpu_torch.ops.sample import resize_bilinear_2x_align_corners
 from mdfnet_tpu_torch.parallel import halo
+from mdfnet_tpu_torch.utils import tracing
 
 
 def _normalised(depth, depth_range, dtype):
@@ -70,13 +71,14 @@ class RefineNet2(nn.Module):
         ((layers, relus, resid, _),) = self.eval_chains()
         # the Res blocks' 0.1 scale in the epilogue of their second conv
         second = {2 * i + 2 for i in range(len(self.ress))}
-        scales = [torch.full((m.weight.shape[0],), 0.1 if i in second
-                             else 1.0, device=depth.device)
-                  for i, m in enumerate(layers)]
-        offsets = [torch.zeros_like(s) for s in scales]
-        x = banded_chain(x, [m.weight.to(dtype) for m in layers], scales,
-                         offsets, relu_flags=relus, residuals=resid,
-                         plain=plain)
+        with tracing.span("prep"):
+            scales = [torch.full((m.weight.shape[0],), 0.1 if i in second
+                                 else 1.0, device=depth.device)
+                      for i, m in enumerate(layers)]
+            offsets = [torch.zeros_like(s) for s in scales]
+            weights = [m.weight.to(dtype) for m in layers]
+        x = banded_chain(x, weights, scales, offsets, relu_flags=relus,
+                         residuals=resid, plain=plain)
         x = pixel_shuffle_2x(x).contiguous()
         out = self.conv2[2](x, out_dtype=torch.float32, plain=plain)[..., 0]
         return dmin + out * (dmax - dmin)
@@ -98,7 +100,9 @@ class RefineNet2(nn.Module):
 
     def _train_convs(self, x, plain):
         def conv(m, v):
-            return conv2d_train(v, m.weight.to(v.dtype), plain=plain)
+            with tracing.span("prep"):
+                w = m.weight.to(v.dtype)
+            return conv2d_train(v, w, plain=plain)
 
         v = skip = conv(self.conv0, x)
         for res in self.ress:

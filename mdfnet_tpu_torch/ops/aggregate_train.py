@@ -36,6 +36,7 @@ from mdfnet_tpu_torch.ops.cuda.aggregate_kernel import (
 from mdfnet_tpu_torch.ops.cuda.splat_kernel import splat_2d
 from mdfnet_tpu_torch.ops.cuda.warp_kernel import sample_2d
 from mdfnet_tpu_torch.ops.warp import sweep_sample_coords
+from mdfnet_tpu_torch.utils import tracing
 
 EPS = 1e-5   # DepthWeight's BatchNorm epsilon
 
@@ -82,6 +83,7 @@ class _RowsweepAggregateTrain(torch.autograd.Function):
         return vol, stats
 
     @staticmethod
+    @tracing.spanned("vjp/aggregate")
     def backward(ctx, d_vol, _d_stats):
         (src, ref, src_projs, ref_proj, hypos, k0, gamma, beta, k1, b1, vol,
          wsum, mu, var_b) = ctx.saved_tensors

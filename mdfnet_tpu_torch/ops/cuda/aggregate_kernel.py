@@ -36,6 +36,7 @@ import torch
 from mdfnet_tpu_torch import geometry
 from mdfnet_tpu_torch.ops.cuda import build, exact_cuda_math
 from mdfnet_tpu_torch.ops.warp import homography_warp
+from mdfnet_tpu_torch.utils import tracing
 
 # kernel launches since the last reset (the main-path check reads them)
 LAUNCHES = {"rowsweep_aggregate": 0, "rowsweep_aggregate_with_wsum": 0,
@@ -195,44 +196,48 @@ def _launch_aggregate(src_diffs, ref_diffs, src_projs, ref_proj, depth_hypos,
     name = "rowsweep_aggregate_with_wsum" if train else "rowsweep_aggregate"
     b, n_src, d, h, w, g, per_pixel, hs = _check_inputs(
         name, src_diffs, ref_diffs, depth_hypos, band=not train)
-    dev = src_diffs.device
-    rel = geometry.relative_transforms(src_projs, ref_proj).contiguous()
-    hypos = depth_hypos.float().contiguous()
-    out = torch.empty((b, d, h, w, g), dtype=torch.float32, device=dev)
-    operands = [(src_diffs, "src_diffs"), (ref_diffs, "ref_diffs"),
-                (rel, "rel"), (hypos, "depth_hypos"), (out, "out")]
-    if train:
-        params = torch.cat([_scalars(dev, 0.0, 0.0, k1, b1),
-                            k0.detach().float().reshape(g)])
-        bn = torch.cat([bn_scale.detach().float().reshape(n_src),
-                        bn_offset.detach().float().reshape(n_src)])
-        wsum = torch.empty((b, d, h, w), dtype=torch.float32, device=dev)
-        operands += [(params, "params"), (bn, "bn"), (wsum, "wsum")]
-    else:
-        params = torch.cat([_scalars(dev, bn_scale, bn_offset, k1, b1),
-                            k0.float().reshape(g)])
-        operands.append((params, "params"))
-    for t, tname in operands:
-        build.check_operand(t, tname)
-    device, stream = build.launch_context(src_diffs)
-    lib = build.load_library()
-    plan = aggregate_plan(b, d, h, w, g)
-    # the grid convention normalises by the source's extent
-    tail = (int(per_pixel), plan.planes, plan.blocks,
-            _DTYPES[src_diffs.dtype], w / (w - 1.0), hs / (hs - 1.0), device,
-            stream)
-    if train:
-        err = lib.mdf_rowsweep_aggregate_train(
-            src_diffs.data_ptr(), ref_diffs.data_ptr(), rel.data_ptr(),
-            hypos.data_ptr(), params.data_ptr(), bn.data_ptr(),
-            out.data_ptr(), wsum.data_ptr(), b, n_src, d, h, w, g, *tail)
-    else:
-        err = lib.mdf_rowsweep_aggregate(
-            src_diffs.data_ptr(), ref_diffs.data_ptr(), rel.data_ptr(),
-            hypos.data_ptr(), params.data_ptr(), out.data_ptr(), b, n_src, d,
-            h, w, g, hs, int(row0), *tail)
-    build.check(err, name)
-    LAUNCHES[name] += 1
+    with tracing.span("kernel/rowsweep_aggregate_train" if train
+                      else "kernel/rowsweep_aggregate"):
+        dev = src_diffs.device
+        rel = geometry.relative_transforms(src_projs, ref_proj).contiguous()
+        hypos = depth_hypos.float().contiguous()
+        out = torch.empty((b, d, h, w, g), dtype=torch.float32, device=dev)
+        operands = [(src_diffs, "src_diffs"), (ref_diffs, "ref_diffs"),
+                    (rel, "rel"), (hypos, "depth_hypos"), (out, "out")]
+        if train:
+            with tracing.span("prep"):
+                params = torch.cat([_scalars(dev, 0.0, 0.0, k1, b1),
+                                    k0.detach().float().reshape(g)])
+            bn = torch.cat([bn_scale.detach().float().reshape(n_src),
+                            bn_offset.detach().float().reshape(n_src)])
+            wsum = torch.empty((b, d, h, w), dtype=torch.float32, device=dev)
+            operands += [(params, "params"), (bn, "bn"), (wsum, "wsum")]
+        else:
+            with tracing.span("prep"):
+                params = torch.cat([_scalars(dev, bn_scale, bn_offset, k1,
+                                             b1), k0.float().reshape(g)])
+            operands.append((params, "params"))
+        for t, tname in operands:
+            build.check_operand(t, tname)
+        device, stream = build.launch_context(src_diffs)
+        lib = build.load_library()
+        plan = aggregate_plan(b, d, h, w, g)
+        # the grid convention normalises by the source's extent
+        tail = (int(per_pixel), plan.planes, plan.blocks,
+                _DTYPES[src_diffs.dtype], w / (w - 1.0), hs / (hs - 1.0),
+                device, stream)
+        if train:
+            err = lib.mdf_rowsweep_aggregate_train(
+                src_diffs.data_ptr(), ref_diffs.data_ptr(), rel.data_ptr(),
+                hypos.data_ptr(), params.data_ptr(), bn.data_ptr(),
+                out.data_ptr(), wsum.data_ptr(), b, n_src, d, h, w, g, *tail)
+        else:
+            err = lib.mdf_rowsweep_aggregate(
+                src_diffs.data_ptr(), ref_diffs.data_ptr(), rel.data_ptr(),
+                hypos.data_ptr(), params.data_ptr(), out.data_ptr(), b, n_src,
+                d, h, w, g, hs, int(row0), *tail)
+        build.check(err, name)
+        LAUNCHES[name] += 1
     return (out, wsum) if train else out
 
 
@@ -307,25 +312,28 @@ def rowsweep_stats(src_diffs: torch.Tensor, ref_diffs: torch.Tensor,
                                     ref_proj, depth_hypos, k0)
     b, n_src, d, h, w, g, per_pixel, _ = _check_inputs(
         "rowsweep_stats", src_diffs, ref_diffs, depth_hypos)
-    dev = src_diffs.device
-    rel = geometry.relative_transforms(src_projs, ref_proj).contiguous()
-    hypos = depth_hypos.float().contiguous()
-    k0f = k0.detach().float().reshape(g).contiguous()
-    plan = stats_plan(b, d, h, w, g)
-    partial = torch.empty((n_src, plan.blocks, 2), dtype=torch.float64,
-                          device=dev)
-    out = torch.empty((n_src, 2), dtype=torch.float64, device=dev)
-    for t, name in ((src_diffs, "src_diffs"), (ref_diffs, "ref_diffs"),
-                    (rel, "rel"), (hypos, "depth_hypos"), (k0f, "k0"),
-                    (partial, "partial"), (out, "out")):
-        build.check_operand(t, name)
-    device, stream = build.launch_context(src_diffs)
-    lib = build.load_library()
-    err = lib.mdf_rowsweep_stats(
-        src_diffs.data_ptr(), ref_diffs.data_ptr(), rel.data_ptr(),
-        hypos.data_ptr(), k0f.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        b, n_src, d, h, w, g, int(per_pixel), _DTYPES[src_diffs.dtype],
-        w / (w - 1.0), h / (h - 1.0), plan.blocks, device, stream)
-    build.check(err, "rowsweep_stats")
-    LAUNCHES["rowsweep_stats"] += 1
+    with tracing.span("kernel/rowsweep_stats"):
+        dev = src_diffs.device
+        rel = geometry.relative_transforms(src_projs, ref_proj).contiguous()
+        hypos = depth_hypos.float().contiguous()
+        with tracing.span("prep"):
+            k0f = k0.detach().float().reshape(g).contiguous()
+        plan = stats_plan(b, d, h, w, g)
+        partial = torch.empty((n_src, plan.blocks, 2), dtype=torch.float64,
+                              device=dev)
+        out = torch.empty((n_src, 2), dtype=torch.float64, device=dev)
+        for t, name in ((src_diffs, "src_diffs"), (ref_diffs, "ref_diffs"),
+                        (rel, "rel"), (hypos, "depth_hypos"), (k0f, "k0"),
+                        (partial, "partial"), (out, "out")):
+            build.check_operand(t, name)
+        device, stream = build.launch_context(src_diffs)
+        lib = build.load_library()
+        err = lib.mdf_rowsweep_stats(
+            src_diffs.data_ptr(), ref_diffs.data_ptr(), rel.data_ptr(),
+            hypos.data_ptr(), k0f.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), b, n_src, d, h, w, g, int(per_pixel),
+            _DTYPES[src_diffs.dtype], w / (w - 1.0), h / (h - 1.0),
+            plan.blocks, device, stream)
+        build.check(err, "rowsweep_stats")
+        LAUNCHES["rowsweep_stats"] += 1
     return out

@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from mdfnet_tpu_torch.ops.cuda import build, exact_cuda_math
+from mdfnet_tpu_torch.utils import tracing
 
 # kernel launches since the last reset (the main-path check reads them);
 # ``conv2d_chain`` counts the chain kernel's launches (csrc/conv_chain.cu,
@@ -948,11 +949,21 @@ def _padded(v: torch.Tensor, cop: int) -> torch.Tensor:
     return F.pad(v, (0, cop - v.shape[-1])).contiguous()
 
 
+def _entry(route: str, transposed: bool) -> str:
+    """The C entry point (less ``mdf_``) that a launch on ``route`` calls."""
+    if route == "tc":
+        return "trconv_tc" if transposed else "conv_tc"
+    if route in ("co1", "stream"):
+        return "conv_" + route
+    return "trconv_bn_act" if transposed else "conv_bn_act"
+
+
 def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
             stride, relu, transposed=False, route=None):
     """Launch the conv (or transposed conv) kernel on (N, D, H, W, Ci) and
     count the launch under ``LAUNCHES[counter]`` (and ``"conv_tc"``,
-    ``"conv_co1"`` or ``"conv_stream"`` on those routes).
+    ``"conv_co1"`` or ``"conv_stream"`` on those routes), inside the span
+    ``kernel/<entry>``.
 
     ``w_kio``: (*taps, Ci, Co) weights in any float dtype. ``route``: None
     follows :func:`conv_route`; "tc", "co1", "direct" or "stream" (a bf16
@@ -972,103 +983,109 @@ def _launch(counter, x5, w_kio, scale, offset, residual, out_dtype, *, kd, k,
         do = -(-di // stride) if kd > 1 else di
         ho, wo = -(-hi // stride), -(-wi // stride)
     route = route or conv_route(x5.dtype, kd, k, stride, ci, co, transposed)
-    y = torch.empty((n, do, ho, wo, co), dtype=out_dtype, device=x5.device)
-    operands = [(x5, "x"), (y, "out")]
-    if residual is not None:
-        if residual.shape != y.shape or residual.dtype != out_dtype:
-            raise ValueError(f"conv kernel: residual {tuple(residual.shape)} "
-                             f"{residual.dtype} does not match the output "
-                             f"{tuple(y.shape)} {out_dtype}")
-        operands.append((residual, "residual"))
-    if route == "tc":
-        plan = tc_plan(kd, k, stride, ci, co, transposed,
-                       *((di, hi) if transposed else (0, 0)))
-        if plan is None or x5.dtype != torch.bfloat16:
-            raise ValueError(f"conv tc kernel: no tile for {x5.dtype} kd={kd} "
-                             f"k={k} stride={stride} Ci={ci} Co={co}"
-                             f"{' (transposed)' if transposed else ''}")
-        cop = plan.n
-        w = (pack_trconv_tc_weight(w_kio) if transposed
-             else pack_tc_weight(w_kio, kd=kd, k=k, stride=stride))
-        # the kernel reads the first Co entries only
-        s, o = scale.float().contiguous(), offset.float().contiguous()
-    elif route == "co1":
-        plan = co1_plan(kd, ci, x5.element_size())
-        if plan is None or co != 1 or k != 3 or stride != 1 or transposed:
-            raise ValueError(f"conv co1 kernel: no tile for {x5.dtype} "
-                             f"kd={kd} k={k} stride={stride} Ci={ci} Co={co}"
-                             f"{' (transposed)' if transposed else ''}")
-        w = w_kio.float().reshape(-1).contiguous()
-        s = scale.float().reshape(1).contiguous()
-        o = offset.float().reshape(1).contiguous()
-    elif route == "stream":
-        plan = stream_plan(ci, co)
-        if (plan is None or x5.dtype != torch.bfloat16 or transposed
-                or (kd, k) != (3, 3)):
-            raise ValueError(f"conv stream kernel: no tile for {x5.dtype} "
-                             f"kd={kd} k={k} stride={stride} Ci={ci} Co={co}"
-                             f"{' (transposed)' if transposed else ''}")
-        w = pack_tap_weight(w_kio)
-        s, o = scale.float().contiguous(), offset.float().contiguous()
-    elif route == "direct":
-        if 27 * ci * _COB * 4 > _MAX_SMEM:
-            raise ValueError(f"conv kernel: Ci={ci} exceeds the shared "
-                             "memory of the weight stage")
-        cop = -(-co // _COB) * _COB
-        w = _padded(w_kio.reshape(-1, co), cop)
-        s, o = _padded(scale, cop), _padded(offset, cop)
-    else:
-        raise ValueError(f"conv kernel: unknown route {route!r}")
-    operands += [(w, "weight"), (s, "scale"), (o, "offset")]
-    for t, name in operands:
-        build.check_operand(t, name)
-    device, stream = build.launch_context(x5)
-    lib = build.load_library()
-    res_ptr = None if residual is None else residual.data_ptr()
-    dtypes = _DTYPES[(x5.dtype, out_dtype)]
-    ptrs = (x5.data_ptr(), w.data_ptr(), s.data_ptr(), o.data_ptr(), res_ptr,
-            y.data_ptr())
-    if route == "tc" and transposed:
-        name = "trconv_tc"
-        tiles = (n * -(-di // plan.td) * -(-hi // (8 * plan.bh))
-                 * -(-wi // 8))
-        err = lib.mdf_trconv_tc(*ptrs, n, di, hi, wi, ci, co, cop, int(relu),
-                                plan.td, plan.bh,
-                                trconv_tc_groups(tiles, sm_count(device)),
-                                int(plan.q_stage == plan.q), dtypes, device,
-                                stream)
-    elif route == "tc":
-        name = "conv_tc"
-        err = lib.mdf_conv_tc(
-            *ptrs, n, di, hi, wi, ci, do, ho, wo, co, cop, kd, k, stride,
-            int(relu), plan.td, plan.bh, plan.q, plan.q_stage, dtypes,
-            device, stream)
-    elif route == "co1":
-        name = "conv_co1"
-        err = lib.mdf_conv_co1(*ptrs, n, di, hi, wi, ci, kd, int(relu),
-                               plan.td, plan.th, plan.tw, plan.channels,
-                               dtypes, device, stream)
-    elif route == "stream":
-        name = "conv_stream"
-        err = lib.mdf_conv_stream(*ptrs, n, di, hi, wi, ci, do, ho, wo, co,
-                                  plan.n, stride, int(relu), plan.chunks,
-                                  plan.smem, dtypes, device, stream)
-    elif transposed:
-        name = "trconv_bn_act"
-        err = lib.mdf_trconv_bn_act(*ptrs, n, di, hi, wi, ci, co, cop,
-                                    int(relu), dtypes, device, stream)
-    else:
-        name = "conv_bn_act"
-        err = lib.mdf_conv_bn_act(*ptrs, n, di, hi, wi, ci, do, ho, wo, co,
-                                  cop, kd, k, stride, int(relu), dtypes,
-                                  device, stream)
-    build.check(err, name)
-    if route == "tc":
-        LAUNCHES["conv_tc"] += 1
-        TC_LAUNCHES[counter] += 1
-    elif route in ("co1", "stream"):
-        LAUNCHES[name] += 1
-    LAUNCHES[counter] += 1
+    entry = _entry(route, transposed)
+    with tracing.span("kernel/" + entry):
+        y = torch.empty((n, do, ho, wo, co), dtype=out_dtype,
+                        device=x5.device)
+        operands = [(x5, "x"), (y, "out")]
+        if residual is not None:
+            if residual.shape != y.shape or residual.dtype != out_dtype:
+                raise ValueError(
+                    f"conv kernel: residual {tuple(residual.shape)} "
+                    f"{residual.dtype} does not match the output "
+                    f"{tuple(y.shape)} {out_dtype}")
+            operands.append((residual, "residual"))
+        if route == "tc":
+            plan = tc_plan(kd, k, stride, ci, co, transposed,
+                           *((di, hi) if transposed else (0, 0)))
+            if plan is None or x5.dtype != torch.bfloat16:
+                raise ValueError(
+                    f"conv tc kernel: no tile for {x5.dtype} kd={kd} k={k} "
+                    f"stride={stride} Ci={ci} Co={co}"
+                    f"{' (transposed)' if transposed else ''}")
+            cop = plan.n
+            with tracing.span("prep"):
+                w = (pack_trconv_tc_weight(w_kio) if transposed
+                     else pack_tc_weight(w_kio, kd=kd, k=k, stride=stride))
+                # the kernel reads the first Co entries only
+                s, o = scale.float().contiguous(), offset.float().contiguous()
+        elif route == "co1":
+            plan = co1_plan(kd, ci, x5.element_size())
+            if plan is None or co != 1 or k != 3 or stride != 1 \
+                    or transposed:
+                raise ValueError(
+                    f"conv co1 kernel: no tile for {x5.dtype} kd={kd} k={k} "
+                    f"stride={stride} Ci={ci} Co={co}"
+                    f"{' (transposed)' if transposed else ''}")
+            with tracing.span("prep"):
+                w = w_kio.float().reshape(-1).contiguous()
+                s = scale.float().reshape(1).contiguous()
+                o = offset.float().reshape(1).contiguous()
+        elif route == "stream":
+            plan = stream_plan(ci, co)
+            if (plan is None or x5.dtype != torch.bfloat16 or transposed
+                    or (kd, k) != (3, 3)):
+                raise ValueError(
+                    f"conv stream kernel: no tile for {x5.dtype} kd={kd} "
+                    f"k={k} stride={stride} Ci={ci} Co={co}"
+                    f"{' (transposed)' if transposed else ''}")
+            with tracing.span("prep"):
+                w = pack_tap_weight(w_kio)
+                s, o = scale.float().contiguous(), offset.float().contiguous()
+        elif route == "direct":
+            if 27 * ci * _COB * 4 > _MAX_SMEM:
+                raise ValueError(f"conv kernel: Ci={ci} exceeds the shared "
+                                 "memory of the weight stage")
+            cop = -(-co // _COB) * _COB
+            with tracing.span("prep"):
+                w = _padded(w_kio.reshape(-1, co), cop)
+                s, o = _padded(scale, cop), _padded(offset, cop)
+        else:
+            raise ValueError(f"conv kernel: unknown route {route!r}")
+        operands += [(w, "weight"), (s, "scale"), (o, "offset")]
+        for t, name in operands:
+            build.check_operand(t, name)
+        device, stream = build.launch_context(x5)
+        lib = build.load_library()
+        res_ptr = None if residual is None else residual.data_ptr()
+        dtypes = _DTYPES[(x5.dtype, out_dtype)]
+        ptrs = (x5.data_ptr(), w.data_ptr(), s.data_ptr(), o.data_ptr(),
+                res_ptr, y.data_ptr())
+        if entry == "trconv_tc":
+            tiles = (n * -(-di // plan.td) * -(-hi // (8 * plan.bh))
+                     * -(-wi // 8))
+            err = lib.mdf_trconv_tc(
+                *ptrs, n, di, hi, wi, ci, co, cop, int(relu), plan.td,
+                plan.bh, trconv_tc_groups(tiles, sm_count(device)),
+                int(plan.q_stage == plan.q), dtypes, device, stream)
+        elif entry == "conv_tc":
+            err = lib.mdf_conv_tc(
+                *ptrs, n, di, hi, wi, ci, do, ho, wo, co, cop, kd, k, stride,
+                int(relu), plan.td, plan.bh, plan.q, plan.q_stage, dtypes,
+                device, stream)
+        elif entry == "conv_co1":
+            err = lib.mdf_conv_co1(*ptrs, n, di, hi, wi, ci, kd, int(relu),
+                                   plan.td, plan.th, plan.tw, plan.channels,
+                                   dtypes, device, stream)
+        elif entry == "conv_stream":
+            err = lib.mdf_conv_stream(*ptrs, n, di, hi, wi, ci, do, ho, wo,
+                                      co, plan.n, stride, int(relu),
+                                      plan.chunks, plan.smem, dtypes, device,
+                                      stream)
+        elif entry == "trconv_bn_act":
+            err = lib.mdf_trconv_bn_act(*ptrs, n, di, hi, wi, ci, co, cop,
+                                        int(relu), dtypes, device, stream)
+        else:
+            err = lib.mdf_conv_bn_act(*ptrs, n, di, hi, wi, ci, do, ho, wo,
+                                      co, cop, kd, k, stride, int(relu),
+                                      dtypes, device, stream)
+        build.check(err, entry)
+        if route == "tc":
+            LAUNCHES["conv_tc"] += 1
+            TC_LAUNCHES[counter] += 1
+        elif route in ("co1", "stream"):
+            LAUNCHES[entry] += 1
+        LAUNCHES[counter] += 1
     if TRACE is not None:
         TRACE.append((route, kd, k, stride, tuple(x5.shape), co, transposed))
     return y
@@ -1185,37 +1202,40 @@ def conv3d_pair_bn_act(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
     if plan is None:
         raise ValueError(f"conv3d pair kernel: no plan for Cm={cm} (a "
                          f"multiple of {_COB} whose intermediate tile fits)")
-    y = torch.empty((n, d, h, w, co), dtype=x.dtype, device=x.device)
-    if plan.route == "tc":
-        w1k = pack_tap_weight(w1.permute(2, 3, 4, 1, 0))
-        w2k = pack_tap_weight(w2.permute(2, 3, 4, 1, 0))
-        s1p, o1p, s2p, o2p = (v.float().contiguous()
-                              for v in (s1, o1, s2, o2))
-    else:
-        cop = -(-co // _COB) * _COB
-        w1k = w1.float().permute(2, 3, 4, 1, 0).reshape(27 * ci, cm) \
-            .contiguous()
-        w2k = _padded(w2.float().permute(2, 3, 4, 1, 0).reshape(27 * cm, co),
-                      cop)
-        s1p, o1p = s1.float().contiguous(), o1.float().contiguous()
-        s2p, o2p = _padded(s2, cop), _padded(o2, cop)
-    for t, name in ((x, "x"), (w1k, "w1"), (s1p, "s1"), (o1p, "o1"),
-                    (w2k, "w2"), (s2p, "s2"), (o2p, "o2"), (y, "out")):
-        build.check_operand(t, name)
-    device, stream = build.launch_context(x)
-    lib = build.load_library()
-    ptrs = (x.data_ptr(), w1k.data_ptr(), s1p.data_ptr(), o1p.data_ptr(),
-            w2k.data_ptr(), s2p.data_ptr(), o2p.data_ptr(), y.data_ptr())
-    if plan.route == "tc":
-        err = lib.mdf_conv3d_pair_tc(
-            *ptrs, n, d, h, w, ci, cm, co, int(relu), plan.th, plan.tw,
-            plan.planes, plan.ring, plan.taps, plan.smem, device, stream)
-    else:
-        err = lib.mdf_conv3d_pair(
-            *ptrs, n, d, h, w, ci, cm, co, cop, int(relu),
-            _DTYPES[(x.dtype, x.dtype)], device, stream)
-    build.check(err, "conv3d_pair")
-    LAUNCHES["conv3d_pair_bn_act"] += 1
+    entry = "conv3d_pair_tc" if plan.route == "tc" else "conv3d_pair"
+    with tracing.span("kernel/" + entry):
+        y = torch.empty((n, d, h, w, co), dtype=x.dtype, device=x.device)
+        with tracing.span("prep"):
+            if plan.route == "tc":
+                w1k = pack_tap_weight(w1.permute(2, 3, 4, 1, 0))
+                w2k = pack_tap_weight(w2.permute(2, 3, 4, 1, 0))
+                s1p, o1p, s2p, o2p = (v.float().contiguous()
+                                      for v in (s1, o1, s2, o2))
+            else:
+                cop = -(-co // _COB) * _COB
+                w1k = w1.float().permute(2, 3, 4, 1, 0) \
+                    .reshape(27 * ci, cm).contiguous()
+                w2k = _padded(w2.float().permute(2, 3, 4, 1, 0)
+                              .reshape(27 * cm, co), cop)
+                s1p, o1p = s1.float().contiguous(), o1.float().contiguous()
+                s2p, o2p = _padded(s2, cop), _padded(o2, cop)
+        for t, name in ((x, "x"), (w1k, "w1"), (s1p, "s1"), (o1p, "o1"),
+                        (w2k, "w2"), (s2p, "s2"), (o2p, "o2"), (y, "out")):
+            build.check_operand(t, name)
+        device, stream = build.launch_context(x)
+        lib = build.load_library()
+        ptrs = (x.data_ptr(), w1k.data_ptr(), s1p.data_ptr(), o1p.data_ptr(),
+                w2k.data_ptr(), s2p.data_ptr(), o2p.data_ptr(), y.data_ptr())
+        if plan.route == "tc":
+            err = lib.mdf_conv3d_pair_tc(
+                *ptrs, n, d, h, w, ci, cm, co, int(relu), plan.th, plan.tw,
+                plan.planes, plan.ring, plan.taps, plan.smem, device, stream)
+        else:
+            err = lib.mdf_conv3d_pair(
+                *ptrs, n, d, h, w, ci, cm, co, cop, int(relu),
+                _DTYPES[(x.dtype, x.dtype)], device, stream)
+        build.check(err, "conv3d_pair")
+        LAUNCHES["conv3d_pair_bn_act"] += 1
     return y
 
 
@@ -1250,25 +1270,27 @@ def _chain_launch(x, weights, scales, offsets, seg: ChainSegment, *,
     and count the launch under ``LAUNCHES["conv2d_chain"]``."""
     nb, h, w, ci = x.shape
     layers = range(seg.first, seg.last + 1)
-    wcat = torch.cat(chain_weights(weights, seg, final_stride, ci))
-    s = torch.cat([scales[l].float() for l in layers])
-    o = torch.cat([offsets[l].float() for l in layers])
-    stride = final_stride if seg.last == len(weights) - 1 else 1
-    ho, wo = -(-h // stride), -(-w // stride)
-    y = torch.empty((nb, ho, wo, weights[seg.last].shape[0]),
-                    dtype=out_dtype, device=x.device)
-    for t, name in ((x, "x"), (wcat, "weight"), (s, "scale"), (o, "offset"),
-                    (y, "out")):
-        build.check_operand(t, name)
-    device, stream = build.launch_context(x)
-    lib = build.load_library()
-    plan = _plan_array(seg.ints)
-    err = lib.mdf_conv_chain(x.data_ptr(), wcat.data_ptr(), s.data_ptr(),
-                             o.data_ptr(), y.data_ptr(), ctypes.addressof(plan),
-                             len(seg.ints), nb, h, w, ho, wo,
-                             _DTYPES[(x.dtype, out_dtype)], device, stream)
-    build.check(err, "conv_chain")
-    LAUNCHES["conv2d_chain"] += 1
+    with tracing.span("kernel/conv_chain"):
+        with tracing.span("prep"):
+            wcat = torch.cat(chain_weights(weights, seg, final_stride, ci))
+            s = torch.cat([scales[l].float() for l in layers])
+            o = torch.cat([offsets[l].float() for l in layers])
+        stride = final_stride if seg.last == len(weights) - 1 else 1
+        ho, wo = -(-h // stride), -(-w // stride)
+        y = torch.empty((nb, ho, wo, weights[seg.last].shape[0]),
+                        dtype=out_dtype, device=x.device)
+        for t, name in ((x, "x"), (wcat, "weight"), (s, "scale"),
+                        (o, "offset"), (y, "out")):
+            build.check_operand(t, name)
+        device, stream = build.launch_context(x)
+        lib = build.load_library()
+        plan = _plan_array(seg.ints)
+        err = lib.mdf_conv_chain(
+            x.data_ptr(), wcat.data_ptr(), s.data_ptr(), o.data_ptr(),
+            y.data_ptr(), ctypes.addressof(plan), len(seg.ints), nb, h, w,
+            ho, wo, _DTYPES[(x.dtype, out_dtype)], device, stream)
+        build.check(err, "conv_chain")
+        LAUNCHES["conv2d_chain"] += 1
     return y
 
 

@@ -46,8 +46,10 @@ from mdfnet_tpu_torch.ops.cuda import conv_kernel, exact_cuda_math
 from mdfnet_tpu_torch.ops.cuda.conv_kernel import (conv2d_bn_act,
                                                    conv3d_bn_act,
                                                    trconv3d_bn_act)
+from mdfnet_tpu_torch.utils import tracing
 
 
+@tracing.spanned("prep")
 def _identity(c: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     return (torch.ones(c, device=device), torch.zeros(c, device=device))
 
@@ -71,6 +73,7 @@ class _Conv3dTrain(torch.autograd.Function):
                              stride=stride, relu=False, plain=plain)
 
     @staticmethod
+    @tracing.spanned("vjp/conv3d")
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
         g = g.contiguous()
@@ -78,7 +81,8 @@ class _Conv3dTrain(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             ident = _identity(x.shape[-1], x.device)
             if ctx.stride == 1:
-                wt = weight.transpose(0, 1).flip(2, 3, 4)
+                with tracing.span("prep"):
+                    wt = weight.transpose(0, 1).flip(2, 3, 4)
                 dx = conv3d_bn_act(g, wt, *ident, relu=False,
                                    plain=ctx.plain, counter="conv3d_dgrad")
             else:
@@ -103,6 +107,7 @@ class _TrConv3dTrain(torch.autograd.Function):
                                relu=False, plain=plain)
 
     @staticmethod
+    @tracing.spanned("vjp/trconv3d")
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
         g = g.contiguous()
@@ -135,6 +140,7 @@ class _Conv2dTrain(torch.autograd.Function):
                              stride=stride, relu=False, plain=plain)
 
     @staticmethod
+    @tracing.spanned("vjp/conv2d")
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
         g = g.contiguous()
@@ -142,8 +148,9 @@ class _Conv2dTrain(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             if ctx.stride == 1:
-                dx = conv2d_bn_act(g, weight.transpose(0, 1).flip(2, 3),
-                                   *_identity(x.shape[-1], x.device),
+                with tracing.span("prep"):
+                    wt = weight.transpose(0, 1).flip(2, 3)
+                dx = conv2d_bn_act(g, wt, *_identity(x.shape[-1], x.device),
                                    relu=False, plain=ctx.plain,
                                    counter="conv2d_dgrad")
             else:

@@ -21,6 +21,7 @@ import torch
 
 from mdfnet_tpu_torch.ops.cuda import build
 from mdfnet_tpu_torch.ops.splat import splat_2d_plain
+from mdfnet_tpu_torch.utils import tracing
 
 # kernel launches since the last reset (the main-path check reads it); one
 # per call, which launches the count, scan, bin, reduce and NaN kernels
@@ -130,24 +131,27 @@ def splat_2d(g: torch.Tensor, x: torch.Tensor, y: torch.Tensor, height: int,
     n = x[0].numel()
     if 4 * b * n >= 2**31 or b * height * width >= 2**31:
         raise ValueError("splat_2d: more than 2^31 taps or target pixels")
-    plan = splat_plan(b, n, height, width, c, g.element_size())
-    dev = g.device
-    counts = torch.empty(b * plan.tiles * plan.chunks, dtype=torch.int32,
-                         device=dev)
-    starts = torch.empty(b * plan.tiles + 1, dtype=torch.int32, device=dev)
-    entries = torch.empty(plan.entries, dtype=torch.int32, device=dev)
-    nan_list = torch.empty(b * n + 1, dtype=torch.int32, device=dev)
-    out = torch.empty((b, height, width, c), dtype=torch.float32, device=dev)
-    for t, name in ((g, "g"), (x, "x"), (y, "y"), (counts, "counts"),
-                    (starts, "starts"), (entries, "entries"),
-                    (nan_list, "nan_list"), (out, "out")):
-        build.check_operand(t, name)
-    device, stream = build.launch_context(g)
-    build.check(build.load_library().mdf_splat_2d(
-        g.data_ptr(), x.data_ptr(), y.data_ptr(), counts.data_ptr(),
-        starts.data_ptr(), entries.data_ptr(), nan_list.data_ptr(),
-        out.data_ptr(), b, n, height, width, c, plan.channels, plan.tile_h,
-        plan.reduce_chunk, plan.chunk, _DTYPES[g.dtype], device, stream),
-        "splat_2d")
-    LAUNCHES["splat_2d"] += 1
+    with tracing.span("kernel/splat_2d"):
+        plan = splat_plan(b, n, height, width, c, g.element_size())
+        dev = g.device
+        counts = torch.empty(b * plan.tiles * plan.chunks, dtype=torch.int32,
+                             device=dev)
+        starts = torch.empty(b * plan.tiles + 1, dtype=torch.int32,
+                             device=dev)
+        entries = torch.empty(plan.entries, dtype=torch.int32, device=dev)
+        nan_list = torch.empty(b * n + 1, dtype=torch.int32, device=dev)
+        out = torch.empty((b, height, width, c), dtype=torch.float32,
+                          device=dev)
+        for t, name in ((g, "g"), (x, "x"), (y, "y"), (counts, "counts"),
+                        (starts, "starts"), (entries, "entries"),
+                        (nan_list, "nan_list"), (out, "out")):
+            build.check_operand(t, name)
+        device, stream = build.launch_context(g)
+        build.check(build.load_library().mdf_splat_2d(
+            g.data_ptr(), x.data_ptr(), y.data_ptr(), counts.data_ptr(),
+            starts.data_ptr(), entries.data_ptr(), nan_list.data_ptr(),
+            out.data_ptr(), b, n, height, width, c, plan.channels,
+            plan.tile_h, plan.reduce_chunk, plan.chunk, _DTYPES[g.dtype],
+            device, stream), "splat_2d")
+        LAUNCHES["splat_2d"] += 1
     return out

@@ -31,6 +31,7 @@ import torch
 
 from mdfnet_tpu_torch.ops.cuda import build
 from mdfnet_tpu_torch.ops.sample import bilinear_sample_2d
+from mdfnet_tpu_torch.utils import tracing
 
 # kernel launches since the last reset (the main-path check reads it)
 LAUNCHES = {"sample_2d": 0}
@@ -181,22 +182,25 @@ def sample_2d(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
             or y.dtype != torch.float32:
         raise ValueError(f"sample_2d: coordinates {tuple(x.shape)} "
                          f"{x.dtype} do not match {s} f32 images")
-    plan = sample_plan(s, *sample_grid(x.shape), h, w, c, image.dtype, staged)
-    out = torch.empty(x.shape + (c,), dtype=image.dtype, device=image.device)
-    for t, name in ((image, "image"), (x, "x"), (y, "y"), (out, "out")):
-        build.check_operand(t, name)
-    if counts is not None:
-        build.check_operand(counts, "counts")
-        if counts.dtype != torch.int64 or counts.numel() != 2:
-            raise ValueError("sample_2d: counts must be 2 int64 values")
-    device, stream = build.launch_context(image)
-    lib = build.load_library()
-    err = lib.mdf_sample_2d(
-        image.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
-        0 if counts is None else counts.data_ptr(), s,
-        *sample_grid(x.shape), h, w, c, plan.tile_h, plan.tile_w, plan.run,
-        plan.lanes, plan.rounds, plan.budget, _DTYPES[image.dtype], device,
-        stream)
-    build.check(err, "sample_2d")
-    LAUNCHES["sample_2d"] += 1
+    with tracing.span("kernel/sample_2d"):
+        plan = sample_plan(s, *sample_grid(x.shape), h, w, c, image.dtype,
+                           staged)
+        out = torch.empty(x.shape + (c,), dtype=image.dtype,
+                          device=image.device)
+        for t, name in ((image, "image"), (x, "x"), (y, "y"), (out, "out")):
+            build.check_operand(t, name)
+        if counts is not None:
+            build.check_operand(counts, "counts")
+            if counts.dtype != torch.int64 or counts.numel() != 2:
+                raise ValueError("sample_2d: counts must be 2 int64 values")
+        device, stream = build.launch_context(image)
+        lib = build.load_library()
+        err = lib.mdf_sample_2d(
+            image.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
+            0 if counts is None else counts.data_ptr(), s,
+            *sample_grid(x.shape), h, w, c, plan.tile_h, plan.tile_w,
+            plan.run, plan.lanes, plan.rounds, plan.budget,
+            _DTYPES[image.dtype], device, stream)
+        build.check(err, "sample_2d")
+        LAUNCHES["sample_2d"] += 1
     return out

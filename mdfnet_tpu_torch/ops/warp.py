@@ -16,6 +16,7 @@ from mdfnet_tpu_torch import geometry
 from mdfnet_tpu_torch.ops.cuda.splat_kernel import splat_2d
 from mdfnet_tpu_torch.ops.cuda.warp_kernel import sample_2d
 from mdfnet_tpu_torch.ops.sample import bilinear_sample_2d
+from mdfnet_tpu_torch.utils import tracing
 
 
 def homography_warp(src_feat: torch.Tensor, src_proj: torch.Tensor,
@@ -53,6 +54,7 @@ class _Sample(torch.autograd.Function):
         return sample_2d(image, x, y, plain=plain)
 
     @staticmethod
+    @tracing.spanned("vjp/sample")
     def backward(ctx, g):
         x, y = ctx.saved_tensors
         d_img = splat_2d(g.contiguous(), x, y, *ctx.extent, plain=ctx.plain)

@@ -4,6 +4,7 @@
         [--lightings N] [--epochs N] [--batch-size N] [--nviews N]
         [--ckpt-dir DIR] [-p CKPT.pth] [--fast] [--remat]
         [--world-size N] [--backend nccl|gloo] [--device cuda|cpu]
+        [--trace PATH]
 
 Per epoch: the polynomial LR, the mean loss appended to
 ``<ckpt-dir>/epoch_loss.txt`` and a checkpoint ``<ckpt-dir>/<dataset>_<epoch>.pth``
@@ -28,6 +29,11 @@ process group. ``--backend`` defaults to NCCL where each rank has a card of
 its own, else gloo (ranks sharing a card, or ``--device cpu``). Only rank 0
 writes ``epoch_loss.txt`` and the checkpoints; ``-p`` resumes every rank
 from the same file.
+
+``--trace PATH`` profiles steps 2-11 (counted over the epochs; rank 0's)
+with torch.profiler (the host and the card) and writes the Chrome trace,
+which holds the port's spans (``utils/tracing.py``), to PATH; the log gets
+the spans' count and host ms a step over the same steps.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ from mdfnet_tpu_torch.parallel.mesh import (data_extent, default_backend,
 from mdfnet_tpu_torch.train_lib import (batch_to_device, make_optimizer,
                                         poly_lr, resume, save_checkpoint,
                                         set_lr, train_step)
+from mdfnet_tpu_torch.utils import tracing
 
 log = logging.getLogger("mdfnet_tpu_torch.train")
 
@@ -58,19 +65,21 @@ log = logging.getLogger("mdfnet_tpu_torch.train")
 def train(dataset, model_config: ModelConfig, train_config: TrainConfig,
           dataset_name: str = "dtu", pre_model: str | None = None,
           device: str | torch.device = "cuda", world: int | None = None,
-          backend: str | None = None) -> None:
+          backend: str | None = None, trace: str | None = None) -> None:
     """Train from ``train_config.start_epoch`` (or the resumed epoch) to
     ``max_epochs`` on ``device``: the card unless the caller asks for the
     CPU. ``world``: the data-parallel ranks (default: the largest divisor
     of the batch that is at most the number of cards; 1 on the CPU);
-    ``backend``: their process group's (default :func:`default_backend`)."""
+    ``backend``: their process group's (default :func:`default_backend`);
+    ``trace``: where rank 0 writes the Chrome trace of steps 2-11
+    (:class:`tracing.Window`)."""
     device = resolve_device(device)
     n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
     world = data_extent(MeshConfig(data_parallel=world or -1),
                         train_config.batch_size, n_devices)
     if world == 1:
         _train(dataset, model_config, train_config, dataset_name, pre_model,
-               device)
+               device, trace=trace)
         return
     backend = backend or default_backend(world, device.type)
     if device.type == "cuda":
@@ -79,11 +88,12 @@ def train(dataset, model_config: ModelConfig, train_config: TrainConfig,
         build.build()
     spawn_ranks(_train_rank, world, (
         dataset, model_config, train_config, dataset_name, pre_model,
-        device.type, backend, local_init_method()))
+        device.type, backend, local_init_method(), trace))
 
 
 def _train_rank(rank: int, world: int, dataset, model_config, train_config,
-                dataset_name, pre_model, device_type, backend, init_method):
+                dataset_name, pre_model, device_type, backend, init_method,
+                trace=None):
     """One rank of a data-parallel run (started by :func:`spawn_ranks`)."""
     logging.basicConfig(level=logging.INFO,
                         format=f"%(asctime)s-%(levelname)s-rank {rank}: "
@@ -92,13 +102,14 @@ def _train_rank(rank: int, world: int, dataset, model_config, train_config,
     group = init_data_parallel(rank, world, backend, init_method)
     try:
         _train(dataset, model_config, train_config, dataset_name, pre_model,
-               device, group=group, rank=rank, world=world)
+               device, group=group, rank=rank, world=world, trace=trace)
     finally:
         torch.distributed.destroy_process_group()
 
 
 def _train(dataset, model_config, train_config, dataset_name, pre_model,
-           device, group=None, rank: int = 0, world: int = 1) -> None:
+           device, group=None, rank: int = 0, world: int = 1,
+           trace: str | None = None) -> None:
     """The loop of one process: the whole batch (``group`` None) or rank
     ``rank``'s share of it."""
     if rank == 0:
@@ -110,7 +121,9 @@ def _train(dataset, model_config, train_config, dataset_name, pre_model,
     if pre_model:
         start_epoch = resume(pre_model, model, optimizer)
         log.info("resumed from %s at epoch %d", pre_model, start_epoch)
-
+    window = tracing.Window(trace if rank == 0 else None,
+                            cuda=device.type == "cuda", log=log.info)
+    steps = 0
     for epoch in range(start_epoch, train_config.max_epochs + 1):
         set_lr(optimizer, poly_lr(epoch, train_config.lr,
                                   train_config.max_epochs,
@@ -124,12 +137,15 @@ def _train(dataset, model_config, train_config, dataset_name, pre_model,
                              seed=train_config.seed + epoch)
         epoch_loss, n_batches = 0.0, 0
         for i, batch in enumerate(loader):
+            steps += 1
+            window.before(steps)
             t0 = time.perf_counter()
             if group is not None:
                 batch = shard_batch(batch, rank, world)
             loss = float(train_step(model, optimizer,
                                     batch_to_device(batch, device),
                                     group=group))
+            window.after(steps)
             if not math.isfinite(loss):
                 # fail fast on divergence: the last good checkpoint is the
                 # previous epoch's
@@ -151,6 +167,7 @@ def _train(dataset, model_config, train_config, dataset_name, pre_model,
             save_checkpoint(os.path.join(train_config.checkpoint_dir,
                                          f"{dataset_name}_{epoch}.pth"),
                             model, optimizer, epoch)
+    window.close()
 
 
 def main(argv=None):
@@ -188,6 +205,9 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda (default; fails without a card) or cpu "
                              "(the plain versions)")
+    parser.add_argument("--trace", default=None, metavar="PATH",
+                        help="profile steps 2-11 and write their Chrome "
+                             "trace, with the port's spans, to PATH")
     args = parser.parse_args(argv)
     try:
         device = resolve_device(args.device)
@@ -226,7 +246,7 @@ def main(argv=None):
              if device.type == "cuda" else "cpu", model_cfg.compute_dtype)
     train(dataset, model_cfg, train_cfg, dataset_name=args.dataset,
           pre_model=args.pre_model, device=device, world=args.world_size,
-          backend=args.backend)
+          backend=args.backend, trace=args.trace)
 
 
 if __name__ == "__main__":

@@ -38,6 +38,7 @@ from torch import nn
 
 from mdfnet_tpu_torch.models.loss import multi_scale_depth_loss
 from mdfnet_tpu_torch.parallel.mesh import shard_batch
+from mdfnet_tpu_torch.utils import tracing
 from mdfnet_tpu_torch.utils.weights import load_checkpoint
 
 _INPUTS = ("imgs", "extrinsics", "intrinsics", "depth_range")
@@ -78,9 +79,11 @@ def loss_and_grads(model: nn.Module, batch: Mapping, *, plain: bool = False,
     With a process group, ``batch`` is the rank's shard, the loss the
     global batch's and the gradients the shard's share of its gradient."""
     out = model(*(batch[k] for k in _INPUTS), plain=plain, train=True)
-    loss = multi_scale_depth_loss(out["depth"], batch["ref_depths"],
-                                  batch["depth_range"], group=group)
-    loss.backward()
+    with tracing.span("loss"):
+        loss = multi_scale_depth_loss(out["depth"], batch["ref_depths"],
+                                      batch["depth_range"], group=group)
+    with tracing.span("backward"):
+        loss.backward()
     return loss.detach()
 
 
@@ -120,12 +123,15 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     with the parameters before the update. With a process group, ``batch``
     is the rank's shard; the gradients are summed and the running
     statistics averaged over the ranks before Adam."""
-    optimizer.zero_grad(set_to_none=True)
-    loss = loss_and_grads(model, batch, plain=plain, group=group)
-    if group is not None:
-        reduce_gradients(model, group)
-        average_running_stats(model, group)
-    optimizer.step()
+    with tracing.span("train_step"):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_and_grads(model, batch, plain=plain, group=group)
+        if group is not None:
+            with tracing.span("reduce"):
+                reduce_gradients(model, group)
+                average_running_stats(model, group)
+        with tracing.span("optimizer"):
+            optimizer.step()
     return loss
 
 
