@@ -188,6 +188,7 @@ line is ``{"ok": true, "device": {...}}``.
 """
 import collections
 import contextlib
+import copy
 import hashlib
 import json
 import math
@@ -1621,13 +1622,15 @@ def sharpen(model, seed: int = 1) -> None:
 
 def stage_volumes(model, args, plain):
     """One forward that also returns each stage's cost volume (Homoaggre)
-    and probability volume (Regular)."""
+    and probability volume (Regular), each copied in f32 inside its hook:
+    a replayed forward's cost volumes share memory with its later stages
+    (models/graphs.py)."""
     vols, hooks = {}, []
     for kind, mods in (("cost", model.Homoaggre), ("prob", model.Regular)):
         for s, mod in enumerate(mods):
             hooks.append(mod.register_forward_hook(
                 lambda _m, _a, o, key=f"{kind} {s}": vols.__setitem__(
-                    key, o.float())))
+                    key, o.to(torch.float32, copy=True))))
     try:
         out = model(*args, plain=plain)
     finally:
@@ -1807,6 +1810,7 @@ def pair_phase(model, args) -> tuple[int, dict]:
     JSON entry."""
     import torch.nn.functional as F
     from mdfnet_tpu_torch.ops.cuda import conv_kernel
+    from mdfnet_tpu_torch.utils import tracing
     reg = model.Regular[0]
     pairs = [(reg.conv01[0], reg.conv01[1]), (reg.conv12[1], reg.conv12[2]),
              (reg.conv232[1], reg.conv232[2])]
@@ -1816,11 +1820,18 @@ def pair_phase(model, args) -> tuple[int, dict]:
                       lambda _m, a, i=i: seen.__setitem__(("in", i), a[0])),
                   second.register_forward_hook(
                       lambda _m, _a, o, i=i: seen.__setitem__(("out", i), o))]
+    hooked = tracing.GRAPHS["eager"]["hooks"]
     try:
         model(*args)
     finally:
         for h in hooks:
             h.remove()
+    # hooks below the U-Net's own call: the model runs this call eager
+    # (models/graphs.py), where it has replayed CUDA graphs at this shape
+    require(tracing.GRAPHS["eager"]["hooks"] == hooked + 1
+            and len(seen) == 2 * len(pairs),
+            f"pair phase: the hooked forward did not run eager "
+            f"({tracing.GRAPHS}) or its hooks saw {sorted(seen)}")
     operands = [(seen["in", i], first.folded(seen["in", i].dtype),
                  second.folded(seen["in", i].dtype))
                 for i, (first, second) in enumerate(pairs)]
@@ -2162,6 +2173,14 @@ ALT_FAULTS = {"variance": ("K6 1-px shift", "conv3d tap"),
 ALT_BLIND = {("variance", "K6 1-px shift"), ("groups", "K6 1-px shift")}
 
 
+def first_call(model):
+    """A copy of ``model`` whose next eval call at a shape runs eager: the
+    model itself replays CUDA graphs from its second call at a shape
+    (models/graphs.py), and a replay calls no function patched in since
+    the capture (the kernels' launch wrappers, FAULTS)."""
+    return copy.deepcopy(model)
+
+
 def alt_fault_readings(model, plain_model, args, name: str) -> list:
     """Each of ALT_FAULTS[name] injected into ``model``'s forward (bf16
     kernels) against the plain f32 forward: its reading over every bound
@@ -2170,7 +2189,7 @@ def alt_fault_readings(model, plain_model, args, name: str) -> list:
     blind = []
     for fault in ALT_FAULTS[name]:
         with patched(FAULTS[fault]()):
-            gate = forward_gate(model, plain_model, args)
+            gate = forward_gate(first_call(model), plain_model, args)
         over = {"depth median": gate["median"] / MEDIAN_BOUND,
                 "depth p95": gate["p95"] / P95_BOUND,
                 **{k: v / FORWARD_BOUNDS[k] for k, v in gate["diffs"].items()}}
@@ -2256,9 +2275,11 @@ def alternatives_phase(scene, smi: str) -> tuple[int, dict]:
         gate = forward_gate(models["bfloat16"], models["float32"], args)
         errs = {}
         with patched(checked_launches(errs)):
-            models["bfloat16"](*args)
+            first_call(models["bfloat16"])(*args)
         torch.cuda.synchronize()
         reset_launches()
+        require(bool(errs), f"alternatives {name}: no conv launch was "
+                "checked against its plain version")
         tc = {key: rel for key, rel in errs.items() if key[0] == "tc"}
         worst = max(errs, key=errs.get)
         print(f"alternatives {name} bf16 kernels vs plain f32: "

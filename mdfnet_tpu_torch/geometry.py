@@ -14,9 +14,10 @@ def scale_intrinsics(intrinsics: torch.Tensor, stage: int,
                      num_stages: int = 4) -> torch.Tensor:
     """Scale K for a pyramid stage living at 1/2^(num_stages-1-stage)."""
     factor = 1.0 / (2.0 ** (num_stages - 1 - stage))
-    scale = torch.tensor([factor, factor, 1.0], dtype=intrinsics.dtype,
-                         device=intrinsics.device).reshape(3, 1)
-    return intrinsics * scale
+    # rows x and y times a Python scalar: a power of two, so the bits of a
+    # product with a [f, f, 1] tensor, without copying one to the device
+    return torch.cat([intrinsics[..., :2, :] * factor,
+                      intrinsics[..., 2:, :]], dim=-2)
 
 
 def projection_matrices(intrinsics: torch.Tensor, extrinsics: torch.Tensor,

@@ -34,6 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from mdfnet_tpu_torch import geometry
+from mdfnet_tpu_torch.models import graphs
 from mdfnet_tpu_torch.models.aggregate import VectorAggregate
 from mdfnet_tpu_torch.models.aggregate_variance import VarianceAggregate
 from mdfnet_tpu_torch.models.backbone import FPN4Scales
@@ -96,6 +97,8 @@ class CoreNet(nn.Module):
             + [RegularNet4Scales(cin[s], 8) for s in range(1, nstages)])
         self.Refine = RefineNet2() if refine_impl == "refine2" \
             else RefineNet()
+        # the eval forward's CUDA graphs (models/graphs.py)
+        self._graphs = graphs.EvalGraphs()
 
     def forward(self, imgs: torch.Tensor, extrinsics: torch.Tensor,
                 intrinsics: torch.Tensor, depth_range: torch.Tensor,
@@ -114,16 +117,26 @@ class CoreNet(nn.Module):
             eval: {"depth": (B, H, W), "confidence": (B, H, W),
             "coverage_ok": () bool, always True — the port has no warp
             window contract}.
+
+        The eval forward on CUDA tensors (``plain=False``, no spatial
+        sharding) replays CUDA graphs from the second call of a shape on
+        (``models/graphs.py``, which says what module hooks see then).
         """
+        reason = graphs.eager_reason(imgs, plain, train)
         if train:
             if halo.current_ctx() is not None:
                 raise ValueError("spatial sharding shards the eval forward "
                                  "only (the JAX package has no spatial "
                                  "training)")
+            tracing.GRAPHS["eager"][reason] += 1
             with tracing.span("forward"):
                 return self._train_forward(imgs, extrinsics, intrinsics,
                                            depth_range, plain)
         with torch.no_grad(), tracing.span("forward"):
+            if reason is None:
+                return self._graphs.forward(self, imgs, extrinsics,
+                                            intrinsics, depth_range)
+            tracing.GRAPHS["eager"][reason] += 1
             return self._eval_forward(imgs, extrinsics, intrinsics,
                                       depth_range, plain)
 
@@ -198,41 +211,80 @@ class CoreNet(nn.Module):
         return self.Refine(*extra, depth, depth_range, dtype=self.dtype,
                            plain=plain, train=train)
 
+    def _eval_inputs(self, imgs, extrinsics, intrinsics, depth_range):
+        """The eval forward's inputs to ``_eval_segments`` (less ``plain``),
+        each as (source, dtype it is converted to or None): the images
+        stacked view by view in the compute dtype, RefineNet v1's reference
+        image (else None), the cameras in f32, the depth range as given.
+        Views only: nothing runs on the device."""
+        b, v = imgs.shape[:2]
+        return [(imgs.reshape((b * v,) + imgs.shape[2:]), self.dtype),
+                (imgs[:, 0] if isinstance(self.Refine, RefineNet) else None,
+                 None),
+                (extrinsics, torch.float32), (intrinsics, torch.float32),
+                (depth_range, None)]
+
     def _eval_forward(self, imgs, extrinsics, intrinsics, depth_range,
                       plain):
-        b, v = imgs.shape[:2]
+        inputs = [s if dtype is None else s.to(dtype) for s, dtype in
+                  self._eval_inputs(imgs, extrinsics, intrinsics,
+                                    depth_range)]
+        depth, confidence = self._eval_segments(graphs.EAGER, *inputs,
+                                                plain=plain)
+        return {"depth": depth, "confidence": confidence,
+                "coverage_ok": torch.ones((), dtype=torch.bool,
+                                          device=depth.device)}
+
+    def _eval_segments(self, run, stacked, ref_img, extrinsics, intrinsics,
+                       depth_range, *, plain):
+        """The eval forward from its converted inputs to (depth,
+        confidence), cut into the segments of ``models/graphs.py``: each
+        module call through ``run.module``, the device work between two
+        of them inside one ``run.glue``."""
+        b, v = extrinsics.shape[:2]
         nstages = len(self.ndepths)
-        stacked = imgs.reshape((b * v,) + imgs.shape[2:]).to(self.dtype)
+        kw = {"diffs": True} if self.Backbone.emit_diffs else {}
         with tracing.span("backbone"):
-            fs = self.Backbone(stacked, plain=plain)    # coarsest first
-        intrinsics, extrinsics = intrinsics.float(), extrinsics.float()
+            fs = run.module("backbone", self.Backbone, stacked,
+                            plain=plain)                # coarsest first
 
         depth = hypos = prob = None
         for stage in range(nstages):
             with tracing.span("stage"):
-                ref_proj, src_projs = geometry.projection_matrices(
-                    intrinsics, extrinsics, stage, num_stages=nstages + 1)
-                with tracing.span("hypotheses"):
-                    hypos = self._hypotheses(stage, depth_range, depth, prob,
-                                             hypos)
-                feats = fs[stage].reshape((b, v) + fs[stage].shape[1:])
-                kw = {"diffs": True} if self.Backbone.emit_diffs else {}
+                with run.glue(f"hypotheses.{stage}"):
+                    ref_proj, src_projs = geometry.projection_matrices(
+                        intrinsics, extrinsics, stage, num_stages=nstages + 1)
+                    with tracing.span("hypotheses"):
+                        hypos = self._hypotheses(stage, depth_range, depth,
+                                                 prob, hypos)
+                    feats = fs[stage].reshape((b, v) + fs[stage].shape[1:])
                 with tracing.span("aggregate"):
-                    cost = self.Homoaggre[stage](feats, ref_proj, src_projs,
-                                                 hypos, plain=plain, **kw)
+                    cost = run.module(f"aggregate.{stage}",
+                                      self.Homoaggre[stage], feats, ref_proj,
+                                      src_projs, hypos, plain=plain, **kw)
                 with tracing.span("regular"):
-                    prob = self.Regular[stage](cost.to(self.dtype),
-                                               plain=plain)
-                with tracing.span("regress"):
+                    volume = cost
+                    if cost.dtype != self.dtype:
+                        with run.glue(f"cast.{stage}"):
+                            volume = cost.to(self.dtype)
+                    prob = run.module(f"regular.{stage}",
+                                      self.Regular[stage], volume,
+                                      plain=plain)
+                # the next stage's aggregate may reuse the cost volumes'
+                # memory
+                run.transient(cost, volume)
+                del cost, volume
+                with tracing.span("regress"), run.glue(f"regress.{stage}"):
                     depth = depth_regression(prob, hypos)
 
         with tracing.span("refine"):
-            depth = self._refine(imgs, depth, depth_range, plain, False)
-        with tracing.span("confidence"):
+            extra = () if ref_img is None else (ref_img,)
+            depth = run.module("refine", self.Refine, *extra, depth,
+                               depth_range, dtype=self.dtype, plain=plain,
+                               train=False)
+        with tracing.span("confidence"), run.glue("confidence"):
             confidence = resize_nearest_2x(confidence_regression(prob))
-        return {"depth": depth, "confidence": confidence,
-                "coverage_ok": torch.ones((), dtype=torch.bool,
-                                          device=depth.device)}
+        return depth, confidence
 
 
 @contextlib.contextmanager

@@ -134,8 +134,7 @@ def refined_hypotheses(depth: torch.Tensor, depth_range: torch.Tensor,
         res = torch.abs(s * log_t)
     # the global clamp spans the whole batch (reference depthhypos.py:58)
     global_half_range = (dmax.max() - dmin.min()) / 2.0
-    res = torch.minimum(torch.maximum(res, res.new_tensor(1e-6)),
-                        global_half_range)
+    res = torch.minimum(res.clamp_min(1e-6), global_half_range)
     res = torch.minimum(res, ((dmax - dmin) * 0.2)[:, None, None])
 
     interval = res / (ndepths - 1)

@@ -41,7 +41,20 @@ The spans (``span`` is called at these sites):
   ``backward``, ``reduce`` (with a process group) and ``optimizer``;
 - ``vjp/<op>`` (``conv3d``, ``trconv3d``, ``conv2d``, ``aggregate``,
   ``sample``): the backward of the port's own ``autograd.Function``s,
-  on the thread the autograd engine runs it on.
+  on the thread the autograd engine runs it on;
+- ``graph/<segment>`` (``models/graphs.py``): one replay of one segment's
+  CUDA graph in the eval forward (``backbone``, ``hypotheses.<s>``,
+  ``aggregate.<s>``, ``cast.<s>``, ``regular.<s>``, ``regress.<s>``,
+  ``refine``, ``confidence``); the module segments' spans lie inside the
+  module's call.
+
+Beside the kernels' launch counters (``LAUNCHES`` in ``ops/cuda``),
+:data:`GRAPHS` counts the eval forward's CUDA graphs: ``captures``,
+``replays`` (forwards replayed), ``eager`` forwards by reason
+(``first_call`` of a key, ``train``, ``cpu``, ``plain``, ``halo``, and
+``hooks``: a forward hook below a segment or a global one) and
+``pool_bytes``, what the kept graphs' captures added to
+``torch.cuda.memory_reserved`` (their pools and static inputs).
 """
 from __future__ import annotations
 
@@ -61,6 +74,10 @@ PREFIX = "mdf/"
 # the CUDA runtime calls that block the host until the device catches up
 WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
          "cudaEventSynchronize", "cudaMemcpy")
+GRAPHS = {"captures": 0, "replays": 0,
+          "eager": dict.fromkeys(("first_call", "train", "cpu", "plain",
+                                  "halo", "hooks"), 0),
+          "pool_bytes": 0}
 
 
 class Span(NamedTuple):
