@@ -2,7 +2,9 @@
 and the comparison with the plain reference that decides ``correct``.
 
 Everything that belongs to a cell is found by name: the configuration's
-file (``BENCHMARK.json`` names it), the traffic mix's parameters
+file (``BENCHMARK.json`` names it), its architecture (the file's
+``reference``: ``reference/<reference>.py`` and ``archs/<reference>.py``,
+see :mod:`portbench.archs`), the traffic mix's parameters
 (``traffic/<mix>.json``), the loop that the mix names (``loops/<loop>.py``:
 its ``Loop`` drives the window, plants faults and runs the comparison), the
 cell's limits (``limits/<cell>.json``) and one reader per per-layer metric
@@ -27,7 +29,8 @@ from pathlib import Path
 
 import torch
 
-from portbench.lib import count, scenes, trace as tr, weights
+from portbench import archs
+from portbench.lib import scenes, trace as tr, weights
 
 ROOT = Path(__file__).resolve().parents[2]
 FORBIDDEN = ("jax", "jaxlib", "flax", "mdfnet_tpu")
@@ -107,8 +110,7 @@ def build_program(cfg: dict, state: dict, device, train: bool):
 
 
 def build_reference(cfg: dict, state: dict, device, operand=None):
-    ref = reference_module(cfg)
-    model = ref.MDFNet(**count.model_args(cfg)).to(device)
+    model = archs.of(cfg).build(cfg).to(device)
     model.load_state_dict(state, strict=True)
     model.set_operand_dtype(operand)
     return model.eval()
@@ -128,7 +130,7 @@ def make_state(cfg: dict, mix: dict, seed: int, device, item: dict,
     running statistics from the reference's batch statistics on ``item``
     (the first map or batch), its seconds in ``spent["calibration"]``."""
     with torch.device("meta"):
-        shapes = reference_module(cfg).MDFNet(**count.model_args(cfg))
+        shapes = archs.of(cfg).build(cfg)
     w = mix["weights"]
     state = weights.make_state(shapes, 2 * seed, device,
                                sharpen=w["sharpen"])
@@ -252,7 +254,10 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, device,
     if run.device.type == "cuda":
         torch.cuda.empty_cache()
     out["check"] = loop.check(state)
-    out.update(kind=mod.SHAPE, labels=mod.LABELS, backward=mod.BACKWARD)
+    # the loop's own spans, and those of the architecture's layers that it
+    # hooks (``Loop.layers``)
+    labels = mod.LABELS + tuple(getattr(loop, "layers", ()))
+    out.update(kind=mod.SHAPE, labels=labels, backward=mod.BACKWARD)
     return out
 
 

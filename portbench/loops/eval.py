@@ -16,34 +16,18 @@ import time
 
 import torch
 
+from portbench import archs
+from portbench.archs import mdfnet
 from portbench.lib import harness as h
 
 SHAPE = "eval"
-LAYERS = ("Backbone", "Homoaggre.0", "Homoaggre.1", "Homoaggre.2",
-          "Regular.0", "Regular.1", "Regular.2", "Refine")
-LABELS = ("input copy", "model call", "output copy") + LAYERS
+# the loop's own spans; Loop.layers adds the architecture's layers
+LABELS = ("input copy", "model call", "output copy")
+# MDF-Net's layers, which metrics/other_ms.eval.py and other_ms.device.py
+# read from this module by name: their cells run MDF-Net
+LAYERS = mdfnet.LAYERS
 BACKWARD = None
 FAULTS = ("missed tile", "stale answer")
-
-
-class Stages:
-    """Forward hooks that keep one map's per-stage hypotheses (the
-    aggregate's fourth argument) and probability volumes (the U-Net's
-    output), from which the stage depths are read."""
-
-    def __init__(self, model, n: int):
-        self.hypos, self.probs, self.handles = [None] * n, [None] * n, []
-        for s in range(n):
-            self.handles.append(model.Homoaggre[s].register_forward_pre_hook(
-                lambda _m, a, s=s: self.hypos.__setitem__(s, a[3])))
-            self.handles.append(model.Regular[s].register_forward_hook(
-                lambda _m, _a, o, s=s: self.probs.__setitem__(s, o)))
-
-    def close(self) -> list:
-        for handle in self.handles:
-            handle.remove()
-        return [(p.float() * hy.float()).sum(1).cpu()
-                for p, hy in zip(self.probs, self.hypos)]
 
 
 class Loop:
@@ -54,7 +38,9 @@ class Loop:
         self.n = run.mix["scenes"]
         self.host = h.make_data(shape, run.mix, self.n * self.batch,
                                 run.seed, run.device)
-        self.nstages = len(run.cfg["model"]["ndepths"])
+        self.arch = archs.of(run.cfg)
+        self.layers = self.arch.LAYERS
+        self.nstages = self.arch.stages(run.cfg)
         self.optimizer = self.previous = None
         gen = torch.Generator().manual_seed(run.seed)
         order = torch.randperm(run.mix["check_within"], generator=gen)
@@ -83,8 +69,8 @@ class Loop:
         with spans("input copy"):
             args = [item[k].to(run.device, non_blocking=True)
                     for k in h.INPUTS]
-        stages = Stages(model, self.nstages) if check or run.fault \
-            else None
+        stages = self.arch.stage_hooks(model, self.nstages) \
+            if check or run.fault else None
         with spans("model call"):
             t = time.perf_counter()
             out = model(*args)
@@ -131,7 +117,7 @@ class Loop:
             self.one(model, j)
 
     def span_hooks(self, model) -> list:
-        return self.run.spans.hook_modules(model, LAYERS)
+        return self.run.spans.hook_modules(model, self.layers)
 
     def check(self, state: dict) -> dict:
         """The sampled maps against the reference: per map the mean, the

@@ -6,6 +6,7 @@ import statistics
 
 import torch
 
+from portbench import archs
 from portbench.lib import harness
 
 EVAL = harness.loop_module("eval")
@@ -36,7 +37,7 @@ def test_eval_forward_matches_the_ports_plain_f32(tiny_cell):
     port = harness.build_program(cell["cfg"], state, "cpu", False)
     ref = harness.build_reference(cell["cfg"], state, "cpu")
     args = [loop.item(1)[k] for k in harness.INPUTS]
-    stages = EVAL.Stages(port, 3)
+    stages = archs.of(cell["cfg"]).stage_hooks(port, 3)
     got = port(*args, plain=True)
     got_stages = stages.close()
     want = ref(*args)
